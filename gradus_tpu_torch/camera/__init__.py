@@ -1,0 +1,11 @@
+from gradus_tpu_torch.camera.impact import (
+    local_momentum,
+    lnr_momentum_transform,
+    map_impact_parameters,
+)
+from gradus_tpu_torch.camera.pointfns import (
+    ConstPointFunctions,
+    FilterPointFunction,
+    FilterStatusCode,
+    PointFunction,
+)

@@ -1,0 +1,8 @@
+from gradus_tpu_torch.geodesics.equation import (
+    constrain,
+    constrain_all,
+    constrain_time,
+    geodesic_acceleration,
+    geodesic_equation,
+)
+from gradus_tpu_torch.geodesics.tetrads import dotproduct, lnrbasis, lnrbasis_matrix

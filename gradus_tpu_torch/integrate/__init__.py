@@ -1,0 +1,9 @@
+from gradus_tpu_torch.integrate.cuda_solver import (
+    CudaTracer,
+    cuda_integrate_rays,
+    integrate_rays_plain,
+)
+from gradus_tpu_torch.integrate.points import GeodesicPoint, unpack_solution
+from gradus_tpu_torch.integrate.solver import IntegrationResult
+from gradus_tpu_torch.integrate.status import StatusCodes
+from gradus_tpu_torch.integrate.tracing import TraceGeodesic, make_geodesic_rhs

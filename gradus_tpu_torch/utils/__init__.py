@@ -1,0 +1,6 @@
+from gradus_tpu_torch.utils.linalg import (
+    equatorial_project,
+    spinaxis_project,
+    sym4x4,
+    sym4x4_inverse_components,
+)
