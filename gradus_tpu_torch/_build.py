@@ -108,7 +108,7 @@ def _declare(lib):
         fn.argtypes = [
             vp, i64,  # y0, n
             dbl, dbl,  # M, a
-            i32, dbl, dbl,  # geometry kind, inner_r, outer_r
+            i32, dbl, dbl, dbl,  # geometry kind, inner_r, outer_r, height
             dbl, dbl, dbl, dbl,  # abstol, reltol, r_inner, r_outer
             dbl, dbl, i32, dbl,  # lam0, lam1, max_steps, dt_min
             *([vp] * 12),  # the 12 outputs

@@ -1,3 +1,11 @@
+from gradus_tpu_torch.camera.grids import (
+    CosGrid,
+    GeometricGrid,
+    InverseGrid,
+    LinearGrid,
+    LogisticGrid,
+    SinGrid,
+)
 from gradus_tpu_torch.camera.impact import (
     local_momentum,
     lnr_momentum_transform,
@@ -9,3 +17,4 @@ from gradus_tpu_torch.camera.pointfns import (
     FilterStatusCode,
     PointFunction,
 )
+from gradus_tpu_torch.camera.planes import CartesianPlane, PolarPlane

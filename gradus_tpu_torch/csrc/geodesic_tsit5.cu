@@ -2,9 +2,14 @@
 // CUDA thread integrates one ray from its initial state to its end.
 //
 // Replaces gradus_tpu/integrate/pallas_solver.py::_make_kernel (the Pallas TPU
-// kernel launched by pallas_integrate_rays), in the mode the flagship render
-// uses: Kerr metric (hand-derived components5_jac), geometry none or ThinDisc,
-// cubic-Hermite events, terminate on hit, fresh start.
+// kernel launched by pallas_integrate_rays), in the modes the flagship render
+// and the two line profiles use: Kerr metric (hand-derived components5_jac),
+// cubic-Hermite events, terminate on hit, fresh start, and one of three
+// geometry kinds:
+//   0  none
+//   1  ThinDisc(inner_r, outer_r): crossings of theta = pi/2 inside the annulus
+//   2  DatumPlane(height): every crossing of the plane r cos(theta) = height
+//      (the Cunningham transfer-function solve; one height for all rays)
 //
 // What bounds it on an H100: compute and instruction issue. Each accepted or
 // rejected step is 7 evaluations of the geodesic right-hand side (sin/cos,
@@ -48,6 +53,10 @@ constexpr int kOutOfDomain = 1;
 constexpr int kWithinInnerBoundary = 2;
 constexpr int kIntersectedWithGeometry = 3;
 
+// Geometry kind 2 (kinds 0 and 1, none and ThinDisc, are told apart by
+// geometry != 0)
+constexpr int kDatumPlane = 2;
+
 // Tsit5 tableau (integrate/tsit5.py)
 constexpr double A21 = 0.161;
 constexpr double A31 = -0.008480655492356989, A32 = 0.335480655492357;
@@ -69,8 +78,9 @@ constexpr double BT1 = -0.00178001105222577714, BT2 = -0.0008164344596567469,
 template <typename T>
 struct Params {
   T M, a;
-  int geometry;  // 0 = none, 1 = ThinDisc
-  T inner_r, outer_r;
+  int geometry;  // 0 = none, 1 = ThinDisc, 2 = DatumPlane
+  T inner_r, outer_r;  // ThinDisc
+  T height;            // DatumPlane
   T abstol, reltol;
   T r_inner, r_outer;
   T lam0, lam1;
@@ -183,15 +193,17 @@ __device__ __forceinline__ void geodesic_rhs(const Params<T>& p, const T* y,
   f[7] = -(gi_tph * A_t + gi_phph * A_ph);
 }
 
-// ThinDisc crossing indicator c = r cos(theta) and its derivative along the
-// velocity (v^r cos(theta) - r sin(theta) v^theta): the jvp of
-// pallas_solver.py:178-179 in closed form.
+// Crossing indicator c = r cos(theta) (ThinDisc) or r cos(theta) - height
+// (DatumPlane, gradus_tpu/geometry/discs.py:170-171) and its derivative along
+// the velocity, the same for both (v^r cos(theta) - r sin(theta) v^theta):
+// the jvp of pallas_solver.py:178-179 in closed form.
 template <typename T>
-__device__ __forceinline__ void crossing_jvp(const T* pos, const T* vel, T& c,
-                                             T& dc) {
+__device__ __forceinline__ void crossing_jvp(const Params<T>& p, const T* pos,
+                                             const T* vel, T& c, T& dc) {
   const T s = sin(pos[2]);
   const T co = cos(pos[2]);
   c = pos[1] * co;
+  if (p.geometry == kDatumPlane) c = c - p.height;
   dc = vel[1] * co - pos[1] * s * vel[2];
 }
 
@@ -323,8 +335,8 @@ __global__ void __launch_bounds__(128)
   int attempts = 0;
   T ln_qold = T(kLnQoldInit);
   T c_prev = T(0), dc_prev = T(0), hit_th = T(0);
-  const bool disc = p.geometry == 1;
-  if (disc) crossing_jvp(y, k1, c_prev, dc_prev);
+  const bool disc = p.geometry != 0;
+  if (disc) crossing_jvp(p, y, k1, c_prev, dc_prev);
 
   while (alive && attempts < p.max_steps) {
     ++attempts;
@@ -392,11 +404,15 @@ __global__ void __launch_bounds__(128)
     bool hit_now = false;
     if (disc) {
       T c1v, dc1v, th_c;
-      crossing_jvp(y_new, k7, c1v, dc1v);
+      crossing_jvp(p, y_new, k7, c1v, dc1v);
       const bool found =
           cubic_first_crossing(c_prev, dt_eff * dc_prev, c1v, dt_eff * dc1v, th_c);
-      if (found && accept) {
-        // Hermite position at the crossing: only r and theta are read
+      if (found && accept && p.geometry == kDatumPlane) {
+        // every crossing of the plane is a hit (discs.py:173-174)
+        hit_now = true;
+        hit_th = th_c;
+      } else if (found && accept) {
+        // ThinDisc: Hermite position at the crossing, only r and theta are read
         const T t = th_c;
         const T h00 = (T(1) + T(2) * t) * ((T(1) - t) * (T(1) - t));
         const T h10 = t * ((T(1) - t) * (T(1) - t));
@@ -462,17 +478,19 @@ __global__ void __launch_bounds__(128)
 
 template <typename T>
 int launch(const void* y0, int64_t n, double M, double a, int geometry,
-           double inner_r, double outer_r, double abstol, double reltol,
-           double r_inner, double r_outer, double lam0, double lam1,
-           int max_steps, double dt_min, void* y, void* k1, void* lam, void* dt,
-           void* lnq, void* status, void* steps, void* failed, void* cprev,
-           void* dcprev, void* hth, void* attempts, void* stream) {
+           double inner_r, double outer_r, double height, double abstol,
+           double reltol, double r_inner, double r_outer, double lam0,
+           double lam1, int max_steps, double dt_min, void* y, void* k1,
+           void* lam, void* dt, void* lnq, void* status, void* steps,
+           void* failed, void* cprev, void* dcprev, void* hth, void* attempts,
+           void* stream) {
   Params<T> p;
   p.M = T(M);
   p.a = T(a);
   p.geometry = geometry;
   p.inner_r = T(inner_r);
   p.outer_r = T(outer_r);
+  p.height = T(height);
   p.abstol = T(abstol);
   p.reltol = T(reltol);
   p.r_inner = T(r_inner);
@@ -500,16 +518,16 @@ int launch(const void* y0, int64_t n, double M, double a, int geometry,
 #define GEODESIC_TSIT5_ENTRY(NAME, T)                                          \
   extern "C" int NAME(const void* y0, int64_t n, double M, double a,           \
                       int geometry, double inner_r, double outer_r,            \
-                      double abstol, double reltol, double r_inner,            \
-                      double r_outer, double lam0, double lam1, int max_steps, \
-                      double dt_min, void* y, void* k1, void* lam, void* dt,   \
-                      void* lnq, void* status, void* steps, void* failed,      \
-                      void* cprev, void* dcprev, void* hth, void* attempts,    \
-                      void* stream) {                                          \
-    return launch<T>(y0, n, M, a, geometry, inner_r, outer_r, abstol, reltol,  \
-                     r_inner, r_outer, lam0, lam1, max_steps, dt_min, y, k1,   \
-                     lam, dt, lnq, status, steps, failed, cprev, dcprev, hth,  \
-                     attempts, stream);                                        \
+                      double height, double abstol, double reltol,             \
+                      double r_inner, double r_outer, double lam0,             \
+                      double lam1, int max_steps, double dt_min, void* y,      \
+                      void* k1, void* lam, void* dt, void* lnq, void* status,  \
+                      void* steps, void* failed, void* cprev, void* dcprev,    \
+                      void* hth, void* attempts, void* stream) {               \
+    return launch<T>(y0, n, M, a, geometry, inner_r, outer_r, height, abstol,  \
+                     reltol, r_inner, r_outer, lam0, lam1, max_steps, dt_min,  \
+                     y, k1, lam, dt, lnq, status, steps, failed, cprev,        \
+                     dcprev, hth, attempts, stream);                           \
   }
 
 GEODESIC_TSIT5_ENTRY(geodesic_tsit5_f32, float)

@@ -4,5 +4,6 @@ from gradus_tpu_torch.geodesics.equation import (
     constrain_time,
     geodesic_acceleration,
     geodesic_equation,
+    metric_jacobian,
 )
 from gradus_tpu_torch.geodesics.tetrads import dotproduct, lnrbasis, lnrbasis_matrix

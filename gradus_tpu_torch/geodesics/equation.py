@@ -19,12 +19,31 @@ import torch
 from gradus_tpu_torch.metrics.base import AbstractMetric
 
 __all__ = [
+    "metric_jacobian",
     "geodesic_equation",
     "geodesic_acceleration",
     "constrain_time",
     "constrain",
     "constrain_all",
 ]
+
+
+def metric_jacobian(m: AbstractMetric, r, theta):
+    """Value + (∂_r, ∂_θ) of the 5 metric components, each stacked on a
+    trailing axis of 5, in two forward-mode passes (reference
+    `metric_jacobian`, auto-diff.jl:206-211)."""
+    r, theta = (
+        v if isinstance(v, torch.Tensor) else torch.as_tensor(v, dtype=torch.float64)
+        for v in (r, theta)
+    )
+    dtype = torch.result_type(r, theta)
+    if not dtype.is_floating_point:
+        dtype = torch.float64
+    r, theta = torch.broadcast_tensors(r.to(dtype), theta.to(dtype))
+    ones, zeros = torch.ones_like(r), torch.zeros_like(r)
+    g, dg_dr = torch.func.jvp(m.components, (r, theta), (ones, zeros))
+    _, dg_dtheta = torch.func.jvp(m.components, (r, theta), (zeros, ones))
+    return g, dg_dr, dg_dtheta
 
 
 def geodesic_equation(m: AbstractMetric, x, v):

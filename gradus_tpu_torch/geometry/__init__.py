@@ -1,1 +1,1 @@
-from gradus_tpu_torch.geometry.discs import AbstractAccretionGeometry, ThinDisc
+from gradus_tpu_torch.geometry.discs import AbstractAccretionGeometry, DatumPlane, ThinDisc

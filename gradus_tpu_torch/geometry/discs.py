@@ -1,5 +1,6 @@
 """Accretion-disc geometry consumed by the integrator's event layer
-(counterpart of `gradus_tpu/geometry/discs.py`, the ThinDisc subset).
+(counterpart of `gradus_tpu/geometry/discs.py`, the ThinDisc and DatumPlane
+subset).
 
 `distance_to_disc(x4, gtol)` is positive away from the disc, ≤ 0 on it; the
 surface thickening is ``gtol·|r|``. Out-of-annulus queries return 1.
@@ -12,7 +13,7 @@ from torch import nn
 
 from gradus_tpu_torch.utils.linalg import equatorial_project, spinaxis_project
 
-__all__ = ["AbstractAccretionGeometry", "ThinDisc"]
+__all__ = ["AbstractAccretionGeometry", "ThinDisc", "DatumPlane"]
 
 
 class AbstractAccretionGeometry(nn.Module):
@@ -72,3 +73,29 @@ class ThinDisc(AbstractAccretionGeometry):
     def is_hit_c(self, t, r, th, ph, gtol=1e-2):
         rho = r * torch.abs(torch.sin(th))
         return (rho >= self.inner_r) & (rho <= self.outer_r)
+
+
+class DatumPlane(AbstractAccretionGeometry):
+    """Plane at constant height; no underside, no gtol widening. ``height``
+    is a registered buffer: 0-d for one plane, or (N,) for one plane per ray
+    (the thick-disc transfer functions, which the CUDA integrator does not
+    take)."""
+
+    def __init__(self, height=0.0, *, dtype=torch.float64, device=None):
+        super().__init__()
+        self.register_buffer("height", torch.as_tensor(height, dtype=dtype, device=device))
+
+    def inner_radius(self):
+        return 0.0
+
+    def distance_to_disc(self, x4, gtol=1e-2):
+        return spinaxis_project(x4, signed=True) - self.height
+
+    def crossing_indicator(self, x4):
+        return spinaxis_project(x4, signed=True) - self.height
+
+    def crossing_indicator_c(self, t, r, th, ph):
+        return r * torch.cos(th) - self.height
+
+    def is_hit_c(self, t, r, th, ph, gtol=1e-2):
+        return torch.ones_like(r, dtype=torch.bool)

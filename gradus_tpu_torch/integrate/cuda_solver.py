@@ -9,12 +9,13 @@ whole adaptive solve in registers); on a CPU tensor it runs
 `CudaTracer` wraps it the way `PallasTracer` wraps the Pallas kernel:
 constrain, integrate, Newton-polish the disc hits, unpack.
 
-Per-ray semantics match `pallas_solver._make_kernel` in the mode the flagship
-render uses: HNW initial step, FSAL Tsit5, RMS error norm, log-space PI
-controller, cubic-Hermite disc-crossing events, chart exits at step end, and
-hit rays that do not commit their step. One difference: a ray that is done
-keeps its outputs, where the TPU kernel's lockstep tile kept rewriting the
-finished rays' ``dt``.
+Per-ray semantics match `pallas_solver._make_kernel` in the modes the
+flagship render and the line profiles use: HNW initial step, FSAL Tsit5, RMS
+error norm, log-space PI controller, cubic-Hermite crossing events against no
+geometry, a `ThinDisc` or a `DatumPlane` of one height, chart exits at step
+end, and hit rays that do not commit their step. One difference: a ray that
+is done keeps its outputs, where the TPU kernel's lockstep tile kept
+rewriting the finished rays' ``dt``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from gradus_tpu_torch import config as _config
 from gradus_tpu_torch.geodesics.equation import constrain_all, geodesic_acceleration
-from gradus_tpu_torch.geometry.discs import ThinDisc
+from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
 from gradus_tpu_torch.integrate.events import cubic_first_crossing
 from gradus_tpu_torch.integrate.points import unpack_solution
 from gradus_tpu_torch.integrate.solver import (
@@ -303,10 +304,15 @@ def _check_kernel_config(m, geometry, mu, dtype):
             f"the CUDA integrator takes KerrMetric only, not {type(m).__name__} "
             "(other metrics' device Jacobians are on the ROADMAP)"
         )
-    if geometry is not None and type(geometry) is not ThinDisc:
+    if geometry is not None and type(geometry) not in (ThinDisc, DatumPlane):
         raise NotImplementedError(
-            f"the CUDA integrator takes no geometry or ThinDisc, not "
+            f"the CUDA integrator takes no geometry, ThinDisc or DatumPlane, not "
             f"{type(geometry).__name__}"
+        )
+    if type(geometry) is DatumPlane and geometry.height.dim() != 0:
+        raise NotImplementedError(
+            "the CUDA integrator takes a DatumPlane of one height; per-ray heights "
+            "(thick-disc transfer functions) are not ported yet (ROADMAP queue B)"
         )
     if float(mu) != 0.0:
         raise NotImplementedError("the CUDA integrator takes null rays (mu = 0) only")
@@ -341,10 +347,13 @@ def _launch_kernel(
         attempts=torch.empty(n, dtype=torch.int32, device=y0.device),
     )
     if n > 0:
+        inner_r = outer_r = height = 0.0
         if geometry is None:
-            kind, inner_r, outer_r = 0, 0.0, 0.0
-        else:
+            kind = 0
+        elif type(geometry) is ThinDisc:
             kind, inner_r, outer_r = 1, float(geometry.inner_r), float(geometry.outer_r)
+        else:
+            kind, height = 2, float(geometry.height)
         with torch.cuda.device(y0.device):
             rc = fn(
                 y0t.data_ptr(),
@@ -354,6 +363,7 @@ def _launch_kernel(
                 kind,
                 inner_r,
                 outer_r,
+                height,
                 float(abstol),
                 float(reltol),
                 float(r_inner),

@@ -12,28 +12,31 @@ import dataclasses
 import numpy as np
 import torch
 
-from gradus_tpu_torch.geometry.discs import ThinDisc
+from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
 from gradus_tpu_torch.integrate.points import GeodesicPoint
 from gradus_tpu_torch.metrics.kerr import KerrMetric
+from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid
 
-__all__ = ["from_numpy", "geodesic_points_from_numpy"]
+__all__ = ["from_numpy", "geodesic_points_from_numpy", "transfer_grid_from_numpy"]
 
 _KINDS = {
     "KerrMetric": (KerrMetric, ("M", "a")),
     "ThinDisc": (ThinDisc, ("inner_r", "outer_r")),
+    "DatumPlane": (DatumPlane, ("height",)),
 }
 
 
 def from_numpy(kind: str, params: dict, *, dtype=torch.float64, device=None):
-    """Build the port's ``kind`` object ("KerrMetric" or "ThinDisc") from a
-    dict of numpy parameters named as the JAX dataclass's fields."""
+    """Build the port's ``kind`` object ("KerrMetric", "ThinDisc" or
+    "DatumPlane") from a dict of numpy parameters named as the JAX
+    dataclass's fields (a DatumPlane's height may be 0-d or (N,))."""
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {sorted(_KINDS)}")
     cls, names = _KINDS[kind]
     missing = set(names) - set(params)
     if missing:
         raise ValueError(f"{kind} needs parameters {sorted(missing)}")
-    return cls(*(float(np.asarray(params[k])) for k in names), dtype=dtype, device=device)
+    return cls(*(np.asarray(params[k], np.float64) for k in names), dtype=dtype, device=device)
 
 
 def geodesic_points_from_numpy(d: dict, *, device=None) -> GeodesicPoint:
@@ -44,3 +47,14 @@ def geodesic_points_from_numpy(d: dict, *, device=None) -> GeodesicPoint:
         v = d.get(f.name)
         fields[f.name] = None if v is None else torch.as_tensor(np.asarray(v), device=device)
     return GeodesicPoint(**fields)
+
+
+def transfer_grid_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> TransferBranchGrid:
+    """A `TransferBranchGrid` of tensors from a dict of numpy arrays keyed by
+    the field names."""
+    return TransferBranchGrid(
+        **{
+            f.name: torch.as_tensor(np.asarray(d[f.name]), dtype=dtype, device=device)
+            for f in dataclasses.fields(TransferBranchGrid)
+        }
+    )

@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gradus_tpu_torch.camera import map_impact_parameters  # noqa: E402
-from gradus_tpu_torch.geometry import ThinDisc  # noqa: E402
+from gradus_tpu_torch.geometry import DatumPlane, ThinDisc  # noqa: E402
 from gradus_tpu_torch.integrate import StatusCodes, cuda_solver  # noqa: E402
 from gradus_tpu_torch.integrate.cuda_solver import (  # noqa: E402
     CudaTracer,
@@ -66,6 +66,40 @@ def test_kernel_matches_plain_version_f64(dev, with_disc):
     assert (gk.lam_max[keep] - gp.lam_max[keep]).abs().max() < 1e-6
 
 
+def test_datum_plane_kernel_matches_plain_version_f64(dev):
+    """Transfer-function rays (image-plane offsets ρ ∈ [1.5, 60], i=60°)
+    against DatumPlane(0.5), as `transfer/cuda_ctf.py` traces them."""
+    rng = np.random.default_rng(6)
+    n, dtype, span = 512, torch.float64, (0.0, 2000.0)
+    rho, th = rng.uniform(1.5, 60.0, n), rng.uniform(0.0, 2 * math.pi, n)
+    m = KerrMetric(1.0, 0.998, device=dev)
+    x = torch.tensor([0.0, 1000.0, math.radians(60.0), 0.0], dtype=dtype, device=dev)
+    v = map_impact_parameters(
+        m,
+        x,
+        torch.as_tensor(rho * np.cos(th), device=dev),
+        torch.as_tensor(rho * np.sin(th), device=dev),
+    )
+    tracer = CudaTracer(m, geometry=DatumPlane(0.5, device=dev), chart_outer=2000.0)
+    y0 = tracer._constrain(x.expand_as(v), v)
+    kw = tracer._integrate_kwargs(dtype)
+    before = cuda_solver.KERNEL_LAUNCHES
+    gk = tracer._finish(cuda_integrate_rays(m, y0, span, **kw), y0, span[0])
+    assert cuda_solver.KERNEL_LAUNCHES == before + 1
+    gp = tracer._finish(integrate_rays_plain(m, y0, span, **kw), y0, span[0])
+    torch.cuda.synchronize()
+    assert (gk.status == gp.status).double().mean() >= 0.999
+    hit = (gk.status == StatusCodes.IntersectedWithGeometry) & (gp.status == gk.status)
+    assert hit.double().mean() > 0.9
+    # relative to max(1, |value|): t, φ and λ reach ~1000 on rays that graze
+    # the photon orbit, where reltol 1e-9 alone allows 1e-6 (chip_smoke.py)
+    ends_k = torch.cat([gk.x[hit], gk.lam_max[hit, None]], dim=-1)
+    ends_p = torch.cat([gp.x[hit], gp.lam_max[hit, None]], dim=-1)
+    assert ((ends_k - ends_p).abs() / ends_p.abs().clamp(min=1.0)).max() < 1e-6
+    z = gk.x[hit, 1] * torch.cos(gk.x[hit, 2])
+    assert (z - 0.5).abs().max() < 1e-6
+
+
 def test_kernel_rejects_what_it_does_not_take(dev):
     m, xs, v = _rays(dev, torch.float32, n=8)
     y0 = torch.cat([xs, v], dim=-1)
@@ -74,3 +108,5 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         cuda_integrate_rays(m, y0, SPAN, mu=1.0, **kw)
     with pytest.raises(NotImplementedError):
         cuda_integrate_rays(m, y0.half(), SPAN, **kw)
+    with pytest.raises(NotImplementedError):
+        cuda_integrate_rays(m, y0, SPAN, geometry=DatumPlane([0.0] * 8, device=dev), **kw)

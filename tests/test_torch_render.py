@@ -103,8 +103,9 @@ def test_interop_round_trip():
     assert m.M.dtype == torch.float32
     assert (float(m.M), float(m.a)) == (1.5, pytest.approx(0.7))
     assert (float(d.inner_r), float(d.outer_r)) == (2.0, 60.0)
+    assert float(from_numpy("DatumPlane", {"height": np.asarray(1.0)}).height) == 1.0
     with pytest.raises(ValueError):
-        from_numpy("DatumPlane", {"height": np.asarray(1.0)})
+        from_numpy("ShakuraSunyaev", {"eddington_ratio": np.asarray(0.3)})
 
     rng = np.random.default_rng(3)
     fields = dict(
