@@ -51,8 +51,9 @@ from gradus_tpu_torch.integrate.cuda_solver import (
     cuda_integrate_rays,
     integrate_rays_plain,
 )
+from gradus_tpu_torch import metrics
 from gradus_tpu_torch.lineprofile import binned_flux, lineprofile
-from gradus_tpu_torch.metrics import KerrMetric
+from gradus_tpu_torch.metrics import JohannsenMetric, JohannsenPsaltisMetric, KerrMetric
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.utils import equatorial_project
 
@@ -64,6 +65,50 @@ CTF_X_OBS = [0.0, 1000.0, math.radians(60.0), 0.0]
 CTF_BINS = (0.1, 1.5, 180)
 # bench.py:227: the first moment Σ(flux·g)/Σflux of that profile, f64 on a CPU
 M1_F64_CPU = 0.9201437735481984
+# the render goldens' camera (tests/test_render.py): r = 100, i = 85°, λ ≤ 200
+GOLDEN_X_OBS = [0.0, 100.0, math.radians(85.0), 0.0]
+# the deformed metrics at the parameters of tests/test_metrics.py:26-32
+DEFORMED = {
+    "JohannsenMetric": dict(M=1.0, a=0.6, alpha13=0.2, alpha22=0.1, eps3=0.5),
+    "JohannsenPsaltisMetric": dict(M=1.0, a=0.6, eps3=2.0),
+    "NoZMetric": dict(M=1.0, a=0.5, eps=0.3),
+    "BumblebeeMetric": dict(M=1.0, a=0.2, l=0.1),
+    "DilatonAxion": dict(M=1.0, a=0.5, beta=0.2, b=1.0),
+}
+# The bumblebee metric's inner radius is Kerr's M + √(M² − a²), as in the
+# reference, which lies inside its horizon at r = 2M: an infalling ray slows
+# there without end and runs to max_steps. Its chart stops at 1.01 · 2M.
+CHART_INNER = {"BumblebeeMetric": 2.02}
+# the flagship camera with the Johannsen-Psaltis metric of Gradus.jl's
+# deformed line-profile golden
+JP = dict(M=1.0, a=0.6, eps3=2.0)
+
+
+# The kernel's operations (additions, multiplications, divisions, square
+# roots and transcendental calls, one each) per ray start and per attempted
+# step, counted by running its C++ on a CPU with a counting scalar over 512
+# rays of each configuration: `python -m gradus_tpu_torch.opcount`.
+KERNEL_OPS = {
+    "kerr": (427.0, 1641.5810057681372),
+    "johannsen_psaltis": (675.0, 2385.5925913741485),
+}
+# NVIDIA H100 SXM data sheet, at its 700 W limit: FP32 and FP64 outside the
+# tensor cores, and HBM3
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _bound(metric, rays, attempts, dtype):
+    """(the least milliseconds the card could take for the kernel's work on
+    these rays, what bounds it): the larger of the operations (per ray
+    start and per attempted step, `KERNEL_OPS`) over the peak rate and the
+    bytes it must move (8 state values in; 22 values and 4 int32 out per
+    ray) over the memory rate."""
+    per_start, per_step = KERNEL_OPS[metric]
+    ops_ms = (rays * per_start + attempts * per_step) / PEAK_OPS[dtype] * 1e3
+    itemsize = torch.finfo(dtype).bits // 8
+    bytes_ms = rays * (30 * itemsize + 16) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def _say(phase, **fields):
@@ -212,10 +257,139 @@ def _datum_plane_group(dev, n=8192, n_raised=2048):
     return out
 
 
-def phase_kernel_vs_plain(dev, n_disc=8192, n_free=2048, n_datum=8192):
+def _hit_ends_rel(gk, gp):
+    """Max over rays that both versions hit of |Δ| / max(1, |value|), over
+    the polished position and λ."""
+    hit = (gk.status == HIT) & (gp.status == HIT)
+    ends_k = torch.cat([gk.x[hit], gk.lam_max[hit, None]], dim=-1)
+    ends_p = torch.cat([gp.x[hit], gp.lam_max[hit, None]], dim=-1)
+    diff = (ends_k - ends_p).abs()
+    return int(hit.sum()), float(diff.max()), float((diff / ends_p.abs().clamp(min=1.0)).max())
+
+
+def _metrics_group(dev, n=1024):
+    """Each deformed metric's kernel (the dual-number right-hand side)
+    against its plain version (the AD Jacobian) on the same card tensors,
+    after the polish, at the render goldens' camera against ThinDisc(0, 40):
+    f64 for all five, f32 for Johannsen-Psaltis. f64: statuses ≥ 0.999
+    identical and hits within 1e-6 relative to max(1, |value|); f32: the
+    median relative dot-product redshift of the hits ≤ 1e-4."""
+    rng = np.random.default_rng(22)
+    alpha, beta = rng.uniform(-9.5, 9.5, n), rng.uniform(-9.5, 9.5, n)
+    span = (0.0, 200.0)
+    out = {}
+    cases = [(kind, kind, torch.float64) for kind in DEFORMED]
+    cases.append(("JohannsenPsaltisMetric_f32", "JohannsenPsaltisMetric", torch.float32))
+    for name, kind, dtype in cases:
+        m = getattr(metrics, kind)(**DEFORMED[kind], dtype=dtype, device=dev)
+        x = torch.tensor(GOLDEN_X_OBS, dtype=dtype, device=dev)
+        tracer = CudaTracer(
+            m, geometry=ThinDisc(0.0, 40.0, dtype=dtype, device=dev), chart_inner=CHART_INNER.get(kind)
+        )
+        A = torch.as_tensor(alpha, dtype=dtype, device=dev)
+        B = torch.as_tensor(beta, dtype=dtype, device=dev)
+        y0 = _constrained(tracer, m, x, A, B)
+        kw = tracer._integrate_kwargs(dtype)
+        cuda_integrate_rays(m, y0, span, **kw)  # warm-up
+        (out_k, ms_k), (out_p, ms_p) = (
+            _timed(lambda f=f: f(m, y0, span, **kw))
+            for f in (cuda_integrate_rays, integrate_rays_plain)
+        )
+        gk, gp = tracer._finish(out_k, y0, span[0]), tracer._finish(out_p, y0, span[0])
+        torch.cuda.synchronize()
+        hits, err_abs, err_rel = _hit_ends_rel(gk, gp)
+        res = dict(
+            rays=n,
+            status_agree=float((gk.status == gp.status).double().mean()),
+            hits=hits,
+            hit_max_abs_err=err_abs,
+            hit_max_rel_err=err_rel,
+            attempts=int(out_k["attempts"].sum()),
+            kernel_ms=ms_k,
+            plain_ms=ms_p,
+        )
+        if dtype == torch.float64:
+            if res["status_agree"] < 0.999 or res["hit_max_rel_err"] > 1e-6:
+                raise AssertionError(f"{name} kernel/plain disagree: {res}")
+        else:
+            pf = ConstPointFunctions.redshift(m, x)
+            hit = (gk.status == HIT) & (gp.status == HIT)
+            res["g_median_rel"] = float(_rel(pf(m, gk, span[1])[hit], pf(m, gp, span[1])[hit]).median())
+            if res["status_agree"] < 0.995 or res["g_median_rel"] > 1e-4:
+                raise AssertionError(f"{name} kernel/plain disagree: {res}")
+        out[name] = res
+    return out
+
+
+def _dual_vs_hand(dev, n=8192, n_full=262144):
+    """Johannsen without deviations is Kerr: the kernel's dual-number
+    right-hand side against Kerr's hand-derived one on the same flagship
+    rays, both through the kernel. f64: statuses ≥ 0.999 identical, hits
+    within 1e-6 relative to max(1, |value|). The kernel times of both, in
+    f64 and f32, give the cost of the AD path: on ``n`` rays, whose launch
+    fills half the SMs with 4 warps and waits on its slowest ray, and per
+    attempted step on ``n_full`` rays, which fill the card."""
+    rng = np.random.default_rng(23)
+    alpha, beta = rng.uniform(-28.0, 28.0, n_full), rng.uniform(-18.0, 18.0, n_full)
+    out = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        x = torch.tensor(X_OBS, dtype=dtype, device=dev)
+        d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev)
+        A = torch.as_tensor(alpha, dtype=dtype, device=dev)
+        B = torch.as_tensor(beta, dtype=dtype, device=dev)
+        runs = []
+        for m in (
+            JohannsenMetric(1.0, 0.998, dtype=dtype, device=dev),
+            KerrMetric(1.0, 0.998, dtype=dtype, device=dev),
+        ):
+            tracer = CudaTracer(m, geometry=d)
+            y0_full = _constrained(tracer, m, x, A, B)
+            y0 = y0_full[:n]
+            kw = tracer._integrate_kwargs(dtype)
+            cuda_integrate_rays(m, y0, SPAN, **kw)  # warm-up
+            raw, ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **kw))
+            raw_full, ms_full = _timed(lambda: cuda_integrate_rays(m, y0_full, SPAN, **kw))
+            attempts = raw["attempts"]
+            ns_per_step = ms_full * 1e6 / int(raw_full["attempts"].sum())
+            gp = tracer._finish(raw, y0, SPAN[0])
+            runs.append((gp, ms, int(attempts.sum()), int(attempts.max()), ms_full, ns_per_step))
+        torch.cuda.synchronize()
+        (g_dual, ms_dual, att_dual, tail_dual, full_dual, ns_dual) = runs[0]
+        (g_hand, ms_hand, att_hand, tail_hand, full_hand, ns_hand) = runs[1]
+        hits, err_abs, err_rel = _hit_ends_rel(g_dual, g_hand)
+        res = dict(
+            rays=n,
+            status_agree=float((g_dual.status == g_hand.status).double().mean()),
+            hits=hits,
+            hit_max_abs_err=err_abs,
+            hit_max_rel_err=err_rel,
+            dual_ms=ms_dual,
+            hand_ms=ms_hand,
+            dual_over_hand=ms_dual / ms_hand,
+            attempts_dual=att_dual,
+            attempts_hand=att_hand,
+            max_attempts_dual=tail_dual,
+            max_attempts_hand=tail_hand,
+            full_rays=n_full,
+            full_dual_ms=full_dual,
+            full_hand_ms=full_hand,
+            ns_per_attempted_step_dual=ns_dual,
+            ns_per_attempted_step_hand=ns_hand,
+            dual_over_hand_per_step=ns_dual / ns_hand,
+        )
+        if name == "f64" and (res["status_agree"] < 0.999 or res["hit_max_rel_err"] > 1e-6):
+            raise AssertionError(f"dual vs hand {name} disagree: {res}")
+        if name == "f32" and res["status_agree"] < 0.995:
+            raise AssertionError(f"dual vs hand {name} disagree: {res}")
+        out[name] = res
+    return out
+
+
+def phase_kernel_vs_plain(dev, n_disc=8192, n_free=2048, n_datum=8192, n_metric=1024, n_dual=8192):
     """The kernel and its plain version on the same card tensors, compared
-    after the polish: flagship rays with the disc, rays without one, and
-    transfer-function rays against a DatumPlane."""
+    after the polish: flagship rays with the disc, rays without one,
+    transfer-function rays against a DatumPlane, and the deformed metrics;
+    then the kernel's dual-number path against its hand-derived Kerr path."""
     rng = np.random.default_rng(20)
     alpha = rng.uniform(-28.0, 28.0, n_disc + n_free)
     beta = rng.uniform(-18.0, 18.0, n_disc + n_free)
@@ -257,19 +431,24 @@ def phase_kernel_vs_plain(dev, n_disc=8192, n_free=2048, n_datum=8192):
         elif agree < 0.995 or g_rel > 1e-4:
             raise AssertionError(f"f32 kernel/plain disagree: {results[name]}")
     results["datum_plane"] = _datum_plane_group(dev, n_datum)
+    results["metrics"] = _metrics_group(dev, n_metric)
+    results["dual_vs_hand"] = _dual_vs_hand(dev, n_dual)
     _say("kernel_vs_plain", **results)
     return results
 
 
 def phase_goldens(dev):
-    """tests/test_render.py's goldens through the kernel, f64."""
+    """tests/test_render.py's goldens through the kernel, f64: the Kerr
+    shadow and thin disc, and the Johannsen (a = 0) shadow through the
+    dual-number path."""
     sums = {}
     A, B = _pixel_grid(20, 20, (-9.5, 9.5), (-9.5, 9.5), 1e-6, torch.float64, dev)
-    x = torch.tensor([0.0, 100.0, math.radians(85.0), 0.0], dtype=torch.float64, device=dev)
-    m = KerrMetric(1.0, 0.0, device=dev)
-    for name, d, golden in (
-        ("shadow", None, 9009.452876609641),
-        ("thin_disc", ThinDisc(0.0, 40.0, device=dev), 38412.08347901267),
+    x = torch.tensor(GOLDEN_X_OBS, dtype=torch.float64, device=dev)
+    kerr = KerrMetric(1.0, 0.0, device=dev)
+    for name, m, d, golden in (
+        ("shadow", kerr, None, 9009.452876609641),
+        ("thin_disc", kerr, ThinDisc(0.0, 40.0, device=dev), 38412.08347901267),
+        ("johannsen_shadow", JohannsenMetric(1.0, 0.0, device=dev), None, 9009.448935932085),
     ):
         before = cuda_solver.KERNEL_LAUNCHES
         v = map_impact_parameters(m, x, A, B)
@@ -283,11 +462,16 @@ def phase_goldens(dev):
     _say("goldens", **sums)
 
 
-def phase_main_path(dev, side=1024):
-    """The flagship render, f32, side² rays, through the port's entry points."""
+def _full_render(dev, m, side, name, ops_key):
+    """A side² render, f32, at the flagship camera (r = 1000, i = 75°,
+    ThinDisc(0, 50), λ ∈ (0, 2200)) through the port's entry points, with
+    the metric's redshift point function; one warm-up and three timed
+    renders, one kernel launch each. Every 64th pixel is held against the
+    plain version on the card."""
     dtype = torch.float32
     n = side * side
-    m, d, x = _flagship(dtype, dev)
+    d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev)
+    x = torch.tensor(X_OBS, dtype=dtype, device=dev)
     pf = ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected()
     tracer = CudaTracer(m, geometry=d)
 
@@ -310,13 +494,13 @@ def phase_main_path(dev, side=1024):
     launches = cuda_solver.KERNEL_LAUNCHES
     aux = tracer.last_aux
     if launches != 4:
-        raise AssertionError(f"4 renders launched the kernel {launches} times")
+        raise AssertionError(f"{name}: 4 renders launched the kernel {launches} times")
     if int(aux["unfinished"]) != 0:
-        raise AssertionError(f"{int(aux['unfinished'])} rays unfinished")
+        raise AssertionError(f"{name}: {int(aux['unfinished'])} rays unfinished")
     finite = torch.isfinite(img)
     g = img[finite]
     if finite.sum() == 0 or not bool(((g > 0) & (g < 2)).all()) or float(g.max()) <= 1.0:
-        raise AssertionError("redshift image out of range")
+        raise AssertionError(f"{name}: redshift image out of range")
     dt = statistics.median(times)
     executed = int(aux["warp_iters"].sum())
     useful = int(aux["steps"].sum())
@@ -327,29 +511,25 @@ def phase_main_path(dev, side=1024):
     A, B = _pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, dtype, dev)
     y0 = _constrained(tracer, m, x, A[idx], B[idx])
     kw = tracer._integrate_kwargs(dtype)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    out_p = integrate_rays_plain(m, y0, SPAN, **kw)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    out_p, plain_ms = _timed(lambda: integrate_rays_plain(m, y0, SPAN, **kw))
     g_p = pf(m, tracer._finish(out_p, y0, SPAN[0]), SPAN[1])
     g_k = img[idx]
     mask_agree = float((torch.isfinite(g_k) == torch.isfinite(g_p)).double().mean())
     both = torch.isfinite(g_k) & torch.isfinite(g_p)
     g_rel = float(_rel(g_k[both], g_p[both]).median())
-    if mask_agree < 0.995 or g_rel > 1e-4:
-        raise AssertionError(f"subset: hit mask agree {mask_agree}, median rel g {g_rel}")
+    if mask_agree < 0.995 or not g_rel <= 1e-4:
+        raise AssertionError(f"{name} subset: hit mask agree {mask_agree}, median rel g {g_rel}")
 
-    kernel_ms = []
     cuda_integrate_rays(m, y0, SPAN, **kw)  # warm-up
+    kernel_ms, subset_attempts = [], 0
     for _ in range(3):
-        start.record()
-        cuda_integrate_rays(m, y0, SPAN, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        kernel_ms.append(start.elapsed_time(end))
+        out_k, ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **kw))
+        kernel_ms.append(ms)
+        subset_attempts = int(out_k["attempts"].sum())
+    # the kernel alone on every ray of the render
+    y0_full = _constrained(tracer, m, x, A, B)
+    out_full, full_ms = _timed(lambda: cuda_integrate_rays(m, y0_full, SPAN, **kw))
+    full_bound_ms, _ = _bound(ops_key, n, int(out_full["attempts"].sum()), dtype)
     result = dict(
         rays=n,
         seconds_per_render=dt,
@@ -369,9 +549,27 @@ def phase_main_path(dev, side=1024):
         subset_g_median_rel=g_rel,
         subset_kernel_ms=statistics.median(kernel_ms),
         subset_plain_ms=plain_ms,
+        subset_attempted_lane_steps=subset_attempts,
+        full_kernel_ms=full_ms,
+        full_bound_ms=full_bound_ms,
+        full_bound_share=full_bound_ms / full_ms,
     )
-    _say("main_path", **result)
+    _say(name, **result)
     return result
+
+
+def phase_main_path(dev, side=1024):
+    """The flagship render: Kerr a = 0.998, analytic redshift."""
+    m = KerrMetric(1.0, 0.998, dtype=torch.float32, device=dev)
+    return _full_render(dev, m, side, "main_path", "kerr")
+
+
+def phase_deformed_render(dev, side=1024):
+    """The flagship camera with Johannsen-Psaltis (a = 0.6, ε₃ = 2) through
+    the kernel's dual-number path, and the dot-product redshift (generic
+    ISCO, Keplerian and plunging disc velocities)."""
+    m = JohannsenPsaltisMetric(**JP, dtype=torch.float32, device=dev)
+    return _full_render(dev, m, side, "deformed_render", "johannsen_psaltis")
 
 
 def _m1(flux, bins):
@@ -396,37 +594,46 @@ def _device_busy_ms(fn):
 
 def phase_ctf_golden(dev):
     """Gradus.jl's test-cunningham.jl edges through the kernel, f64
-    (tests/test_transfer.py:32-67): Kerr a=0.6, i=60°, ThinDisc(0, 250)."""
-    m = KerrMetric(1.0, 0.6, device=dev)
-    x = torch.tensor(CTF_X_OBS, dtype=torch.float64, device=dev)
-    bins = torch.linspace(0.1, 1.3, 100, dtype=torch.float64, device=dev)
-    before = cuda_solver.KERNEL_LAUNCHES
-    t0 = time.perf_counter()
-    bins, flux = lineprofile(
-        m, x, ThinDisc(0.0, 250.0, device=dev), bins=bins, N=40, num_re=30, backend="cuda"
-    )
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = cuda_solver.KERNEL_LAUNCHES - before
-    b, f = bins.cpu().numpy(), flux.cpu().numpy()
-    nz = np.nonzero(f > 0)[0]
-    res = dict(
-        seconds=seconds,
-        launches=launches,
-        g_low=float(b[nz[0]]),
-        g_high=float(b[nz[-1]]),
-        flux_sum=float(f.sum()),
-        peak_g=float(b[np.argmax(f)]),
-    )
-    if launches == 0:
-        raise AssertionError("the CTF golden did not go through the kernel")
-    if abs(res["g_low"] - 0.355) > 0.05 or abs(res["g_high"] - 1.2) > 0.05:
-        raise AssertionError(f"CTF line-profile edges off the Gradus.jl goldens: {res}")
-    if not math.isclose(res["flux_sum"], 1.0, rel_tol=1e-10) or (f < 0).any():
-        raise AssertionError(f"CTF line profile not normalised: {res}")
-    if not 0.9 < res["peak_g"] < 1.25:
-        raise AssertionError(f"CTF line-profile peak off: {res}")
-    _say("ctf_golden", **res)
+    (tests/test_transfer.py:32-84): i=60°, ThinDisc(0, 250), bins
+    0.1:1.3×100, N=40, num_re=30, for Kerr a=0.6 (red edge 0.355) and
+    Johannsen-Psaltis a=0.6, ε₃=2 (red edge 0.27, through the dual-number
+    path, the generic ISCO and the Keplerian redshift)."""
+    out = {}
+    for name, m, g_low in (
+        ("kerr", KerrMetric(1.0, 0.6, device=dev), 0.355),
+        ("johannsen_psaltis", JohannsenPsaltisMetric(**JP, device=dev), 0.27),
+    ):
+        x = torch.tensor(CTF_X_OBS, dtype=torch.float64, device=dev)
+        bins = torch.linspace(0.1, 1.3, 100, dtype=torch.float64, device=dev)
+        before = cuda_solver.KERNEL_LAUNCHES
+        t0 = time.perf_counter()
+        bins, flux = lineprofile(
+            m, x, ThinDisc(0.0, 250.0, device=dev), bins=bins, N=40, num_re=30, backend="cuda"
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = cuda_solver.KERNEL_LAUNCHES - before
+        b, f = bins.cpu().numpy(), flux.cpu().numpy()
+        nz = np.nonzero(f > 0)[0]
+        res = dict(
+            seconds=seconds,
+            launches=launches,
+            g_low=float(b[nz[0]]),
+            g_high=float(b[nz[-1]]),
+            flux_sum=float(f.sum()),
+            peak_g=float(b[np.argmax(f)]),
+        )
+        if launches == 0:
+            raise AssertionError(f"the {name} CTF golden did not go through the kernel")
+        if abs(res["g_low"] - g_low) > 0.05 or abs(res["g_high"] - 1.2) > 0.05:
+            raise AssertionError(f"{name} CTF line-profile edges off the Gradus.jl goldens: {res}")
+        if not math.isclose(res["flux_sum"], 1.0, rel_tol=1e-10) or (f < 0).any():
+            raise AssertionError(f"{name} CTF line profile not normalised: {res}")
+        if name == "kerr" and not 0.9 < res["peak_g"] < 1.25:
+            raise AssertionError(f"CTF line-profile peak off: {res}")
+        out[name] = res
+    _say("ctf_golden", **out)
+    return out
 
 
 def phase_ctf_lineprofile(dev):
@@ -487,7 +694,9 @@ def _binned_profile(dev, side, incl_deg, r_max_plane, bins, isco_margin, max_re)
     """`bench_binning`'s path: a side×side geometric polar plane traced by
     `CudaTracer` against ThinDisc(0, ∞) over λ ∈ (0, 2000), then
     `binned_flux` with the analytic redshift, ε = r⁻³ and rₑ ∈
-    [isco + isco_margin, max_re]. Returns (profile, tracer)."""
+    [isco + isco_margin, max_re]. Returns (profile, tracer, kernel_only),
+    the last timing the kernel alone on the plane's rays: (attempted
+    lane-steps, ms)."""
     lam_max = 2000.0
     dtype = torch.float32
     m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
@@ -513,7 +722,14 @@ def _binned_profile(dev, side, incl_deg, r_max_plane, bins, isco_margin, max_re)
             redshift_pf=pf,
         )
 
-    return profile, tracer
+    def kernel_only():
+        alpha, beta = plane.impact_parameters()
+        y0 = _constrained(tracer, m, x, alpha, beta)
+        kw = tracer._integrate_kwargs(dtype)
+        out, ms = _timed(lambda: cuda_integrate_rays(m, y0, (0.0, lam_max), **kw))
+        return int(out["attempts"].sum()), ms
+
+    return profile, tracer, kernel_only
 
 
 def phase_binning_lineprofile(dev, ctf_flux, side=1000):
@@ -521,7 +737,7 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
     r_max 50, bins 0.1:1.4×200, rₑ ∈ [isco, 200]); then once at the CTF
     profile's configuration, to compare the two methods."""
     bins = torch.linspace(0.1, 1.4, 200, dtype=torch.float32, device=dev)
-    profile, tracer = _binned_profile(dev, side, 70.0, 50.0, bins, 0.0, 200.0)
+    profile, tracer, kernel_only = _binned_profile(dev, side, 70.0, 50.0, bins, 0.0, 200.0)
     n = side * side
     cuda_solver.KERNEL_LAUNCHES = 0
     torch.cuda.synchronize()
@@ -546,10 +762,12 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
     dt = statistics.median(times)
     executed = int(aux["warp_iters"].sum())
     useful = int(aux["steps"].sum())
+    attempted, kernel_ms = kernel_only()
+    bound_ms, _ = _bound("kerr", n, attempted, torch.float32)
 
     # the binned method at the transfer-function profile's configuration
     ctf_bins = torch.linspace(*CTF_BINS, dtype=torch.float32, device=dev)
-    profile60, _ = _binned_profile(dev, side, 60.0, 250.0, ctf_bins, 1e-2, 50.0)
+    profile60, _, _ = _binned_profile(dev, side, 60.0, 250.0, ctf_bins, 1e-2, 50.0)
     fb = profile60().double().cpu().numpy()
     g = ctf_bins.double().cpu().numpy()
     top = ctf_flux > 1e-3 * ctf_flux.max()
@@ -563,8 +781,12 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
         flux_sum=total,
         nonzero_bins=nonzero,
         executed_lane_steps=executed,
+        attempted_lane_steps=attempted,
         useful_ray_steps=useful,
         wasted_step_fraction=1.0 - useful / max(executed, 1),
+        kernel_ms=kernel_ms,
+        bound_ms=bound_ms,
+        bound_share=bound_ms / kernel_ms,
         vs_ctf_bins_compared=int(top.sum()),
         vs_ctf_median_rel=float(np.median(np.abs(fb[top] - ctf_flux[top]) / ctf_flux[top])),
         m1_binned=_m1(fb, g),
@@ -591,10 +813,20 @@ def main():
     checks = timed_phase("kernel_vs_plain", phase_kernel_vs_plain, dev)
     timed_phase("goldens", phase_goldens, dev)
     rendered = timed_phase("main_path", phase_main_path, dev)
+    deformed = timed_phase("deformed_render", phase_deformed_render, dev)
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
     binned = timed_phase("binning_lineprofile", phase_binning_lineprofile, dev, ctf_flux)
     _say("timing", seconds=seconds, total_seconds=time.perf_counter() - t_start)
+    bound_ms, bound_by = _bound(
+        "kerr", rendered["subset_rays"], rendered["subset_attempted_lane_steps"], torch.float32
+    )
+    deformed_bound_ms, deformed_bound_by = _bound(
+        "johannsen_psaltis",
+        deformed["subset_rays"],
+        deformed["subset_attempted_lane_steps"],
+        torch.float32,
+    )
     print(
         json.dumps(
             {
@@ -608,12 +840,38 @@ def main():
                         "max_abs_err": checks["f64"]["hit_max_abs_err"],
                         "ms": rendered["subset_kernel_ms"],
                         "plain_ms": rendered["subset_plain_ms"],
+                        "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms": None,
                         "modes": ["none", "thin_disc", "datum_plane"],
+                        "metrics": [
+                            "kerr",
+                            "johannsen",
+                            "johannsen_psaltis",
+                            "noz",
+                            "bumblebee",
+                            "dilaton_axion",
+                        ],
                         "datum_plane_max_abs_err": checks["datum_plane"]["f64"][
                             "hit_max_abs_err"
                         ],
+                        "metrics_max_abs_err": max(
+                            checks["metrics"][kind]["hit_max_abs_err"] for kind in DEFORMED
+                        ),
+                        "dual_max_abs_err": checks["dual_vs_hand"]["f64"]["hit_max_abs_err"],
+                        "dual_over_hand_per_step": checks["dual_vs_hand"]["f32"][
+                            "dual_over_hand_per_step"
+                        ],
+                        "deformed_render": {
+                            "launches": deformed["launches"],
+                            "ms": deformed["subset_kernel_ms"],
+                            "plain_ms": deformed["subset_plain_ms"],
+                            "bound_ms": deformed_bound_ms,
+                            "bound_by": deformed_bound_by,
+                        },
                         "launches_by_path": {
                             "flagship_render": rendered["launches"],
+                            "deformed_render": deformed["launches"],
                             "ctf_lineprofile": ctf["launches"],
                             "binning_lineprofile": binned["launches"],
                         },

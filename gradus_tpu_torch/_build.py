@@ -2,8 +2,10 @@
 interface, at first use, and load it with ctypes.
 
 The library goes to ``build/gradus_tpu_torch/`` at the root of the checkout,
-under a name that hashes the sources and the flags, so an edited source
-rebuilds. Only the sources in this package are compiled.
+under a name that hashes the sources, the headers and the flags, so an
+edited ``.cu`` or ``.cuh`` file rebuilds. Each ``.cu`` file is compiled by
+its own nvcc, all started together, and the objects are linked into one
+library. Only the sources in this package are compiled.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -53,6 +54,28 @@ def _sources():
     return sorted(_CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(_CSRC.glob("*.cuh"))
+
+
+def _run_nvcc(cmds):
+    """Run the nvcc commands concurrently; (their stdout+stderr, joined).
+    Raises on the first that fails."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+    if failed is not None:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library, once per
     process. Raises if the toolkit is missing or the build fails."""
@@ -61,7 +84,7 @@ def load_library() -> ctypes.CDLL:
         return _lib
     sources = _sources()
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -72,15 +95,17 @@ def load_library() -> ctypes.CDLL:
     built = False
     if not target.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        log_path.write_text(proc.stdout + proc.stderr)
+        nvcc = _nvcc()
+        stem = f"{target.stem}.{os.getpid()}"
+        objs = [_BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
+        log = _run_nvcc(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources, objs)]
+        )
+        tmp = target.with_name(f"{stem}.tmp.so")
+        log += _run_nvcc([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]])
+        for o in objs:
+            o.unlink()
+        log_path.write_text(log)
         os.replace(tmp, target)
         built = True
     lib = ctypes.CDLL(str(target))
@@ -107,7 +132,8 @@ def _declare(lib):
         fn = getattr(lib, name)
         fn.argtypes = [
             vp, i64,  # y0, n
-            dbl, dbl,  # M, a
+            i32, dbl, dbl,  # metric kind, M, a
+            ctypes.POINTER(dbl),  # the metric's deformation parameters, double[5]
             i32, dbl, dbl, dbl,  # geometry kind, inner_r, outer_r, height
             dbl, dbl, dbl, dbl,  # abstol, reltol, r_inner, r_outer
             dbl, dbl, i32, dbl,  # lam0, lam1, max_steps, dt_min

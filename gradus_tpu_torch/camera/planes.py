@@ -1,6 +1,6 @@
 """Image planes: polar and cartesian pixelizations of the (α, β) plane
 (counterpart of `gradus_tpu/camera/planes.py`). Arrays come out in the
-plane's ``dtype`` on its ``device``."""
+plane's ``dtype`` on its ``device``, the card unless it says otherwise."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import math
 import torch
 
 from gradus_tpu_torch.camera.grids import LinearGrid, _const_linspace
+from gradus_tpu_torch.config import default_device
 
 __all__ = ["PolarPlane", "CartesianPlane"]
 
@@ -35,7 +36,7 @@ class PolarPlane:
         self.theta_min = theta_min
         self.theta_max = theta_max
         self.dtype = dtype
-        self.device = device
+        self.device = default_device(device)
 
     def trajectory_count(self):
         return self.Nr * self.Ntheta
@@ -76,7 +77,7 @@ class CartesianPlane:
         self.x_min, self.x_max = x_min, x_max
         self.y_min, self.y_max = y_min, y_max
         self.dtype = dtype
-        self.device = device
+        self.device = default_device(device)
 
     def trajectory_count(self):
         return self.Nx * self.Ny

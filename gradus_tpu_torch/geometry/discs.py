@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from gradus_tpu_torch.config import default_device
 from gradus_tpu_torch.utils.linalg import equatorial_project, spinaxis_project
 
 __all__ = ["AbstractAccretionGeometry", "ThinDisc", "DatumPlane"]
@@ -43,10 +44,11 @@ def _gtol_error(gtol, x4):
 
 class ThinDisc(AbstractAccretionGeometry):
     """Geometrically-thin equatorial annulus; ``inner_r`` and ``outer_r`` are
-    registered 0-d buffers."""
+    registered 0-d buffers (on the card unless ``device`` says otherwise)."""
 
     def __init__(self, inner_r=0.0, outer_r=500.0, *, dtype=torch.float64, device=None):
         super().__init__()
+        device = default_device(device)
         self.register_buffer(
             "inner_r", torch.as_tensor(inner_r, dtype=dtype, device=device)
         )
@@ -83,6 +85,7 @@ class DatumPlane(AbstractAccretionGeometry):
 
     def __init__(self, height=0.0, *, dtype=torch.float64, device=None):
         super().__init__()
+        device = default_device(device)
         self.register_buffer("height", torch.as_tensor(height, dtype=dtype, device=device))
 
     def inner_radius(self):

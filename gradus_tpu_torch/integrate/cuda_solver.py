@@ -6,6 +6,10 @@ version, and the tracer built on them (counterpart of
 CUDA tensor it launches `csrc/geodesic_tsit5.cu` (one thread per ray, the
 whole adaptive solve in registers); on a CPU tensor it runs
 `integrate_rays_plain`, a lockstep masked loop over the same arithmetic.
+The kernel takes `KerrMetric` (hand-derived Jacobian) and the five metrics
+of `metrics/deformed.py` (Jacobian by forward-mode dual numbers,
+`csrc/geodesic_tsit5_deformed.cu`); the plain version reaches
+``m.components5_jac`` for any metric.
 `CudaTracer` wraps it the way `PallasTracer` wraps the Pallas kernel:
 constrain, integrate, Newton-polish the disc hits, unpack.
 
@@ -20,6 +24,7 @@ rewriting the finished rays' ``dt``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -43,6 +48,13 @@ from gradus_tpu_torch.integrate.solver import (
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import TraceGeodesic, make_geodesic_rhs
 from gradus_tpu_torch.integrate.tsit5 import _A, _BTILDE
+from gradus_tpu_torch.metrics.deformed import (
+    BumblebeeMetric,
+    DilatonAxion,
+    JohannsenMetric,
+    JohannsenPsaltisMetric,
+    NoZMetric,
+)
 from gradus_tpu_torch.metrics.kerr import KerrMetric
 
 __all__ = [
@@ -297,12 +309,32 @@ def integrate_rays_plain(
 
 # --- the kernel -----------------------------------------------------------------
 
+# The kernel's metric kinds (csrc/tsit5.cuh, kMetric*) and the
+# deformation parameters each passes, in the kernel's order (csrc/metrics.cuh).
+_KERNEL_METRICS = {
+    KerrMetric: (0, lambda m: ()),
+    JohannsenMetric: (1, lambda m: (m.alpha13, m.alpha22, m.alpha52, m.eps3)),
+    JohannsenPsaltisMetric: (2, lambda m: (m.eps3,)),
+    NoZMetric: (3, lambda m: (m.eps,)),
+    BumblebeeMetric: (4, lambda m: (m.l,)),
+    DilatonAxion: (5, lambda m: (m.beta, m.b, *m.guarded_ratios())),
+}
+_N_METRIC_PARAMS = 5
+
+
+def _metric_args(m):
+    """(kind, the deformation parameters as a ctypes double[5])."""
+    kind, params = _KERNEL_METRICS[type(m)]
+    q = [float(v) for v in params(m)]
+    return kind, (ctypes.c_double * _N_METRIC_PARAMS)(*q)
+
 
 def _check_kernel_config(m, geometry, mu, dtype):
-    if type(m) is not KerrMetric:
+    if type(m) not in _KERNEL_METRICS:
         raise NotImplementedError(
-            f"the CUDA integrator takes KerrMetric only, not {type(m).__name__} "
-            "(other metrics' device Jacobians are on the ROADMAP)"
+            f"the CUDA integrator takes KerrMetric and the metrics of "
+            f"metrics/deformed.py, not {type(m).__name__} (the other metrics are "
+            "in ROADMAP queue B)"
         )
     if geometry is not None and type(geometry) not in (ThinDisc, DatumPlane):
         raise NotImplementedError(
@@ -312,7 +344,7 @@ def _check_kernel_config(m, geometry, mu, dtype):
     if type(geometry) is DatumPlane and geometry.height.dim() != 0:
         raise NotImplementedError(
             "the CUDA integrator takes a DatumPlane of one height; per-ray heights "
-            "(thick-disc transfer functions) are not ported yet (ROADMAP queue B)"
+            "(thick-disc transfer functions) are not ported yet (ROADMAP A2)"
         )
     if float(mu) != 0.0:
         raise NotImplementedError("the CUDA integrator takes null rays (mu = 0) only")
@@ -354,12 +386,15 @@ def _launch_kernel(
             kind, inner_r, outer_r = 1, float(geometry.inner_r), float(geometry.outer_r)
         else:
             kind, height = 2, float(geometry.height)
+        metric_kind, q = _metric_args(m)
         with torch.cuda.device(y0.device):
             rc = fn(
                 y0t.data_ptr(),
                 n,
+                metric_kind,
                 float(m.M),
                 float(m.a),
+                q,
                 kind,
                 inner_r,
                 outer_r,
@@ -431,12 +466,14 @@ class CudaTracer:
     """Tracer over a fixed (metric, geometry) pair, running the per-ray CUDA
     integrator (counterpart of `PallasTracer`; not differentiable).
 
-    Takes `PallasTracer`'s arguments. ``tile_rows``, ``steps_per_check``,
-    ``tail_tile_rows`` and ``interpret`` shape the TPU kernel's tiles and have
-    no counterpart here: one thread integrates one ray. The modes of the TPU
-    kernel that are not ported yet raise `NotImplementedError`:
-    ``event_method="sampled"`` (and with it ``n_interp``/``bisect_iters``)
-    and segmented tail passes (``segment_iters``, ``tail_bucket``)."""
+    Takes `PallasTracer`'s arguments except those the port does not read,
+    which raise `TypeError`: ``tile_rows``, ``steps_per_check``,
+    ``tail_tile_rows`` and ``interpret`` shape the TPU kernel's tiles and
+    have no counterpart (one thread integrates one ray). The modes of the
+    TPU kernel that are not ported yet raise `NotImplementedError`:
+    ``event_method="sampled"`` (``n_interp`` and ``bisect_iters`` come back
+    with it) and segmented tail passes (``segment_iters``; ``tail_bucket``
+    comes back with it), both in ROADMAP queue B."""
 
     def __init__(
         self,
@@ -451,17 +488,10 @@ class CudaTracer:
         abstol: float | None = None,
         reltol: float | None = None,
         max_steps: int = 40000,
-        n_interp: int = 8,
-        bisect_iters: int = 10,
         newton_iters: int = 3,
-        tile_rows: int = 8,
-        steps_per_check: int = 8,
         event_method: str = "cubic",
         segment_iters: int | None = None,
-        tail_bucket: int = 16384,
-        tail_tile_rows: int = 8,
         dtype=None,
-        interpret: bool | None = None,
     ):
         if event_method != "cubic":
             raise NotImplementedError(

@@ -12,8 +12,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from gradus_tpu_torch.config import default_device
 from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
 from gradus_tpu_torch.integrate.points import GeodesicPoint
+from gradus_tpu_torch.metrics.deformed import (
+    BumblebeeMetric,
+    DilatonAxion,
+    JohannsenMetric,
+    JohannsenPsaltisMetric,
+    NoZMetric,
+)
 from gradus_tpu_torch.metrics.kerr import KerrMetric
 from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid
 
@@ -21,15 +29,21 @@ __all__ = ["from_numpy", "geodesic_points_from_numpy", "transfer_grid_from_numpy
 
 _KINDS = {
     "KerrMetric": (KerrMetric, ("M", "a")),
+    "JohannsenMetric": (JohannsenMetric, ("M", "a", "alpha13", "alpha22", "alpha52", "eps3")),
+    "JohannsenPsaltisMetric": (JohannsenPsaltisMetric, ("M", "a", "eps3")),
+    "NoZMetric": (NoZMetric, ("M", "a", "eps")),
+    "BumblebeeMetric": (BumblebeeMetric, ("M", "a", "l")),
+    "DilatonAxion": (DilatonAxion, ("M", "a", "beta", "b")),
     "ThinDisc": (ThinDisc, ("inner_r", "outer_r")),
     "DatumPlane": (DatumPlane, ("height",)),
 }
 
 
 def from_numpy(kind: str, params: dict, *, dtype=torch.float64, device=None):
-    """Build the port's ``kind`` object ("KerrMetric", "ThinDisc" or
-    "DatumPlane") from a dict of numpy parameters named as the JAX
-    dataclass's fields (a DatumPlane's height may be 0-d or (N,))."""
+    """Build the port's ``kind`` object (a metric, "ThinDisc" or
+    "DatumPlane"; the keys of ``_KINDS``) from a dict of numpy parameters
+    named as the JAX dataclass's fields (a DatumPlane's height may be 0-d or
+    (N,)), in ``dtype`` on ``device`` (the card when None)."""
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {sorted(_KINDS)}")
     cls, names = _KINDS[kind]
@@ -41,7 +55,9 @@ def from_numpy(kind: str, params: dict, *, dtype=torch.float64, device=None):
 
 def geodesic_points_from_numpy(d: dict, *, device=None) -> GeodesicPoint:
     """A `GeodesicPoint` of tensors from a dict of numpy arrays keyed by the
-    field names (``aux`` may be missing or None)."""
+    field names (``aux`` may be missing or None), on ``device`` (the card
+    when None)."""
+    device = default_device(device)
     fields = {}
     for f in dataclasses.fields(GeodesicPoint):
         v = d.get(f.name)
@@ -51,7 +67,8 @@ def geodesic_points_from_numpy(d: dict, *, device=None) -> GeodesicPoint:
 
 def transfer_grid_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> TransferBranchGrid:
     """A `TransferBranchGrid` of tensors from a dict of numpy arrays keyed by
-    the field names."""
+    the field names, on ``device`` (the card when None)."""
+    device = default_device(device)
     return TransferBranchGrid(
         **{
             f.name: torch.as_tensor(np.asarray(d[f.name]), dtype=dtype, device=device)

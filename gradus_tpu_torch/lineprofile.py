@@ -72,7 +72,7 @@ def lineprofile(
             "(ROADMAP queue A, item 2); trace a PolarPlane with CudaTracer and "
             "call binned_flux instead"
         )
-    x = _as_observer(x)
+    x = _as_observer(x, m)
     if bins is None:
         bins = torch.linspace(0.1, 1.5, 180, dtype=x.dtype, device=x.device)
     else:

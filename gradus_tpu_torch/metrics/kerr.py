@@ -8,17 +8,15 @@ import torch
 
 from gradus_tpu_torch.metrics.base import AbstractMetric
 
-__all__ = ["KerrMetric", "kerr_isco"]
+__all__ = ["KerrMetric", "SchwarzschildMetric", "kerr_isco"]
 
 
 class KerrMetric(AbstractMetric):
-    """Kerr spacetime; ``M`` and ``a`` are registered 0-d buffers, so
-    ``.to(device, dtype)`` carries them with the module."""
+    """Kerr spacetime; ``M`` and ``a`` are registered 0-d buffers."""
 
     def __init__(self, M=1.0, a=0.0, *, dtype=torch.float64, device=None):
         super().__init__()
-        self.register_buffer("M", torch.as_tensor(M, dtype=dtype, device=device))
-        self.register_buffer("a", torch.as_tensor(a, dtype=dtype, device=device))
+        self._register_params(dtype, device, M=M, a=a)
 
     def components5(self, r, theta):
         M, a = self.M, self.a
@@ -97,6 +95,11 @@ class KerrMetric(AbstractMetric):
 
     def isco(self):
         return kerr_isco(self.M, self.a)
+
+
+def SchwarzschildMetric(M=1.0, *, dtype=torch.float64, device=None):
+    """Schwarzschild = Kerr with a = 0."""
+    return KerrMetric(M, 0.0, dtype=dtype, device=device)
 
 
 def _cbrt(x):

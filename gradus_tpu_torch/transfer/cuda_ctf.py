@@ -28,6 +28,7 @@ from gradus_tpu_torch.geodesics.equation import constrain_all
 from gradus_tpu_torch.integrate.cuda_solver import CudaTracer
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.metrics.base import AbstractMetric
+from gradus_tpu_torch.transfer.cunningham import _as_observer
 from gradus_tpu_torch.transfer.solvers import (
     _conserved_g_helpers,
     _p_t_p_phi,
@@ -44,8 +45,8 @@ class CudaCTFSolver:
     Provides the three operations the CTF assembly consumes
     (`transfer/cunningham.py`): ``workhorse`` (solve + g + J + t), ``probe``
     (solve + g + t, no J) and ``jacobian_at`` (J at given offsets). The
-    metric and the disc are copied into ``dtype`` on ``device`` (the
-    observer's device when ``x`` is a tensor)."""
+    metric and the disc are copied into ``dtype`` on ``device`` (when None:
+    the observer's device if ``x`` is a tensor, else the metric's)."""
 
     def __init__(
         self,
@@ -69,7 +70,7 @@ class CudaCTFSolver:
         device=None,
     ):
         if device is None:
-            device = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+            device = _as_observer(x, m).device
         self.x = torch.as_tensor(x, dtype=dtype, device=device)
         self.m = copy.deepcopy(m).to(device=device, dtype=dtype)
         d = copy.deepcopy(d).to(device=device, dtype=dtype)
@@ -277,7 +278,7 @@ def get_cuda_ctf_solver(m, x, d, **kwargs) -> CudaCTFSolver:
     dtype = kwargs.get("dtype", torch.float32)
     device = kwargs.get("device")
     if device is None:
-        device = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+        device = _as_observer(x, m).device
     x_key = torch.as_tensor(x, dtype=torch.float64, device="cpu").tolist()
     key = (
         type(m).__name__,

@@ -54,9 +54,12 @@ def gstar_to_g(gstar, gmin, gmax):
     return (gmax - gmin) * gstar + gmin
 
 
-def _as_observer(x):
-    """The observer position as a tensor (float64 unless it is one)."""
-    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x, dtype=torch.float64)
+def _as_observer(x, m):
+    """The observer position as a tensor: float64 on the metric's device
+    unless it is one."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, dtype=torch.float64, device=m.M.device)
 
 
 def _interval_index(xs, q):
@@ -249,7 +252,7 @@ def cunningham_transfer_function(
             "differentiates through the plain lockstep solver (ROADMAP queue A, "
             "item 2)"
         )
-    x = _as_observer(x)
+    x = _as_observer(x, m)
     kw = dict(dtype=x.dtype, device=x.device)
     radii = torch.atleast_1d(torch.as_tensor(radii, **kw))
     nr = radii.shape[0]
@@ -461,7 +464,7 @@ def transferfunctions(
     from gradus_tpu_torch.orbits.special_radii import isco as _isco
 
     if radii is None:
-        x = _as_observer(x)
+        x = _as_observer(x, m)
         if min_re is None:
             min_re = _isco(m) + 1e-2
         radii = InverseGrid()(min_re, max_re, num_re, dtype=x.dtype, device=x.device)

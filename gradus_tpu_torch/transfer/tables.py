@@ -21,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from gradus_tpu_torch.config import default_device
 from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid, transferfunctions
 from gradus_tpu_torch.transfer.integration import integrate_lineprofile
 
@@ -109,12 +110,12 @@ def make_transfer_function_table(
 ) -> CunninghamTransferTable:
     """Precompute grids over the (a, θ_obs[deg]) lattice (reference
     `make_transfer_function_table`). The metrics and observers are made in
-    ``dtype`` on ``device``; ``kwargs`` go to `cunningham_transfer_function`
+    ``dtype`` on ``device`` (the card when None); ``kwargs`` go to `cunningham_transfer_function`
     (``backend="cuda"`` is the ported backend)."""
     from gradus_tpu_torch.camera.grids import InverseGrid
     from gradus_tpu_torch.orbits.special_radii import isco as _isco
 
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=default_device(device))
     a_range, theta_range = np.asarray(a_range), np.asarray(theta_range)
     grids = []
     for a in a_range:

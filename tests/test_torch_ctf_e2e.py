@@ -78,9 +78,9 @@ def port_run():
     before = cuda_solver.KERNEL_LAUNCHES
     try:
         bins, flux = lineprofile(
-            KerrMetric(1.0, A_SPIN),
+            KerrMetric(1.0, A_SPIN, device="cpu"),
             torch.tensor(X_OBS, dtype=torch.float64),
-            ThinDisc(0.0, math.inf),
+            ThinDisc(0.0, math.inf, device="cpu"),
             bins=torch.as_tensor(BINS),
             min_re=RADII[0],
             max_re=RADII[1],

@@ -74,7 +74,9 @@ def datum_runs():
     )
     gp_j = pt._finish(raw_j, y0, SPAN[0])
 
-    tm, td = from_numpy("KerrMetric", _params(jm)), from_numpy("DatumPlane", _params(jd))
+    tm, td = from_numpy("KerrMetric", _params(jm), device="cpu"), from_numpy(
+        "DatumPlane", _params(jd), device="cpu"
+    )
     ct = CudaTracer(tm, geometry=td, chart_outer=SPAN[1])
     y0_t = torch.as_tensor(np.array(y0))
     raw_t = cuda_integrate_rays(tm, y0_t, SPAN, **ct._integrate_kwargs(torch.float64))
@@ -123,7 +125,10 @@ def solvers():
         interpret=True, dtype=jnp.float64,
     )
     st = CudaCTFSolver(
-        KerrMetric(1.0, A_SPIN), torch.as_tensor(X_OBS), DatumPlane(0.0), dtype=torch.float64
+        KerrMetric(1.0, A_SPIN, device="cpu"),
+        torch.as_tensor(X_OBS),
+        DatumPlane(0.0, device="cpu"),
+        dtype=torch.float64,
     )
     probe_j = [np.asarray(v) for v in sj.probe(jnp.asarray(RE), jnp.asarray(TH))]
     probe_t = [v.numpy() for v in st.probe(torch.as_tensor(RE), torch.as_tensor(TH))]
@@ -157,26 +162,26 @@ def test_jacobian_at_matches_pallas_solver(solvers):
 
 @pytest.mark.parametrize("case", ["xla_backend", "per_ray_heights_ctf", "per_ray_heights_kernel"])
 def test_cuda_path_refuses_what_it_does_not_take(case):
-    m = KerrMetric(1.0, A_SPIN)
+    m = KerrMetric(1.0, A_SPIN, device="cpu")
     x = torch.as_tensor(X_OBS)
     radii = torch.tensor([5.0], dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         if case == "xla_backend":
-            cunningham_transfer_function(m, x, ThinDisc(0.0, math.inf), radii, N=5, backend="xla")
+            cunningham_transfer_function(m, x, ThinDisc(0.0, math.inf, device="cpu"), radii, N=5, backend="xla")
         elif case == "per_ray_heights_ctf":
-            cunningham_transfer_function(m, x, DatumPlane([0.1, 0.2]), radii, N=5, backend="cuda")
+            cunningham_transfer_function(m, x, DatumPlane([0.1, 0.2], device="cpu"), radii, N=5, backend="cuda")
         else:
-            _check_kernel_config(m, DatumPlane([0.1, 0.2]), 0.0, torch.float64)
+            _check_kernel_config(m, DatumPlane([0.1, 0.2], device="cpu"), 0.0, torch.float64)
     # a DatumPlane of one height is a kernel configuration
-    _check_kernel_config(m, DatumPlane(0.3), 0.0, torch.float32)
+    _check_kernel_config(m, DatumPlane(0.3, device="cpu"), 0.0, torch.float32)
 
 
 def test_solver_cache_keys_dtype_and_device():
     """The cache hands an f32 solver to no f64 caller (the JAX package's
     test_solver_cache_keys_dtype), and keys the device."""
-    m = KerrMetric(1.0, 0.9)
+    m = KerrMetric(1.0, 0.9, device="cpu")
     x = np.asarray([0.0, 1000.0, np.deg2rad(40.0), 0.0])
-    d = DatumPlane(0.0)
+    d = DatumPlane(0.0, device="cpu")
     s32 = get_cuda_ctf_solver(m, x, d, dtype=torch.float32)
     s64 = get_cuda_ctf_solver(m, x, d, dtype=torch.float64)
     assert s32 is not s64
@@ -184,19 +189,19 @@ def test_solver_cache_keys_dtype_and_device():
     assert s32.x.dtype == torch.float32 and s32.m.a.dtype == torch.float32
     assert s64.tracer.geometry.height.dtype == torch.float64
     assert s32 is get_cuda_ctf_solver(m, x, d, dtype=torch.float32, device="cpu")
-    assert get_cuda_ctf_solver(m, x, DatumPlane(0.5), dtype=torch.float32) is not s32
+    assert get_cuda_ctf_solver(m, x, DatumPlane(0.5, device="cpu"), dtype=torch.float32) is not s32
 
 
 @pytest.mark.parametrize("option", ["tile_rows", "interpret", "newton_iters"])
 def test_options_the_port_does_not_read_are_refused(option):
     """The TPU kernel's tile options and the 'xla' backend's Newton bound are
     no keyword of the port: passing one fails instead of being ignored."""
-    m = KerrMetric(1.0, A_SPIN)
+    m = KerrMetric(1.0, A_SPIN, device="cpu")
     x = torch.as_tensor(X_OBS)
     with pytest.raises(TypeError):
         if option == "newton_iters":
             cunningham_transfer_function(
-                m, x, ThinDisc(0.0, math.inf), [5.0], N=5, backend="cuda", newton_iters=30
+                m, x, ThinDisc(0.0, math.inf, device="cpu"), [5.0], N=5, backend="cuda", newton_iters=30
             )
         else:
-            get_cuda_ctf_solver(m, x, DatumPlane(0.0), dtype=torch.float64, **{option: 8})
+            get_cuda_ctf_solver(m, x, DatumPlane(0.0, device="cpu"), dtype=torch.float64, **{option: 8})

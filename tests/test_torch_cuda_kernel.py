@@ -21,9 +21,22 @@ from gradus_tpu_torch.integrate.cuda_solver import (  # noqa: E402
     cuda_integrate_rays,
     integrate_rays_plain,
 )
+from gradus_tpu_torch import metrics  # noqa: E402
 from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
 
 SPAN = (0.0, 2200.0)
+# tests/test_metrics.py:26-32
+DEFORMED = {
+    "JohannsenMetric": dict(M=1.0, a=0.6, alpha13=0.2, alpha22=0.1, eps3=0.5),
+    "JohannsenPsaltisMetric": dict(M=1.0, a=0.6, eps3=2.0),
+    "NoZMetric": dict(M=1.0, a=0.5, eps=0.3),
+    "BumblebeeMetric": dict(M=1.0, a=0.2, l=0.1),
+    "DilatonAxion": dict(M=1.0, a=0.5, beta=0.2, b=1.0),
+}
+# The bumblebee metric's inner radius is Kerr's M + √(M² − a²), as in the
+# reference, which lies inside its horizon at r = 2M: an infalling ray slows
+# there without end and runs to max_steps. Its chart stops at 1.01 · 2M.
+CHART_INNER = {"BumblebeeMetric": 2.02}
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +123,68 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         cuda_integrate_rays(m, y0.half(), SPAN, **kw)
     with pytest.raises(NotImplementedError):
         cuda_integrate_rays(m, y0, SPAN, geometry=DatumPlane([0.0] * 8, device=dev), **kw)
+
+
+def _hits_agree(gk, gp, rel=1e-6):
+    """Statuses ≥ 0.999 identical; polished hits within ``rel`` relative to
+    max(1, |value|)."""
+    assert (gk.status == gp.status).double().mean() >= 0.999
+    hit = (gk.status == StatusCodes.IntersectedWithGeometry) & (gp.status == gk.status)
+    assert hit.double().mean() > 0.3
+    ends_k = torch.cat([gk.x[hit], gk.lam_max[hit, None]], dim=-1)
+    ends_p = torch.cat([gp.x[hit], gp.lam_max[hit, None]], dim=-1)
+    assert ((ends_k - ends_p).abs() / ends_p.abs().clamp(min=1.0)).max() < rel
+
+
+@pytest.mark.parametrize("kind", DEFORMED)
+def test_deformed_kernel_matches_plain_version_f64(dev, kind):
+    """The dual-number right-hand side against the plain version's AD
+    Jacobian, at the render goldens' camera (r = 100, i = 85°, λ ≤ 200)
+    against ThinDisc(0, 40)."""
+    rng = np.random.default_rng(7)
+    n, span = 256, (0.0, 200.0)
+    m = getattr(metrics, kind)(**DEFORMED[kind], device=dev)
+    x = torch.tensor([0.0, 100.0, math.radians(85.0), 0.0], dtype=torch.float64, device=dev)
+    v = map_impact_parameters(
+        m,
+        x,
+        torch.as_tensor(rng.uniform(-9.5, 9.5, n), device=dev),
+        torch.as_tensor(rng.uniform(-9.5, 9.5, n), device=dev),
+    )
+    tracer = CudaTracer(m, geometry=ThinDisc(0.0, 40.0, device=dev), chart_inner=CHART_INNER.get(kind))
+    y0 = tracer._constrain(x.expand_as(v), v)
+    kw = tracer._integrate_kwargs(torch.float64)
+    before = cuda_solver.KERNEL_LAUNCHES
+    gk = tracer._finish(cuda_integrate_rays(m, y0, span, **kw), y0, span[0])
+    assert cuda_solver.KERNEL_LAUNCHES == before + 1
+    gp = tracer._finish(integrate_rays_plain(m, y0, span, **kw), y0, span[0])
+    torch.cuda.synchronize()
+    _hits_agree(gk, gp)
+
+
+def test_dual_path_matches_hand_path(dev):
+    """Johannsen without deviations is Kerr: through the kernel's dual-number
+    right-hand side against Kerr's hand-derived one, on flagship rays."""
+    m_kerr, xs, v = _rays(dev, torch.float64)
+    m_dual = metrics.JohannsenMetric(1.0, 0.998, device=dev)
+    d = ThinDisc(0.0, 50.0, device=dev)
+    out = []
+    for m in (m_dual, m_kerr):
+        tracer = CudaTracer(m, geometry=d)
+        y0 = tracer._constrain(xs, v)
+        raw = cuda_integrate_rays(m, y0, SPAN, **tracer._integrate_kwargs(torch.float64))
+        out.append(tracer._finish(raw, y0, SPAN[0]))
+    torch.cuda.synchronize()
+    _hits_agree(*out)
+
+
+def test_kernel_refuses_other_metrics(dev):
+    from gradus_tpu_torch.metrics.base import AbstractMetric
+
+    class Flat(AbstractMetric):
+        pass
+
+    m, xs, v = _rays(dev, torch.float64, n=8)
+    y0 = torch.cat([xs, v], dim=-1)
+    with pytest.raises(NotImplementedError):
+        cuda_integrate_rays(Flat(), y0, SPAN, abstol=1e-9, reltol=1e-9, r_inner=1.07, r_outer=12000.0)

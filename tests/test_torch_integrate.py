@@ -69,8 +69,8 @@ def setup():
     B = jnp.asarray(rng.uniform(-12, 12, n))
     v = jax_map_impact(jm, x_obs, A, B)
     xs = jnp.broadcast_to(x_obs, v.shape)
-    tm = from_numpy("KerrMetric", _params(jm))
-    td = from_numpy("ThinDisc", _params(jd))
+    tm = from_numpy("KerrMetric", _params(jm), device="cpu")
+    td = from_numpy("ThinDisc", _params(jd), device="cpu")
     return dict(jm=jm, jd=jd, xs=xs, v=v, tm=tm, td=td)
 
 
@@ -127,7 +127,7 @@ def _geodesic_state(seed, n=32):
     from gradus_tpu.geodesics.equation import constrain_all
 
     v = np.asarray(constrain_all(jm, jnp.asarray(x), jnp.asarray(v)))
-    return jm, from_numpy("KerrMetric", _params(jm)), np.concatenate([x, v], -1)
+    return jm, from_numpy("KerrMetric", _params(jm), device="cpu"), np.concatenate([x, v], -1)
 
 
 def test_tsit5_step_matches_jax():
@@ -291,3 +291,15 @@ def test_tracer_rejects_unported_modes(setup):
         CudaTracer(setup["tm"], event_method="sampled")
     with pytest.raises(NotImplementedError):
         CudaTracer(setup["tm"], segment_iters=48)
+
+
+@pytest.mark.parametrize(
+    "option",
+    ["tile_rows", "steps_per_check", "tail_tile_rows", "interpret", "n_interp", "bisect_iters", "tail_bucket"],
+)
+def test_tracer_refuses_options_it_does_not_read(setup, option):
+    """The TPU kernel's tile options, and the options of modes that are not
+    ported, are no keyword of `CudaTracer`: passing one fails instead of
+    being ignored."""
+    with pytest.raises(TypeError):
+        CudaTracer(setup["tm"], **{option: 8})

@@ -85,12 +85,12 @@ def test_gauss_legendre_matches_jax(n):
 
 def test_image_planes_match_jax():
     for kw in (dict(Nr=12, Ntheta=9, r_max=50.0), dict(Nr=5, Ntheta=4, r_min=2.0, r_max=250.0)):
-        p, pj = PolarPlane(grids.GeometricGrid(), **kw), JaxPolarPlane(jax_grids.GeometricGrid(), **kw)
+        p, pj = PolarPlane(grids.GeometricGrid(), **kw, device="cpu"), JaxPolarPlane(jax_grids.GeometricGrid(), **kw)
         for got, ref in zip(p.impact_parameters(), pj.impact_parameters()):
             _close(got, ref, atol=1e-12)
         _close(p.unnormalized_areas(), pj.unnormalized_areas())
         assert p.trajectory_count() == pj.trajectory_count()
-    c, cj = CartesianPlane(Nx=6, Ny=4), JaxCartesianPlane(Nx=6, Ny=4)
+    c, cj = CartesianPlane(Nx=6, Ny=4, device="cpu"), JaxCartesianPlane(Nx=6, Ny=4)
     for got, ref in zip(c.impact_parameters(), cj.impact_parameters()):
         _close(got, ref, atol=1e-15)
     _close(c.unnormalized_areas(), cj.unnormalized_areas())
@@ -101,7 +101,7 @@ def test_image_planes_match_jax():
 
 @pytest.fixture(scope="module")
 def kerr_radii():
-    tm, jm = KerrMetric(1.0, A_SPIN), JaxKerr(M=1.0, a=A_SPIN)
+    tm, jm = KerrMetric(1.0, A_SPIN, device="cpu"), JaxKerr(M=1.0, a=A_SPIN)
     r = np.geomspace(float(tm.isco()), 1000.0, 24)
     return tm, jm, r
 
@@ -246,7 +246,7 @@ def test_integrate_lineprofile_matches_jax(bins):
     g_grid = np.linspace(*bins)
     emis = lambda r: r**-3.0  # noqa: E731
     ref = jax_integrate(emis, JaxGrid(**{k: jnp.asarray(v) for k, v in d.items()}), jnp.asarray(g_grid), n_radii=200)
-    got = integrate_lineprofile(emis, transfer_grid_from_numpy(d), _t(g_grid), n_radii=200)
+    got = integrate_lineprofile(emis, transfer_grid_from_numpy(d, device="cpu"), _t(g_grid), n_radii=200)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-10, atol=1e-300)
     assert got[-1] == 0 and math.isclose(float(got.sum()), 1.0, rel_tol=1e-12)
 
@@ -317,9 +317,9 @@ def test_binned_flux_matches_jax():
 
 @pytest.mark.parametrize("case", ["binning_method", "profile", "axis_name", "xla_backend"])
 def test_unported_line_profile_paths_raise(case):
-    m = KerrMetric(1.0, A_SPIN)
+    m = KerrMetric(1.0, A_SPIN, device="cpu")
     x = torch.tensor([0.0, 1000.0, math.radians(60.0), 0.0], dtype=torch.float64)
-    d = DatumPlane(0.0)
+    d = DatumPlane(0.0, device="cpu")
     with pytest.raises(NotImplementedError):
         if case == "binning_method":
             lineprofile(m, x, d, method=BinningMethod())
@@ -333,7 +333,7 @@ def test_unported_line_profile_paths_raise(case):
 
 def test_transfer_grid_interop_round_trip():
     d = _synthetic_grid(9)
-    g = transfer_grid_from_numpy(d)
+    g = transfer_grid_from_numpy(d, device="cpu")
     for f in dataclasses.fields(g):
         np.testing.assert_array_equal(getattr(g, f.name).numpy(), d[f.name])
     at = g.at_radius(_t(np.array([1.4, 5.0, 60.0, 100.0])))

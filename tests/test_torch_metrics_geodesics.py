@@ -41,7 +41,7 @@ SPINS = (0.0, 0.5, 0.998)
 def _pair(a):
     jm = JaxKerr(M=1.0, a=a)
     params = {f.name: np.asarray(getattr(jm, f.name)) for f in dataclasses.fields(jm)}
-    return jm, from_numpy("KerrMetric", params, dtype=torch.float64)
+    return jm, from_numpy("KerrMetric", params, dtype=torch.float64, device="cpu")
 
 
 def _rtheta(seed, n=64):

@@ -29,7 +29,7 @@ from gradus_tpu_torch.camera import ConstPointFunctions, map_impact_parameters  
 from gradus_tpu_torch.geometry import ThinDisc  # noqa: E402
 from gradus_tpu_torch.integrate import CudaTracer, StatusCodes  # noqa: E402
 from gradus_tpu_torch.interop import from_numpy, geodesic_points_from_numpy  # noqa: E402
-from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
+from gradus_tpu_torch.metrics import JohannsenMetric, KerrMetric  # noqa: E402
 
 
 def _grid(width, height, alpha_lims, beta_lims, offset=1e-6):
@@ -66,8 +66,8 @@ def test_redshift_render_matches_jax_pallas_tracer():
     g_j = np.asarray(jax_redshift(jm, xj)(jm, gp_j, lam_max))
     g_j = np.where(np.asarray(gp_j.status) == StatusCodes.IntersectedWithGeometry, g_j, np.nan)
 
-    m = from_numpy("KerrMetric", _params(jm))
-    d = from_numpy("ThinDisc", _params(jd))
+    m = from_numpy("KerrMetric", _params(jm), device="cpu")
+    d = from_numpy("ThinDisc", _params(jd), device="cpu")
     pf = ConstPointFunctions.redshift(m, torch.as_tensor(x_obs)) @ ConstPointFunctions.filter_intersected()
     g_t = _port_render(m, x_obs, d, lam_max, A, B, pf).numpy()
 
@@ -84,13 +84,17 @@ _GOLDEN_X = np.array([0.0, 100.0, np.deg2rad(85.0), 0.0])
 
 
 @pytest.mark.parametrize(
-    "outer_r, golden",
-    [(None, 9009.452876609641), (40.0, 38412.08347901267)],
-    ids=["shadow", "thin_disc"],
+    "metric, outer_r, golden",
+    [
+        (KerrMetric, None, 9009.452876609641),
+        (KerrMetric, 40.0, 38412.08347901267),
+        (JohannsenMetric, None, 9009.448935932085),
+    ],
+    ids=["shadow", "thin_disc", "johannsen_shadow"],
 )
-def test_render_goldens_through_the_port(outer_r, golden):
-    m = KerrMetric(1.0, 0.0)
-    d = None if outer_r is None else ThinDisc(0.0, outer_r)
+def test_render_goldens_through_the_port(metric, outer_r, golden):
+    m = metric(1.0, 0.0, device="cpu")
+    d = None if outer_r is None else ThinDisc(0.0, outer_r, device="cpu")
     A, B = _grid(20, 20, (-9.5, 9.5), (-9.5, 9.5))
     img = _port_render(m, _GOLDEN_X, d, 200.0, A, B, ConstPointFunctions.shadow())
     assert math.isclose(float(torch.nansum(img)), golden, rel_tol=1e-1)
@@ -98,12 +102,12 @@ def test_render_goldens_through_the_port(outer_r, golden):
 
 def test_interop_round_trip():
     jm, jd = JaxKerr(M=1.5, a=0.7), JaxThinDisc(inner_r=2.0, outer_r=60.0)
-    m = from_numpy("KerrMetric", _params(jm), dtype=torch.float32)
-    d = from_numpy("ThinDisc", _params(jd))
+    m = from_numpy("KerrMetric", _params(jm), dtype=torch.float32, device="cpu")
+    d = from_numpy("ThinDisc", _params(jd), device="cpu")
     assert m.M.dtype == torch.float32
     assert (float(m.M), float(m.a)) == (1.5, pytest.approx(0.7))
     assert (float(d.inner_r), float(d.outer_r)) == (2.0, 60.0)
-    assert float(from_numpy("DatumPlane", {"height": np.asarray(1.0)}).height) == 1.0
+    assert float(from_numpy("DatumPlane", {"height": np.asarray(1.0)}, device="cpu").height) == 1.0
     with pytest.raises(ValueError):
         from_numpy("ShakuraSunyaev", {"eddington_ratio": np.asarray(0.3)})
 
@@ -117,7 +121,7 @@ def test_interop_round_trip():
         x=rng.normal(size=(2, 4)),
         v=rng.normal(size=(2, 4)),
     )
-    gp = geodesic_points_from_numpy(fields)
+    gp = geodesic_points_from_numpy(fields, device="cpu")
     assert gp.aux is None
     for k, val in fields.items():
         np.testing.assert_array_equal(getattr(gp, k).numpy(), val)
