@@ -2,12 +2,19 @@
 
 Builds the port's CUDA kernel from `gradus_tpu_torch/csrc/`, holds it against
 its plain PyTorch version on the card (f64 and f32; flagship rays against a
-ThinDisc, rays without geometry, and transfer-function rays against a
-DatumPlane), reproduces the two render goldens through it, then runs the
-port's three products through their entry points:
+ThinDisc, rays without geometry, transfer-function rays against a
+DatumPlane, every metric of the port, and the kernel's modes: sampled
+events, capped and resumed passes, crossing counters, timelike rays),
+reproduces the two render goldens through it, then runs the port's products
+through their entry points:
 
 - the flagship render at full size: 1024² rays, f32, Kerr a=0.998, observer
-  at r=1000 and i=75°, ThinDisc(0, 50), λ ∈ (0, 2200), analytic Kerr redshift;
+  at r=1000 and i=75°, ThinDisc(0, 50), λ ∈ (0, 2200), analytic Kerr
+  redshift; once more with a capped pass and a resumed tail pass, which
+  must give the same image;
+- the same camera in Johannsen-Psaltis (a=0.6, ε₃=2) and in Kerr-Newman
+  (a=0.5, Q=0.3), through the kernel's dual-number path and the
+  dot-product redshift with the generic ISCO;
 - the Gradus.jl line-profile edge goldens (Kerr a=0.6, i=60°), f64, through
   `lineprofile(..., backend="cuda")`;
 - the transfer-function line profile at full size (`bench.py::bench_ctf`'s
@@ -53,7 +60,12 @@ from gradus_tpu_torch.integrate.cuda_solver import (
 )
 from gradus_tpu_torch import metrics
 from gradus_tpu_torch.lineprofile import binned_flux, lineprofile
-from gradus_tpu_torch.metrics import JohannsenMetric, JohannsenPsaltisMetric, KerrMetric
+from gradus_tpu_torch.metrics import (
+    JohannsenMetric,
+    JohannsenPsaltisMetric,
+    KerrMetric,
+    KerrNewmanMetric,
+)
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.utils import equatorial_project
 
@@ -82,6 +94,33 @@ CHART_INNER = {"BumblebeeMetric": 2.02}
 # the flagship camera with the Johannsen-Psaltis metric of Gradus.jl's
 # deformed line-profile golden
 JP = dict(M=1.0, a=0.6, eps3=2.0)
+# the other metrics, at the parameters of tests/test_metrics.py:22-36
+# (first-order Kerr at the spin of the other Kerr-like ones)
+NEW_METRICS = {
+    "KerrNewmanMetric": dict(M=1.0, a=0.5, Q=0.3),
+    "MorrisThorneWormhole": dict(b=1.0),
+    "KerrRefractive": dict(M=1.0, a=0.5, n=1.2, corona_radius=20.0),
+    "KerrDarkMatter": dict(M=1.0, a=0.5),
+    "SphericalMetric": {},
+    "CartesianMetric": {},
+    "KerrSpacetimeFirstOrder": dict(M=1.0, a=0.5),
+}
+# The refractive index steps from 1 to n within ~1e-4 of corona_radius and the
+# dark-matter mass has a kink in its second derivative: across them the
+# embedded error estimate misses the error it makes, and two step sequences
+# that differ by rounding end up to ~6e-6 apart (the kernel's C++ built with
+# and without FMA contraction on a CPU, 256 rays: 6.3e-6 and 4.3e-6).
+NEW_HIT_RTOL = {"KerrRefractive": 1e-5, "KerrDarkMatter": 1e-5}
+# CartesianMetric's state is (t, x, y, z), which a disc would read as
+# (t, r, θ, φ): it is traced without one.
+NO_DISC = {"CartesianMetric"}
+# the Kerr-Newman render: tests/test_metrics.py:28's parameters
+KN = dict(M=1.0, a=0.5, Q=0.3)
+# The flagship render's tail pass. After 128 loop iterations 16,140 of its
+# 1024² rays are mid-flight (the kernel's C++ in f32 on a CPU), 98.5% of
+# the 16,384 bucket of the TPU tracer's default; rounding on the card may
+# differ, so the bucket holds 32,768.
+SEGMENT_ITERS, TAIL_BUCKET = 128, 32768
 
 
 # The kernel's operations (additions, multiplications, divisions, square
@@ -91,6 +130,8 @@ JP = dict(M=1.0, a=0.6, eps3=2.0)
 KERNEL_OPS = {
     "kerr": (427.0, 1641.5810057681372),
     "johannsen_psaltis": (675.0, 2385.5925913741485),
+    "kerr_newman": (559.0, 2037.583382536246),
+    "kerr_datum_plane": (428.0, 1642.1925643294255),
 }
 # NVIDIA H100 SXM data sheet, at its 700 W limit: FP32 and FP64 outside the
 # tensor cores, and HBM3
@@ -102,12 +143,12 @@ def _bound(metric, rays, attempts, dtype):
     """(the least milliseconds the card could take for the kernel's work on
     these rays, what bounds it): the larger of the operations (per ray
     start and per attempted step, `KERNEL_OPS`) over the peak rate and the
-    bytes it must move (8 state values in; 22 values and 4 int32 out per
+    bytes it must move (8 state values in; 22 values and 5 int32 out per
     ray) over the memory rate."""
     per_start, per_step = KERNEL_OPS[metric]
     ops_ms = (rays * per_start + attempts * per_step) / PEAK_OPS[dtype] * 1e3
     itemsize = torch.finfo(dtype).bits // 8
-    bytes_ms = rays * (30 * itemsize + 16) / HBM_BYTES_PER_S * 1e3
+    bytes_ms = rays * (30 * itemsize + 20) / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -261,6 +302,8 @@ def _hit_ends_rel(gk, gp):
     """Max over rays that both versions hit of |Δ| / max(1, |value|), over
     the polished position and λ."""
     hit = (gk.status == HIT) & (gp.status == HIT)
+    if not bool(hit.any()):
+        return 0, 0.0, 0.0
     ends_k = torch.cat([gk.x[hit], gk.lam_max[hit, None]], dim=-1)
     ends_p = torch.cat([gp.x[hit], gp.lam_max[hit, None]], dim=-1)
     diff = (ends_k - ends_p).abs()
@@ -385,11 +428,261 @@ def _dual_vs_hand(dev, n=8192, n_full=262144):
     return out
 
 
-def phase_kernel_vs_plain(dev, n_disc=8192, n_free=2048, n_datum=8192, n_metric=1024, n_dual=8192):
+def _golden_offsets(n, seed):
+    """Image-plane offsets ρ ∈ [6.5, 9.5] at uniform angles, for the render
+    goldens' camera: outside every metric's critical curve (ρ ≈ 4.8-6.0
+    there), whose rays circle the photon orbit and turn a rounding
+    difference into a different hit."""
+    rng = np.random.default_rng(seed)
+    rho, phi = rng.uniform(6.5, 9.5, n), rng.uniform(0.0, 2 * math.pi, n)
+    return rho * np.cos(phi), rho * np.sin(phi)
+
+
+def _straight_line_err(x0, gp, spherical):
+    """Max over rays of |endpoint − (x₀ + v₀λ)| / max(1, |x₀ + v₀λ|), in
+    Cartesian terms: a flat-space answer independent of both versions."""
+
+    def cart(x):
+        r, th, ph = x[..., 1], x[..., 2], x[..., 3]
+        return torch.stack([r * torch.sin(th) * torch.cos(ph), r * torch.sin(th) * torch.sin(ph), r * torch.cos(th)], -1)
+
+    v0, lam = gp.v_init[:, 1:], gp.lam_max[:, None]
+    if spherical:
+        # the Jacobian d(x, y, z)/d(r, θ, φ) at the start maps v₀
+        r, th, ph = x0[1], x0[2], x0[3]
+        J = torch.stack(
+            [
+                torch.stack([torch.sin(th) * torch.cos(ph), r * torch.cos(th) * torch.cos(ph), -r * torch.sin(th) * torch.sin(ph)]),
+                torch.stack([torch.sin(th) * torch.sin(ph), r * torch.cos(th) * torch.sin(ph), r * torch.sin(th) * torch.cos(ph)]),
+                torch.stack([torch.cos(th), -r * torch.sin(th), torch.zeros_like(r)]),
+            ]
+        )
+        line, end = cart(x0) + (v0 @ J.T) * lam, cart(gp.x)
+    else:
+        line, end = x0[1:] + v0 * lam, gp.x[:, 1:]
+    return float(((end - line).norm(dim=-1) / line.norm(dim=-1).clamp(min=1.0)).max())
+
+
+def _new_metrics_group(dev, n=512):
+    """The metrics of kerr_newman.py, exotic.py, minkowski.py and
+    kerr_first_order.py: the kernel (dual numbers; Kerr's hand-derived
+    Jacobian for the first-order class) against its plain version (the AD
+    Jacobian) on the same card tensors, after the polish, at the render
+    goldens' camera (`_golden_offsets`) against ThinDisc(0, 40) (no geometry
+    for CartesianMetric), f64; Kerr-Newman also in f32. f64: statuses ≥
+    0.999 identical and hits within 1e-6 relative to max(1, |value|)
+    (`NEW_HIT_RTOL` for the two non-smooth metrics); the two flat metrics'
+    kernel endpoints on the straight line x₀ + v₀λ, to 1e-12 relative in
+    the Cartesian chart (whose right-hand side is 0) and 1e-8 in the
+    spherical one (~100 steps at reltol 1e-9). f32: the median relative
+    dot-product redshift of the hits ≤ 1e-4."""
+    alpha, beta = _golden_offsets(n, 24)
+    span = (0.0, 200.0)
+    out = {}
+    cases = [(kind, kind, torch.float64) for kind in NEW_METRICS]
+    cases.append(("KerrNewmanMetric_f32", "KerrNewmanMetric", torch.float32))
+    for name, kind, dtype in cases:
+        m = getattr(metrics, kind)(**NEW_METRICS[kind], dtype=dtype, device=dev)
+        x = torch.tensor(GOLDEN_X_OBS, dtype=dtype, device=dev)
+        d = None if kind in NO_DISC else ThinDisc(0.0, 40.0, dtype=dtype, device=dev)
+        tracer = CudaTracer(m, geometry=d)
+        y0 = _constrained(
+            tracer, m, x, torch.as_tensor(alpha, dtype=dtype, device=dev), torch.as_tensor(beta, dtype=dtype, device=dev)
+        )
+        kw = tracer._integrate_kwargs(dtype)
+        cuda_integrate_rays(m, y0, span, **kw)  # warm-up
+        (out_k, ms_k), (out_p, ms_p) = (
+            _timed(lambda f=f: f(m, y0, span, **kw)) for f in (cuda_integrate_rays, integrate_rays_plain)
+        )
+        gk, gp = tracer._finish(out_k, y0, span[0]), tracer._finish(out_p, y0, span[0])
+        torch.cuda.synchronize()
+        hits, err_abs, err_rel = _hit_ends_rel(gk, gp)
+        res = dict(
+            rays=n,
+            status_agree=float((gk.status == gp.status).double().mean()),
+            hits=hits,
+            hit_max_abs_err=err_abs,
+            hit_max_rel_err=err_rel,
+            attempts=int(out_k["attempts"].sum()),
+            kernel_ms=ms_k,
+            plain_ms=ms_p,
+        )
+        if kind in ("SphericalMetric", "CartesianMetric") and dtype == torch.float64:
+            res["line_max_rel_err"] = _straight_line_err(x, gk, kind == "SphericalMetric")
+            if res["line_max_rel_err"] > (1e-8 if kind == "SphericalMetric" else 1e-12):
+                raise AssertionError(f"{name}: kernel endpoints off the straight line: {res}")
+        if dtype == torch.float64:
+            if res["status_agree"] < 0.999 or (hits and res["hit_max_rel_err"] > NEW_HIT_RTOL.get(kind, 1e-6)):
+                raise AssertionError(f"{name} kernel/plain disagree: {res}")
+            if kind not in NO_DISC and hits < n // 10:
+                raise AssertionError(f"{name}: {hits} hits of {n} rays")
+        else:
+            pf = ConstPointFunctions.redshift(m, x)
+            hit = (gk.status == HIT) & (gp.status == HIT)
+            res["g_median_rel"] = float(_rel(pf(m, gk, span[1])[hit], pf(m, gp, span[1])[hit]).median())
+            if res["status_agree"] < 0.995 or res["g_median_rel"] > 1e-4:
+                raise AssertionError(f"{name} kernel/plain disagree: {res}")
+        out[name] = res
+    return out
+
+
+def _flagship_rays(dev, dtype, n, seed, **tracer_kw):
+    """(metric, tracer, constrained states) for ``n`` flagship rays (uniform
+    α ∈ ±28, β ∈ ±18) against ThinDisc(0, 50)."""
+    rng = np.random.default_rng(seed)
+    m, d, x = _flagship(dtype, dev)
+    tracer = CudaTracer(m, geometry=d, **tracer_kw)
+    A = torch.as_tensor(rng.uniform(-28.0, 28.0, n), dtype=dtype, device=dev)
+    B = torch.as_tensor(rng.uniform(-18.0, 18.0, n), dtype=dtype, device=dev)
+    return m, tracer, _constrained(tracer, m, x, A, B)
+
+
+def _sampled_events(dev, n):
+    """event_method="sampled" (8 Hermite samples a step, 10 bisections),
+    kernel against plain version on flagship rays, with the flagship
+    group's thresholds; and the kernel's sampled hits against its cubic
+    ones, printed."""
+    out = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        m, tracer, y0 = _flagship_rays(dev, dtype, n, 25, event_method="sampled")
+        kw = tracer._integrate_kwargs(dtype)
+        (out_k, ms_k), (out_p, ms_p) = (
+            _timed(lambda f=f: f(m, y0, SPAN, **kw)) for f in (cuda_integrate_rays, integrate_rays_plain)
+        )
+        cubic = CudaTracer(m, geometry=tracer.geometry)
+        gk, gp = tracer._finish(out_k, y0, SPAN[0]), tracer._finish(out_p, y0, SPAN[0])
+        gc = cubic._finish(cuda_integrate_rays(m, y0, SPAN, **cubic._integrate_kwargs(dtype)), y0, SPAN[0])
+        torch.cuda.synchronize()
+        hits, err_abs, err_rel = _hit_ends_rel(gk, gp)
+        _, cubic_abs, cubic_rel = _hit_ends_rel(gk, gc)
+        hit = (gk.status == HIT) & (gp.status == HIT)
+        pf = ConstPointFunctions.redshift(m, torch.tensor(X_OBS, dtype=dtype, device=dev))
+        res = dict(
+            rays=n,
+            status_agree=float((gk.status == gp.status).double().mean()),
+            hits=hits,
+            hit_max_abs_err=err_abs,
+            hit_max_rel_err=err_rel,
+            g_median_rel=float(_rel(pf(m, gk, SPAN[1])[hit], pf(m, gp, SPAN[1])[hit]).median()),
+            vs_cubic_status_agree=float((gk.status == gc.status).double().mean()),
+            vs_cubic_hit_max_abs_err=cubic_abs,
+            vs_cubic_hit_max_rel_err=cubic_rel,
+            kernel_ms=ms_k,
+            plain_ms=ms_p,
+        )
+        if dtype == torch.float64:
+            if res["status_agree"] < 0.999 or err_abs > 1e-6:
+                raise AssertionError(f"sampled {name} kernel/plain disagree: {res}")
+        elif res["status_agree"] < 0.995 or res["g_median_rel"] > 1e-4:
+            raise AssertionError(f"sampled {name} kernel/plain disagree: {res}")
+        out[name] = res
+    return out
+
+
+def _segmented(dev, n, segment_iters=128, tail_bucket=8192):
+    """The kernel's single pass against a pass capped at ``segment_iters``
+    loop iterations plus a resumed pass over its survivors in a
+    ``tail_bucket``-sized bucket (`CudaTracer._integrate`), on flagship
+    rays: statuses identical and outputs bit for bit the same (else the f64
+    endpoints within 1e-12 relative). 128 / 8192 rather than 48 / 2048:
+    after 48 iterations 12,100 (f32) and 14,154 (f64) of 16,384 flagship
+    rays are mid-flight (the kernel's C++ on a CPU), more than such a
+    bucket holds. Then a bucket of 8 leaves rays unfinished, and says so."""
+    out = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        m, single, y0 = _flagship_rays(dev, dtype, n, 26)
+        seg = CudaTracer(m, geometry=single.geometry, segment_iters=segment_iters, tail_bucket=tail_bucket)
+        capped = cuda_integrate_rays(m, y0, SPAN, iter_cap=segment_iters, **single._integrate_kwargs(dtype))
+        survivors = int(cuda_solver._mid_flight(capped, SPAN[1]).sum())
+        o1, o2 = single._integrate(y0, SPAN), seg._integrate(y0, SPAN)
+        torch.cuda.synchronize()
+        same = {k: bool(torch.equal(o1[k], o2[k])) for k in ("y", "status", "lam", "dt", "steps", "hit_theta")}
+        res = dict(
+            rays=n,
+            survivors=survivors,
+            unfinished=int(cuda_solver._mid_flight(o2, SPAN[1]).sum()),
+            status_identical=same["status"],
+            bit_identical=all(same.values()),
+            y_max_rel_err=float(((o1["y"] - o2["y"]).abs() / o1["y"].abs().clamp(min=1.0)).max()),
+            attempts=(int(o1["attempts"].sum()), int(o2["attempts"].sum())),
+            warp_iters=(int(o1["warp_iters"].sum()), int(o2["warp_iters"].sum())),
+        )
+        if not same["status"] or res["unfinished"] != 0 or not 0 < survivors <= tail_bucket:
+            raise AssertionError(f"segmented {name} differs from the single pass: {res}")
+        if not res["bit_identical"] and (dtype == torch.float32 or res["y_max_rel_err"] > 1e-12):
+            raise AssertionError(f"segmented {name} differs from the single pass: {res}")
+        out[name] = res
+    m, _, y0 = _flagship_rays(dev, torch.float64, n, 26)
+    small = CudaTracer(m, geometry=ThinDisc(0.0, 50.0, device=dev), segment_iters=48, tail_bucket=8)
+    out["tail_bucket_8_unfinished"] = int(small.trace(y0, SPAN)[1]["unfinished"])
+    if out["tail_bucket_8_unfinished"] <= 0:
+        raise AssertionError("an undersized tail bucket left no ray unfinished")
+    return out
+
+
+def _crossing_counters(dev, n):
+    """terminate_on_hit=False against DatumPlane(0) on flagship rays, f64:
+    the kernel's crossing counts against the plain version's, identical
+    for ≥ 0.999 of the rays."""
+    m, tracer, y0 = _flagship_rays(dev, torch.float64, n, 27)
+    kw = {**tracer._integrate_kwargs(torch.float64), "geometry": DatumPlane(0.0, device=dev)}
+    (ok, ms_k), (op, ms_p) = (
+        _timed(lambda f=f: f(m, y0, SPAN, terminate_on_hit=False, **kw)) for f in (cuda_integrate_rays, integrate_rays_plain)
+    )
+    torch.cuda.synchronize()
+    res = dict(
+        rays=n,
+        count_agree=float((ok["crossings"] == op["crossings"]).double().mean()),
+        status_agree=float((ok["status"] == op["status"]).double().mean()),
+        counts=torch.bincount(ok["crossings"].long()).tolist(),
+        kernel_ms=ms_k,
+        plain_ms=ms_p,
+    )
+    if res["count_agree"] < 0.999 or res["status_agree"] < 0.999 or len(res["counts"]) < 3:
+        raise AssertionError(f"crossing counters kernel/plain disagree: {res}")
+    return res
+
+
+def _timelike(dev, n):
+    """mu = 1 (timelike rays from the flagship camera) against the disc, f64:
+    kernel against plain version with the flagship group's thresholds."""
+    m, tracer, y0 = _flagship_rays(dev, torch.float64, n, 28, mu=1.0)
+    kw = tracer._integrate_kwargs(torch.float64)
+    gk = tracer._finish(cuda_integrate_rays(m, y0, SPAN, **kw), y0, SPAN[0])
+    gp = tracer._finish(integrate_rays_plain(m, y0, SPAN, **kw), y0, SPAN[0])
+    torch.cuda.synchronize()
+    hits, err_abs, err_rel = _hit_ends_rel(gk, gp)
+    res = dict(
+        rays=n,
+        status_agree=float((gk.status == gp.status).double().mean()),
+        hits=hits,
+        hit_max_abs_err=err_abs,
+        hit_max_rel_err=err_rel,
+    )
+    if res["status_agree"] < 0.999 or err_abs > 1e-6 or hits < n // 10:
+        raise AssertionError(f"timelike kernel/plain disagree: {res}")
+    return res
+
+
+def phase_kernel_vs_plain(
+    dev,
+    n_disc=8192,
+    n_free=2048,
+    n_datum=8192,
+    n_metric=1024,
+    n_dual=8192,
+    n_new_metric=512,
+    n_sampled=2048,
+    n_seg=16384,
+    n_cross=2048,
+    n_timelike=512,
+):
     """The kernel and its plain version on the same card tensors, compared
     after the polish: flagship rays with the disc, rays without one,
-    transfer-function rays against a DatumPlane, and the deformed metrics;
-    then the kernel's dual-number path against its hand-derived Kerr path."""
+    transfer-function rays against a DatumPlane, the deformed metrics and
+    the other metrics; the kernel's dual-number path against its
+    hand-derived Kerr path; then the kernel's modes: sampled events, the
+    tail pass, crossing counters and timelike rays."""
     rng = np.random.default_rng(20)
     alpha = rng.uniform(-28.0, 28.0, n_disc + n_free)
     beta = rng.uniform(-18.0, 18.0, n_disc + n_free)
@@ -433,6 +726,13 @@ def phase_kernel_vs_plain(dev, n_disc=8192, n_free=2048, n_datum=8192, n_metric=
     results["datum_plane"] = _datum_plane_group(dev, n_datum)
     results["metrics"] = _metrics_group(dev, n_metric)
     results["dual_vs_hand"] = _dual_vs_hand(dev, n_dual)
+    results["new_metrics"] = _new_metrics_group(dev, n_new_metric)
+    results["modes"] = dict(
+        sampled=_sampled_events(dev, n_sampled),
+        segmented=_segmented(dev, n_seg),
+        crossing_counters=_crossing_counters(dev, n_cross),
+        timelike=_timelike(dev, n_timelike),
+    )
     _say("kernel_vs_plain", **results)
     return results
 
@@ -462,24 +762,28 @@ def phase_goldens(dev):
     _say("goldens", **sums)
 
 
-def _full_render(dev, m, side, name, ops_key):
+def _full_render(dev, m, side, name, ops_key, subset=True, **tracer_kw):
     """A side² render, f32, at the flagship camera (r = 1000, i = 75°,
     ThinDisc(0, 50), λ ∈ (0, 2200)) through the port's entry points, with
     the metric's redshift point function; one warm-up and three timed
-    renders, one kernel launch each. Every 64th pixel is held against the
-    plain version on the card."""
+    renders, one kernel launch each (two with a tail pass, ``tracer_kw``'s
+    ``segment_iters``). With ``subset``, every 64th pixel is held against
+    the plain version on the card. Returns (the printed result, the last
+    render's GeodesicPoint)."""
     dtype = torch.float32
     n = side * side
     d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev)
     x = torch.tensor(X_OBS, dtype=dtype, device=dev)
     pf = ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected()
-    tracer = CudaTracer(m, geometry=d)
+    tracer = CudaTracer(m, geometry=d, **tracer_kw)
+    A, B = _pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, dtype, dev)
+    last = {}
 
     def render():
         A, B = _pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, dtype, dev)
         v = map_impact_parameters(m, x, A, B)
-        gp = tracer(x.expand_as(v), v, SPAN)
-        return pf(m, gp, SPAN[1])
+        last["gp"] = tracer(x.expand_as(v), v, SPAN)
+        return pf(m, last["gp"], SPAN[1])
 
     cuda_solver.KERNEL_LAUNCHES = 0
     torch.cuda.synchronize()
@@ -493,7 +797,8 @@ def _full_render(dev, m, side, name, ops_key):
         times.append(time.perf_counter() - t0)
     launches = cuda_solver.KERNEL_LAUNCHES
     aux = tracer.last_aux
-    if launches != 4:
+    per_render = 1 if tracer.segment_iters is None else 2
+    if launches != 4 * per_render:
         raise AssertionError(f"{name}: 4 renders launched the kernel {launches} times")
     if int(aux["unfinished"]) != 0:
         raise AssertionError(f"{name}: {int(aux['unfinished'])} rays unfinished")
@@ -505,31 +810,7 @@ def _full_render(dev, m, side, name, ops_key):
     executed = int(aux["warp_iters"].sum())
     useful = int(aux["steps"].sum())
     attempted = int(aux["attempts"].sum())
-
-    # every 64th pixel, against the plain version on the card
-    idx = torch.arange(0, n, 64, device=dev)
-    A, B = _pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, dtype, dev)
-    y0 = _constrained(tracer, m, x, A[idx], B[idx])
     kw = tracer._integrate_kwargs(dtype)
-    out_p, plain_ms = _timed(lambda: integrate_rays_plain(m, y0, SPAN, **kw))
-    g_p = pf(m, tracer._finish(out_p, y0, SPAN[0]), SPAN[1])
-    g_k = img[idx]
-    mask_agree = float((torch.isfinite(g_k) == torch.isfinite(g_p)).double().mean())
-    both = torch.isfinite(g_k) & torch.isfinite(g_p)
-    g_rel = float(_rel(g_k[both], g_p[both]).median())
-    if mask_agree < 0.995 or not g_rel <= 1e-4:
-        raise AssertionError(f"{name} subset: hit mask agree {mask_agree}, median rel g {g_rel}")
-
-    cuda_integrate_rays(m, y0, SPAN, **kw)  # warm-up
-    kernel_ms, subset_attempts = [], 0
-    for _ in range(3):
-        out_k, ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **kw))
-        kernel_ms.append(ms)
-        subset_attempts = int(out_k["attempts"].sum())
-    # the kernel alone on every ray of the render
-    y0_full = _constrained(tracer, m, x, A, B)
-    out_full, full_ms = _timed(lambda: cuda_integrate_rays(m, y0_full, SPAN, **kw))
-    full_bound_ms, _ = _bound(ops_key, n, int(out_full["attempts"].sum()), dtype)
     result = dict(
         rays=n,
         seconds_per_render=dt,
@@ -544,24 +825,78 @@ def _full_render(dev, m, side, name, ops_key):
         attempted_lane_steps=attempted,
         useful_ray_steps=useful,
         wasted_step_fraction=1.0 - useful / max(executed, 1),
-        subset_rays=int(idx.numel()),
-        subset_hit_mask_agree=mask_agree,
-        subset_g_median_rel=g_rel,
-        subset_kernel_ms=statistics.median(kernel_ms),
-        subset_plain_ms=plain_ms,
-        subset_attempted_lane_steps=subset_attempts,
-        full_kernel_ms=full_ms,
-        full_bound_ms=full_bound_ms,
-        full_bound_share=full_bound_ms / full_ms,
+        dead_lane_share=(executed - attempted) / max(executed, 1),
     )
+
+    if subset:
+        # every 64th pixel, against the plain version on the card
+        idx = torch.arange(0, n, 64, device=dev)
+        y0 = _constrained(tracer, m, x, A[idx], B[idx])
+        out_p, plain_ms = _timed(lambda: integrate_rays_plain(m, y0, SPAN, **kw))
+        g_p = pf(m, tracer._finish(out_p, y0, SPAN[0]), SPAN[1])
+        g_k = img[idx]
+        mask_agree = float((torch.isfinite(g_k) == torch.isfinite(g_p)).double().mean())
+        both = torch.isfinite(g_k) & torch.isfinite(g_p)
+        g_rel = float(_rel(g_k[both], g_p[both]).median())
+        if mask_agree < 0.995 or not g_rel <= 1e-4:
+            raise AssertionError(f"{name} subset: hit mask agree {mask_agree}, median rel g {g_rel}")
+        cuda_integrate_rays(m, y0, SPAN, **kw)  # warm-up
+        kernel_ms, subset_attempts = [], 0
+        for _ in range(3):
+            out_k, ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **kw))
+            kernel_ms.append(ms)
+            subset_attempts = int(out_k["attempts"].sum())
+        result.update(
+            subset_rays=int(idx.numel()),
+            subset_hit_mask_agree=mask_agree,
+            subset_g_median_rel=g_rel,
+            subset_kernel_ms=statistics.median(kernel_ms),
+            subset_plain_ms=plain_ms,
+            subset_attempted_lane_steps=subset_attempts,
+        )
+    # the kernel alone (both passes and the compaction, with a tail pass) on
+    # every ray of the render
+    y0_full = _constrained(tracer, m, x, A, B)
+    out_full, full_ms = _timed(lambda: tracer._integrate(y0_full, SPAN))
+    full_bound_ms, _ = _bound(ops_key, n, int(out_full["attempts"].sum()), dtype)
+    result.update(full_kernel_ms=full_ms, full_bound_ms=full_bound_ms, full_bound_share=full_bound_ms / full_ms)
     _say(name, **result)
-    return result
+    return result, last["gp"]
 
 
 def phase_main_path(dev, side=1024):
-    """The flagship render: Kerr a = 0.998, analytic redshift."""
+    """The flagship render: Kerr a = 0.998, analytic redshift; then the same
+    render with a tail pass (`SEGMENT_ITERS`, `TAIL_BUCKET`), whose image
+    (status, x, λ) must be the single pass's, bit for bit. Whether the tail
+    pass pays is in its time beside the single pass's."""
     m = KerrMetric(1.0, 0.998, dtype=torch.float32, device=dev)
-    return _full_render(dev, m, side, "main_path", "kerr")
+    single, gp_1 = _full_render(dev, m, side, "main_path", "kerr")
+    seg, gp_2 = _full_render(
+        dev,
+        m,
+        side,
+        "flagship_render_segmented",
+        "kerr",
+        subset=False,
+        segment_iters=SEGMENT_ITERS,
+        tail_bucket=TAIL_BUCKET,
+    )
+    same = dict(
+        status=bool(torch.equal(gp_1.status, gp_2.status)),
+        x=bool(torch.equal(gp_1.x.nan_to_num(), gp_2.x.nan_to_num())),
+        lam=bool(torch.equal(gp_1.lam_max, gp_2.lam_max)),
+    )
+    _say(
+        "segmented_vs_single",
+        image_identical=same,
+        seconds_per_render=(single["seconds_per_render"], seg["seconds_per_render"]),
+        full_kernel_ms=(single["full_kernel_ms"], seg["full_kernel_ms"]),
+        wasted_step_fraction=(single["wasted_step_fraction"], seg["wasted_step_fraction"]),
+        dead_lane_share=(single["dead_lane_share"], seg["dead_lane_share"]),
+    )
+    if not all(same.values()):
+        raise AssertionError(f"the segmented render's image differs from the single pass's: {same}")
+    return single, seg
 
 
 def phase_deformed_render(dev, side=1024):
@@ -569,7 +904,15 @@ def phase_deformed_render(dev, side=1024):
     the kernel's dual-number path, and the dot-product redshift (generic
     ISCO, Keplerian and plunging disc velocities)."""
     m = JohannsenPsaltisMetric(**JP, dtype=torch.float32, device=dev)
-    return _full_render(dev, m, side, "deformed_render", "johannsen_psaltis")
+    return _full_render(dev, m, side, "deformed_render", "johannsen_psaltis")[0]
+
+
+def phase_kerr_newman_render(dev, side=1024):
+    """The flagship camera with Kerr-Newman (a = 0.5, Q = 0.3) through the
+    kernel's dual-number path, and the dot-product redshift with the generic
+    ISCO (the metric has no closed-form one)."""
+    m = KerrNewmanMetric(**KN, dtype=torch.float32, device=dev)
+    return _full_render(dev, m, side, "kerr_newman_render", "kerr_newman")[0]
 
 
 def _m1(flux, bins):
@@ -578,18 +921,19 @@ def _m1(flux, bins):
 
 
 def _device_busy_ms(fn):
-    """(kernel time on the card in ms, device events) during one call of
-    ``fn`` (torch.profiler, device activity only); the time is None if the
-    profiler sees no device activity. The profiler's raw events are summed
-    directly: `key_averages()` over the ~10⁶ events of a CTF profile takes
-    minutes of host time."""
+    """(kernel time on the card in ms, the integrator kernel's own ms, device
+    events) during one call of ``fn`` (torch.profiler, device activity
+    only); a time is None if the profiler sees no such device activity. The
+    profiler's raw events are summed directly: `key_averages()` over the
+    ~10⁶ events of a CTF profile takes minutes of host time."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     device = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
     busy_ns = sum(e.duration_ns() for e in device)
-    return (busy_ns / 1e6 if busy_ns > 0 else None), len(device)
+    kernel_ns = sum(e.duration_ns() for e in device if "geodesic_tsit5" in e.name())
+    return (busy_ns / 1e6 if busy_ns > 0 else None), (kernel_ns / 1e6 if kernel_ns > 0 else None), len(device)
 
 
 def phase_ctf_golden(dev):
@@ -671,7 +1015,23 @@ def phase_ctf_lineprofile(dev):
     if drift > 1e-3:
         raise AssertionError(f"CTF m1 {m1} drifts {drift} from the f64 CPU value")
     dt = statistics.median(times)
-    busy_ms, device_events = _device_busy_ms(profile)
+    # one more profile under the profiler, counting the rays and attempted
+    # steps of every launch for the kernel's bound (a sum on the card per
+    # launch, read once at the end)
+    counted = []
+
+    def counting(*args, **kw):
+        out = integrate(*args, **kw)
+        counted.append(torch.stack([torch.tensor(out["attempts"].numel(), device=dev), out["attempts"].sum()]))
+        return out
+
+    integrate, cuda_solver.cuda_integrate_rays = cuda_solver.cuda_integrate_rays, counting
+    try:
+        busy_ms, kernel_ms, device_events = _device_busy_ms(profile)
+    finally:
+        cuda_solver.cuda_integrate_rays = integrate
+    rays, attempts = (int(v) for v in torch.stack(counted).sum(dim=0))
+    bound_ms, bound_by = _bound("kerr_datum_plane", rays, attempts, dtype)
     res = dict(
         seconds_per_profile=dt,
         profile_seconds=times,
@@ -685,6 +1045,12 @@ def phase_ctf_lineprofile(dev):
         device_events=device_events,
         device_busy_ms=busy_ms,
         device_busy_share=None if busy_ms is None else busy_ms / 1e3 / dt,
+        kernel_ms=kernel_ms,
+        kernel_rays=rays,
+        attempted_lane_steps=attempts,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        bound_share=None if kernel_ms is None else bound_ms / kernel_ms,
     )
     _say("ctf_lineprofile", **res)
     return res, flux_np
@@ -812,8 +1178,9 @@ def main():
     timed_phase("build", phase_build)
     checks = timed_phase("kernel_vs_plain", phase_kernel_vs_plain, dev)
     timed_phase("goldens", phase_goldens, dev)
-    rendered = timed_phase("main_path", phase_main_path, dev)
+    rendered, segmented = timed_phase("main_path", phase_main_path, dev)
     deformed = timed_phase("deformed_render", phase_deformed_render, dev)
+    kerr_newman = timed_phase("kerr_newman_render", phase_kerr_newman_render, dev)
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
     binned = timed_phase("binning_lineprofile", phase_binning_lineprofile, dev, ctf_flux)
@@ -825,6 +1192,12 @@ def main():
         "johannsen_psaltis",
         deformed["subset_rays"],
         deformed["subset_attempted_lane_steps"],
+        torch.float32,
+    )
+    kn_bound_ms, kn_bound_by = _bound(
+        "kerr_newman",
+        kerr_newman["subset_rays"],
+        kerr_newman["subset_attempted_lane_steps"],
         torch.float32,
     )
     print(
@@ -843,7 +1216,15 @@ def main():
                         "bound_ms": bound_ms,
                         "bound_by": bound_by,
                         "library_ms": None,
-                        "modes": ["none", "thin_disc", "datum_plane"],
+                        "modes": [
+                            "none",
+                            "thin_disc",
+                            "datum_plane",
+                            "sampled",
+                            "resume",
+                            "crossing_counter",
+                            "timelike",
+                        ],
                         "metrics": [
                             "kerr",
                             "johannsen",
@@ -851,12 +1232,21 @@ def main():
                             "noz",
                             "bumblebee",
                             "dilaton_axion",
+                            "kerr_newman",
+                            "morris_thorne",
+                            "kerr_refractive",
+                            "kerr_dark_matter",
+                            "spherical",
+                            "cartesian",
                         ],
                         "datum_plane_max_abs_err": checks["datum_plane"]["f64"][
                             "hit_max_abs_err"
                         ],
                         "metrics_max_abs_err": max(
                             checks["metrics"][kind]["hit_max_abs_err"] for kind in DEFORMED
+                        ),
+                        "new_metrics_max_abs_err": max(
+                            checks["new_metrics"][kind]["hit_max_abs_err"] for kind in NEW_METRICS
                         ),
                         "dual_max_abs_err": checks["dual_vs_hand"]["f64"]["hit_max_abs_err"],
                         "dual_over_hand_per_step": checks["dual_vs_hand"]["f32"][
@@ -869,9 +1259,29 @@ def main():
                             "bound_ms": deformed_bound_ms,
                             "bound_by": deformed_bound_by,
                         },
+                        "kerr_newman_render": {
+                            "launches": kerr_newman["launches"],
+                            "ms": kerr_newman["subset_kernel_ms"],
+                            "plain_ms": kerr_newman["subset_plain_ms"],
+                            "bound_ms": kn_bound_ms,
+                            "bound_by": kn_bound_by,
+                        },
+                        "flagship_render_segmented": {
+                            "launches": segmented["launches"],
+                            "full_kernel_ms": segmented["full_kernel_ms"],
+                            "single_pass_full_kernel_ms": rendered["full_kernel_ms"],
+                        },
+                        "ctf_lineprofile": {
+                            "launches": ctf["launches"],
+                            "ms": ctf["kernel_ms"],
+                            "bound_ms": ctf["bound_ms"],
+                            "bound_by": ctf["bound_by"],
+                        },
                         "launches_by_path": {
                             "flagship_render": rendered["launches"],
+                            "flagship_render_segmented": segmented["launches"],
                             "deformed_render": deformed["launches"],
+                            "kerr_newman_render": kerr_newman["launches"],
                             "ctf_lineprofile": ctf["launches"],
                             "binning_lineprofile": binned["launches"],
                         },

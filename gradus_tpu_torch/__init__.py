@@ -4,10 +4,12 @@ Hopper (H100, sm_90a).
 Module paths and public names mirror `gradus_tpu`. This package imports
 `torch` and never `jax`. Its slices so far:
 
-- the flagship render: Kerr impact parameters → null constraint → the
-  adaptive Tsit5 integrator with disc events (one hand-written CUDA kernel
-  on the card, its plain PyTorch version on the CPU) → Newton polish of the
-  hits → analytic Kerr redshift;
+- the flagship render: impact parameters → null (or timelike) constraint →
+  the adaptive Tsit5 integrator with disc events (one hand-written CUDA
+  kernel on the card, its plain PyTorch version on the CPU; every metric of
+  `gradus_tpu_torch.metrics`, cubic or sampled events, an optional tail
+  pass) → Newton polish of the hits → analytic Kerr or dot-product
+  redshift;
 - the line profiles on that integrator: `lineprofile(..., backend="cuda")`
   (Cunningham transfer functions from a finite-difference Newton solve over
   a `DatumPlane`, then Gauss-Legendre integration), and `binned_flux` over a

@@ -133,11 +133,13 @@ def _declare(lib):
         fn.argtypes = [
             vp, i64,  # y0, n
             i32, dbl, dbl,  # metric kind, M, a
-            ctypes.POINTER(dbl),  # the metric's deformation parameters, double[5]
+            ctypes.POINTER(dbl),  # the metric's other parameters, double[5]
             i32, dbl, dbl, dbl,  # geometry kind, inner_r, outer_r, height
             dbl, dbl, dbl, dbl,  # abstol, reltol, r_inner, r_outer
-            dbl, dbl, i32, dbl,  # lam0, lam1, max_steps, dt_min
-            *([vp] * 12),  # the 12 outputs
+            dbl, dbl, i32, dbl,  # lam0, lam1, max_steps (or the iteration cap), dt_min
+            ctypes.POINTER(i32),  # modes: sampled, n_interp, bisect_iters, terminate_on_hit
+            ctypes.POINTER(vp),  # the carry of a resumed launch (11 pointers), or null
+            ctypes.POINTER(vp),  # the 13 outputs
             vp,  # stream
         ]
         fn.restype = ctypes.c_int

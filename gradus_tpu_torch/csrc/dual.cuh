@@ -5,8 +5,10 @@
 // with JAX's up to rounding.
 //
 // The operations are hidden friends, found by argument-dependent lookup
-// only, so they never hide the scalar sin/cos/sqrt of the same names.
+// only, so they never hide the scalar sin/cos/sqrt/atan of the same names.
 // Integer powers are written as products by the callers; there is no pow.
+// A comparison reads the value; select(c, a, b) takes the value and the
+// tangents of the branch c names, as jax.jvp differentiates jnp.where.
 
 #pragma once
 
@@ -84,6 +86,26 @@ struct Dual2 {
     const T h = T(0.5) / s;
     return {s, a.dr * h, a.dth * h};
   }
+  // d atan(x) = dx / (1 + x^2)
+  friend __device__ __forceinline__ Dual2 atan(Dual2 a) {
+    const T d = T(1) / (T(1) + a.v * a.v);
+    return {atan(a.v), a.dr * d, a.dth * d};
+  }
+
+  friend __device__ __forceinline__ bool operator<(Dual2 a, T b) { return a.v < b; }
+  friend __device__ __forceinline__ bool operator<=(Dual2 a, T b) { return a.v <= b; }
+  friend __device__ __forceinline__ bool operator>=(Dual2 a, T b) { return a.v >= b; }
+
+  friend __device__ __forceinline__ Dual2 select(bool c, Dual2 a, Dual2 b) {
+    return c ? a : b;
+  }
 };
+
+// select for a plain scalar, so that a components5 template reads the same
+// for both of its scalars
+template <typename T>
+__device__ __forceinline__ T select(bool c, T a, T b) {
+  return c ? a : b;
+}
 
 }  // namespace gradus

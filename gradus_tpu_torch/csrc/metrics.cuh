@@ -1,14 +1,19 @@
-// The five deformed metrics of gradus_tpu/metrics/deformed.py, each as
+// The metrics without a hand-derived Jacobian -- the five of
+// gradus_tpu/metrics/deformed.py, Kerr-Newman (kerr_newman.py, uncharged
+// rays), the three of exotic.py and the two of minkowski.py -- each as
 //   template <typename T, class S>
 //   static void components5(const DeformedParams<T>& p, S r, S th, S* g);
 // writing g = (g_tt, g_rr, g_thth, g_phph, g_tphi) with the JAX package's
 // expressions. The scalar S is T for a value, Dual2<T> for the value and
-// its (d_r, d_theta) Jacobian. Integer powers are products; the poles'
-// 1/sin^2 (DilatonAxion) and 1/(1 - cos^2) (NoZ) are kept as they are, so a
-// NaN fails a ray the same way as in the plain version.
+// its (d_r, d_theta) Jacobian; S{c} is a constant. Integer powers are
+// products; the poles' 1/sin^2 (DilatonAxion) and 1/(1 - cos^2) (NoZ) are
+// kept as they are, so a NaN fails a ray the same way as in the plain
+// version. DualRhs, at the end, turns one of them into the kernel's
+// right-hand side.
 //
-// Parameters: p.M and p.a, and the deformation parameters in p.q, in the
-// order of integrate/cuda_solver.py::_KERNEL_METRICS:
+// Parameters: p.M and p.a (0 for a metric without them), and the other
+// parameters in p.q, in the order of
+// integrate/cuda_solver.py::_KERNEL_METRICS:
 //   Johannsen           q = (alpha13, alpha22, alpha52, eps3)
 //   JohannsenPsaltis    q = (eps3)
 //   NoZ                 q = (eps)
@@ -16,6 +21,11 @@
 //   DilatonAxion        q = (beta, b, bb, ba, bab), the last three the
 //                       guarded ratios beta/b, beta/a, beta/(a b), which
 //                       depend on the parameters only and come from the host
+//   KerrNewman          q = (Q)
+//   MorrisThorne        q = (b)
+//   KerrRefractive      q = (n, corona_radius)
+//   KerrDarkMatter      q = (M_dark_matter, delta_r, r_s)
+//   Spherical, Cartesian  q = ()
 
 #pragma once
 
@@ -161,6 +171,194 @@ struct DilatonAxion {
     g[2] = sigma_hat;
     g[3] = A * sin2 / sigma_hat;
     g[4] = -a * (dlt - delta_hat * W) * sin2 / sigma_hat;
+  }
+};
+
+// reference src/metrics/kerr-newman-ad.jl:1-26
+struct KerrNewman {
+  template <typename T, class S>
+  static __device__ __forceinline__ void components5(
+      const DeformedParams<T>& p, S r, S th, S* g) {
+    const T M = p.M, a = p.a;
+    const T Q = p.q[0];
+    const T R = T(2) * M;
+    const S s = sin(th);
+    const S sin2 = s * s;
+    const S ac = a * cos(th);
+    const S sigma = r * r + ac * ac;
+    const S delta = r * r - R * r + a * a + Q * Q;
+    const S r2a2 = r * r + a * a;
+
+    g[0] = (a * a * sin2 - delta) / sigma;
+    g[1] = sigma / delta;
+    g[2] = sigma;
+    g[3] = (sin2 / sigma) * (r2a2 * r2a2 - a * a * sin2 * delta);
+    g[4] = (a * sin2 / sigma) * (delta - r2a2);
+  }
+};
+
+// reference src/metrics/morris-thorne-ad.jl:1-37; g_phph = (b^2 + l^2) sin(theta)
+// as the reference writes it (not sin^2)
+struct MorrisThorne {
+  template <typename T, class S>
+  static __device__ __forceinline__ void components5(
+      const DeformedParams<T>& p, S r, S th, S* g) {
+    const T b = p.q[0];
+    g[0] = S{T(-1)};
+    g[1] = S{T(1)};
+    g[2] = b * b + r * r;
+    g[3] = (b * b + r * r) * sin(th);
+    g[4] = S{T(0)};
+  }
+};
+
+// the smoothed 1 -> 0 step at x0 of gradus_tpu/utils/linalg.py:128-136
+// (dx = 2.5, smoothing offset 1e4)
+template <typename T, class S>
+__device__ __forceinline__ S smooth_step(S x, T x0) {
+  const S t = (x - x0) / T(2.5);
+  const S v = atan(T(1e4) * t) / T(3.141592653589793) + T(0.5);
+  const S mid = T(1) - v;
+  return select(x <= x0 - T(1.25), S{T(1)}, select(x >= x0 + T(1.25), S{T(0)}, mid));
+}
+
+// reference src/metrics/kerr-refractive-ad.jl:44-64
+struct KerrRefractive {
+  template <typename T, class S>
+  static __device__ __forceinline__ void components5(
+      const DeformedParams<T>& p, S r, S th, S* g) {
+    const T M = p.M, a = p.a;
+    const T n = p.q[0], corona_radius = p.q[1];
+    const T R = T(2) * M;
+    const S s = sin(th);
+    const S c = cos(th);
+    const S sin2 = s * s;
+    const S sigma = r * r + a * a * (c * c);
+    const S delta = r * r - R * r + a * a;
+
+    const S tt = -(T(1) - (R * r) / sigma);
+    const S tp = (-R * r * a * sin2) / sigma;
+    const S t = smooth_step(r, corona_radius);
+    const S nn = t + (T(1) - t) * n;
+    g[0] = tt / (nn * nn);
+    g[1] = sigma / delta;
+    g[2] = sigma;
+    g[3] = sin2 * (r * r + a * a + (sin2 * R * r * a * a) / sigma);
+    g[4] = tp / nn;
+  }
+};
+
+// reference src/metrics/kerr-dark-matter.jl:1-72: Kerr with the mass
+// M + m(r) of a smoothed shell between r_s and r_s + delta_r
+struct KerrDarkMatter {
+  template <typename T, class S>
+  static __device__ __forceinline__ void components5(
+      const DeformedParams<T>& p, S r, S th, S* g) {
+    const T a = p.a;
+    const T M_dm = p.q[0], delta_r = p.q[1], r_s = p.q[2];
+    const S dr = (r - r_s) / delta_r;
+    const S G = (T(3) - T(2) * dr) * dr * dr;
+    const S mass = select(r < r_s, S{T(0)}, select(r < r_s + delta_r, M_dm * G, S{M_dm}));
+    const S M = p.M + mass;
+    const S R = T(2) * M;
+    const S s = sin(th);
+    const S sin2 = s * s;
+    const S cos2 = T(1) - sin2;
+    const S sigma = r * r + a * a * cos2;
+    const S delta = r * r + a * a - R * r;
+
+    g[0] = -(T(1) - (R * r) / sigma);
+    g[1] = sigma / delta;
+    g[2] = sigma;
+    g[3] = sin2 * (r * r + a * a + (sin2 * R * r * a * a) / sigma);
+    g[4] = (-R * r * a * sin2) / sigma;
+  }
+};
+
+// reference src/metrics/minkowski.jl: flat space in spherical coordinates
+struct Spherical {
+  template <typename T, class S>
+  static __device__ __forceinline__ void components5(
+      const DeformedParams<T>&, S r, S th, S* g) {
+    const S rs = r * sin(th);
+    g[0] = S{T(-1)};
+    g[1] = S{T(1)};
+    g[2] = r * r;
+    g[3] = rs * rs;
+    g[4] = S{T(0)};
+  }
+};
+
+// flat space in cartesian coordinates: diag(-1, 1, 1, 1)
+struct Cartesian {
+  template <typename T, class S>
+  static __device__ __forceinline__ void components5(
+      const DeformedParams<T>&, S, S, S* g) {
+    g[0] = S{T(-1)};
+    g[1] = S{T(1)};
+    g[2] = S{T(1)};
+    g[3] = S{T(1)};
+    g[4] = S{T(0)};
+  }
+};
+
+// --- the right-hand side of a metric above -----------------------------------
+
+// a^mu = -g^{mu rho} [ (v^r d_r g + v^theta d_theta g)_{rho sigma} v^sigma
+//                      - 1/2 delta_{rho in {r, theta}} (v d_rho g v) ]
+// (gradus_tpu/geodesics/equation.py:94-134)
+template <typename T>
+__device__ __forceinline__ void geodesic_acceleration(const Dual2<T>* g,
+                                                      const T* y, T* f) {
+  const T vt = y[4], vr = y[5], vth = y[6], vph = y[7];
+  const T inv_det = T(1) / (g[0].v * g[3].v - g[4].v * g[4].v);
+  const T gi_tt = g[3].v * inv_det;
+  const T gi_phph = g[0].v * inv_det;
+  const T gi_tph = -g[4].v * inv_det;
+  const T gi_rr = T(1) / g[1].v;
+  const T gi_thth = T(1) / g[2].v;
+
+  // (J v)_rho for J = d_r g and J = d_theta g
+  const T J1v_t = g[0].dr * vt + g[4].dr * vph;
+  const T J1v_r = g[1].dr * vr;
+  const T J1v_th = g[2].dr * vth;
+  const T J1v_ph = g[4].dr * vt + g[3].dr * vph;
+  const T q1 = vt * J1v_t + vr * J1v_r + vth * J1v_th + vph * J1v_ph;
+  const T J2v_t = g[0].dth * vt + g[4].dth * vph;
+  const T J2v_r = g[1].dth * vr;
+  const T J2v_th = g[2].dth * vth;
+  const T J2v_ph = g[4].dth * vt + g[3].dth * vph;
+  const T q2 = vt * J2v_t + vr * J2v_r + vth * J2v_th + vph * J2v_ph;
+
+  const T A_t = vr * J1v_t + vth * J2v_t;
+  const T A_r = vr * J1v_r + vth * J2v_r - T(0.5) * q1;
+  const T A_th = vr * J1v_th + vth * J2v_th - T(0.5) * q2;
+  const T A_ph = vr * J1v_ph + vth * J2v_ph;
+
+  f[0] = vt;
+  f[1] = vr;
+  f[2] = vth;
+  f[3] = vph;
+  f[4] = -(gi_tt * A_t + gi_tph * A_ph);
+  f[5] = -gi_rr * A_r;
+  f[6] = -gi_thth * A_th;
+  f[7] = -(gi_tph * A_t + gi_phph * A_ph);
+}
+
+// The kernel's Metric for one of the metrics above: components5 once on dual
+// numbers with two tangents gives the value and the (d_r, d_theta) Jacobian
+// that the TPU kernel gets from two jax.jvp passes
+// (gradus_tpu/metrics/base.py:100-114), then the geodesic acceleration.
+template <class Components>
+struct DualRhs {
+  template <typename T>
+  static __device__ __forceinline__ void rhs(const DeformedParams<T>& p,
+                                             const T* y, T* f) {
+    const Dual2<T> r = {y[1], T(1), T(0)};
+    const Dual2<T> th = {y[2], T(0), T(1)};
+    Dual2<T> g[5];
+    Components::components5(p, r, th, g);
+    geodesic_acceleration(g, y, f);
   }
 };
 

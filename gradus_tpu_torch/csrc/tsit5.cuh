@@ -1,16 +1,29 @@
-// The adaptive Tsit5 geodesic integrator with cubic disc-crossing events, as
-// a kernel template over the metric: one CUDA thread integrates one ray from
-// its initial state to its end. `geodesic_tsit5.cu` instantiates it for Kerr
-// (hand-derived Jacobian), `geodesic_tsit5_deformed.cu` for the metrics whose
-// Jacobian comes from forward-mode dual numbers (`metrics.cuh`). The design
-// note is at the top of `geodesic_tsit5.cu`.
+// The adaptive Tsit5 geodesic integrator with disc-crossing events, as a
+// kernel template over the metric: one CUDA thread integrates one ray from
+// its initial state (or from a saved carry) to its end. `geodesic_tsit5.cu`
+// instantiates it for Kerr (hand-derived Jacobian), the other
+// `geodesic_tsit5_*.cu` files for the metrics whose Jacobian comes from
+// forward-mode dual numbers (`metrics.cuh`). The design note is at the top
+// of `geodesic_tsit5.cu`.
 //
 // A Metric is a type with
 //   static __device__ void rhs(const P& p, const T* y, T* f);
 // that writes the geodesic right-hand side f = (v, a) of the state y, for
 // its parameter struct P: Params<T> for Kerr, DeformedParams<T> for the
-// deformed metrics. Kerr's kernel thus takes the same arguments as before
-// the deformed metrics came.
+// dual-number metrics. Kerr's kernel thus takes the same physics arguments
+// as before the dual-number metrics came.
+//
+// The modes of the TPU kernel (gradus_tpu/integrate/pallas_solver.py) are
+// runtime arguments of every instantiation (Modes, Carry), so a capped pass
+// and its resumption run the same machine code as a single pass:
+//   - events: the cubic model of the crossing indicator (the default) or
+//     n_interp Hermite samples of it with bisection (:358-399);
+//   - terminate on hit (the default), or count the crossings and fly on
+//     (:413-430; the port counts in an output of its own, `crossings`, where
+//     the TPU kernel adds 1 to the last state slot, v^phi);
+//   - a fresh start, or the resumption of a saved carry (:182-240), and a
+//     cap on a ray's loop iterations (max_steps, per ray here, per tile of
+//     1024 rays on the TPU).
 
 #pragma once
 
@@ -45,6 +58,12 @@ constexpr int kMetricJohannsenPsaltis = 2;
 constexpr int kMetricNoZ = 3;
 constexpr int kMetricBumblebee = 4;
 constexpr int kMetricDilatonAxion = 5;
+constexpr int kMetricKerrNewman = 6;
+constexpr int kMetricMorrisThorne = 7;
+constexpr int kMetricKerrRefractive = 8;
+constexpr int kMetricKerrDarkMatter = 9;
+constexpr int kMetricSpherical = 10;
+constexpr int kMetricCartesian = 11;
 constexpr int kMetricParams = 5;
 
 // Tsit5 tableau (integrate/tsit5.py)
@@ -79,10 +98,67 @@ struct Params {
   T dt_min;
 };
 
-// Params and a deformed metric's deformation parameters (metrics.cuh)
+// Params and a dual-number metric's own parameters (metrics.cuh)
 template <typename T>
 struct DeformedParams : Params<T> {
   T q[kMetricParams];
+};
+
+// How a launch runs, beside the physics of Params.
+struct Modes {
+  int sampled;           // 0: cubic events; 1: sampled events
+  int n_interp;          // sampled: Hermite samples of the indicator a step
+  int bisect_iters;      // sampled: bisections of the first sign change
+  double theta_step;     // sampled: 1 / n_interp, as numpy.linspace takes it
+  int terminate_on_hit;  // 0: count the crossings and fly on
+};
+
+// The carry a resumed launch starts from (integrate/cuda_solver.py::
+// _STATE_KEYS): the TPU kernel's ten fields and the port's crossing count,
+// all null for a fresh start. k1 is state-major (8, n) like y0.
+template <typename T>
+struct Carry {
+  const T* k1;
+  const T* lam;
+  const T* dt;
+  const T* ln_qold;
+  const int32_t* status;
+  const int32_t* steps;
+  const int32_t* failed;
+  const T* c_prev;
+  const T* dc_prev;
+  const T* hit_theta;
+  const int32_t* crossings;
+};
+
+// The 13 outputs, in the order of integrate/cuda_solver.py::_OUTPUT_KEYS.
+constexpr int kOutputs = 13;
+template <typename T>
+struct Outputs {
+  T* y;
+  T* k1;
+  T* lam;
+  T* dt;
+  T* ln_qold;
+  int32_t* status;
+  int32_t* steps;
+  int32_t* failed;
+  T* c_prev;
+  T* dc_prev;
+  T* hit_theta;
+  int32_t* attempts;
+  int32_t* crossings;
+};
+
+// Everything a launch takes besides the physics.
+template <typename T>
+struct Launch {
+  const T* y0;
+  int64_t n;
+  Modes modes;
+  Carry<T> carry;
+  Outputs<T> out;
+  void* stream;
 };
 
 // max/min that propagate NaN, as jnp.maximum / jnp.minimum do (fmax/fmin
@@ -119,6 +195,76 @@ template <typename T>
 __device__ __forceinline__ bool thin_disc_hit(const Params<T>& p, T r, T th) {
   const T rho = r * fabs(sin(th));
   return (rho >= p.inner_r) && (rho <= p.outer_r);
+}
+
+// The crossing indicator's value alone, for the sampled events.
+template <typename T>
+__device__ __forceinline__ T crossing_value(const Params<T>& p, T r, T th) {
+  const T c = r * cos(th);
+  return p.geometry == kDatumPlane ? c - p.height : c;
+}
+
+// The cubic Hermite interpolant of r and theta over a step
+// (pallas_solver.py:136-147, the two components the events read).
+template <typename T>
+__device__ __forceinline__ void hermite_rth(T t, const T* y, const T* y_new,
+                                            const T* f0, const T* f1, T dt,
+                                            T& r, T& th) {
+  const T h00 = (T(1) + T(2) * t) * ((T(1) - t) * (T(1) - t));
+  const T h10 = t * ((T(1) - t) * (T(1) - t));
+  const T h01 = t * t * (T(3) - T(2) * t);
+  const T h11 = t * t * (t - T(1));
+  r = h00 * y[1] + h10 * dt * f0[1] + h01 * y_new[1] + h11 * dt * f1[1];
+  th = h00 * y[2] + h10 * dt * f0[2] + h01 * y_new[2] + h11 * dt * f1[2];
+}
+
+// theta_k = k / n_interp as numpy.linspace(0, 1, n_interp + 1) gives it.
+template <typename T>
+__device__ __forceinline__ T theta_at(const Modes& md, int k) {
+  return k == md.n_interp ? T(1) : T(double(k) * md.theta_step);
+}
+
+// The sampled event of pallas_solver.py:358-399: the first sign change of
+// the indicator among n_interp Hermite samples over the step, narrowed by
+// bisect_iters bisections. Returns whether a sign change was found, its
+// theta, and the indicator at the step end (the next step's c_prev).
+template <typename T>
+__device__ __forceinline__ bool sampled_crossing(const Params<T>& p, const Modes& md,
+                                                 T c_prev, const T* y, const T* y_new,
+                                                 const T* f0, const T* f1, T dt,
+                                                 T& theta, T& c_end) {
+  bool found = false;
+  T th_lo = T(0), th_hi = T(1), c_lo = c_prev, c_left = c_prev;
+  for (int k = 0; k < md.n_interp; ++k) {
+    const T th_r = theta_at<T>(md, k + 1);
+    T r, th;
+    hermite_rth(th_r, y, y_new, f0, f1, dt, r, th);
+    const T c_right = crossing_value(p, r, th);
+    if (((c_left < T(0)) != (c_right < T(0))) && !found) {
+      th_lo = theta_at<T>(md, k);
+      th_hi = th_r;
+      c_lo = c_left;
+      found = true;
+    }
+    c_left = c_right;
+  }
+  c_end = c_left;
+  if (found) {
+    for (int it = 0; it < md.bisect_iters; ++it) {
+      const T mid = T(0.5) * (th_lo + th_hi);
+      T r, th;
+      hermite_rth(mid, y, y_new, f0, f1, dt, r, th);
+      const T cm = crossing_value(p, r, th);
+      if ((cm < T(0)) == (c_lo < T(0))) {
+        th_lo = mid;
+        c_lo = cm;
+      } else {
+        th_hi = mid;
+      }
+    }
+  }
+  theta = T(0.5) * (th_lo + th_hi);
+  return found;
 }
 
 // First sign change in (0, 1] of the Hermite cubic with c(0)=c0, c'(0)=m0,
@@ -212,15 +358,16 @@ __device__ __forceinline__ T initial_dt(const P& p, const T* y, T* f0) {
 
 template <typename T, class Metric, class P>
 __global__ void __launch_bounds__(128)
-    geodesic_tsit5_kernel(P p, const T* __restrict__ y0, int64_t n,
-                          T* __restrict__ y_out, T* __restrict__ k1_out,
+    geodesic_tsit5_kernel(P p, Modes md, Carry<T> in, const T* __restrict__ y0,
+                          int64_t n, T* __restrict__ y_out, T* __restrict__ k1_out,
                           T* __restrict__ lam_out, T* __restrict__ dt_out,
                           T* __restrict__ lnq_out, int32_t* __restrict__ status_out,
                           int32_t* __restrict__ steps_out,
                           int32_t* __restrict__ failed_out,
                           T* __restrict__ cprev_out, T* __restrict__ dcprev_out,
                           T* __restrict__ hth_out,
-                          int32_t* __restrict__ attempts_out) {
+                          int32_t* __restrict__ attempts_out,
+                          int32_t* __restrict__ crossings_out) {
   const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -228,22 +375,48 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int s = 0; s < S; ++s) y[s] = y0[s * n + i];
 
-  T lam = p.lam0;
-  T dt = initial_dt<Metric>(p, y, k1);
-  dt = mn(dt, p.lam1 - lam);
-  bool finite0 = isfinite(dt);
-#pragma unroll
-  for (int s = 0; s < S; ++s) finite0 = finite0 && isfinite(y[s]) && isfinite(k1[s]);
-  bool alive = finite0;
-  bool failed = !finite0;
-
-  int status = 0;
-  int steps = 0;
-  int attempts = 0;
-  T ln_qold = T(kLnQoldInit);
-  T c_prev = T(0), dc_prev = T(0), hit_th = T(0);
+  T lam, dt, ln_qold, c_prev, dc_prev, hit_th;
+  int status, steps, crossings;
+  bool alive, failed;
   const bool disc = p.geometry != 0;
-  if (disc) crossing_jvp(p, y, k1, c_prev, dc_prev);
+  if (in.lam != nullptr) {
+    // resume the saved carry; only a ray still mid-flight goes on
+    // (pallas_solver.py:222-240)
+#pragma unroll
+    for (int s = 0; s < S; ++s) k1[s] = in.k1[s * n + i];
+    lam = in.lam[i];
+    dt = in.dt[i];
+    ln_qold = in.ln_qold[i];
+    status = in.status[i];
+    steps = in.steps[i];
+    failed = in.failed[i] != 0;
+    c_prev = in.c_prev[i];
+    dc_prev = in.dc_prev[i];
+    hit_th = in.hit_theta[i];
+    crossings = in.crossings[i];
+    alive = status == 0 && !failed && lam < p.lam1_eps;
+  } else {
+    lam = p.lam0;
+    dt = initial_dt<Metric>(p, y, k1);
+    dt = mn(dt, p.lam1 - lam);
+    bool finite0 = isfinite(dt);
+#pragma unroll
+    for (int s = 0; s < S; ++s) finite0 = finite0 && isfinite(y[s]) && isfinite(k1[s]);
+    alive = finite0;
+    failed = !finite0;
+    status = 0;
+    steps = 0;
+    crossings = 0;
+    ln_qold = T(kLnQoldInit);
+    c_prev = T(0);
+    dc_prev = T(0);
+    hit_th = T(0);
+    if (disc) {
+      crossing_jvp(p, y, k1, c_prev, dc_prev);
+      if (md.sampled) dc_prev = T(0);  // the sampled events read no slope
+    }
+  }
+  int attempts = 0;
 
   while (alive && attempts < p.max_steps) {
     ++attempts;
@@ -307,9 +480,10 @@ __global__ void __launch_bounds__(128)
     if (accept) ln_qold = mx(ln_err, T(kLnQoldInit));
     const T lam_new = lam + dt_eff;
 
-    // --- disc event on the cubic model of the indicator ------------------------
+    // --- disc event -----------------------------------------------------------
     bool hit_now = false;
-    if (disc) {
+    if (disc && !md.sampled) {
+      // on the cubic model of the indicator
       T c1v, dc1v, th_c;
       crossing_jvp(p, y_new, k7, c1v, dc1v);
       const bool found =
@@ -320,15 +494,8 @@ __global__ void __launch_bounds__(128)
         hit_th = th_c;
       } else if (found && accept) {
         // ThinDisc: Hermite position at the crossing, only r and theta are read
-        const T t = th_c;
-        const T h00 = (T(1) + T(2) * t) * ((T(1) - t) * (T(1) - t));
-        const T h10 = t * ((T(1) - t) * (T(1) - t));
-        const T h01 = t * t * (T(3) - T(2) * t);
-        const T h11 = t * t * (t - T(1));
-        const T rc = h00 * y[1] + h10 * dt_eff * k1[1] + h01 * y_new[1] +
-                     h11 * dt_eff * k7[1];
-        const T thc = h00 * y[2] + h10 * dt_eff * k1[2] + h01 * y_new[2] +
-                      h11 * dt_eff * k7[2];
+        T rc, thc;
+        hermite_rth(th_c, y, y_new, k1, k7, dt_eff, rc, thc);
         hit_now = thin_disc_hit(p, rc, thc);
         if (hit_now) hit_th = th_c;
       }
@@ -336,6 +503,19 @@ __global__ void __launch_bounds__(128)
         c_prev = c1v;
         dc_prev = dc1v;
       }
+    } else if (disc && accept) {
+      // on n_interp samples of the indicator's interpolant
+      T th_c, c_end;
+      if (sampled_crossing(p, md, c_prev, y, y_new, k1, k7, dt_eff, th_c, c_end)) {
+        hit_now = true;
+        if (p.geometry != kDatumPlane) {
+          T rc, thc;
+          hermite_rth(th_c, y, y_new, k1, k7, dt_eff, rc, thc);
+          hit_now = thin_disc_hit(p, rc, thc);
+        }
+        if (hit_now) hit_th = th_c;
+      }
+      c_prev = c_end;
     }
 
     // --- chart bounds and span end, at step end ---------------------------------
@@ -346,8 +526,10 @@ __global__ void __launch_bounds__(128)
     if (inner) status = kWithinInnerBoundary;
     if (outer) status = kOutOfDomain;
     steps += accept ? 1 : 0;
+    crossings += hit_now ? 1 : 0;
 
-    if (hit_now) {
+    const bool stop_at_hit = hit_now && md.terminate_on_hit;
+    if (stop_at_hit) {
       // a hit does not commit its step: y, k1 and lam stay at the step start
       // and dt records the step span, for the post-kernel Newton polish
       status = kIntersectedWithGeometry;
@@ -363,7 +545,7 @@ __global__ void __launch_bounds__(128)
         lam = lam_new;
       }
     }
-    alive = !(hit_now || inner || outer || finished || failed);
+    alive = !(stop_at_hit || inner || outer || finished || failed);
   }
 
 #pragma unroll
@@ -381,31 +563,31 @@ __global__ void __launch_bounds__(128)
   dcprev_out[i] = dc_prev;
   hth_out[i] = hit_th;
   attempts_out[i] = attempts;
+  crossings_out[i] = crossings;
 }
 
-// The 12 outputs, in the order of integrate/cuda_solver.py::_OUTPUT_KEYS.
-constexpr int kOutputs = 12;
-
 template <typename T, class Metric, class P>
-int launch(const P& p, const void* y0, int64_t n, void* const* out,
-           void* stream) {
+int launch(const P& p, const Launch<T>& l) {
   const int threads = 128;
-  const int64_t blocks = (n + threads - 1) / threads;
+  const int64_t blocks = (l.n + threads - 1) / threads;
+  const Outputs<T>& o = l.out;
   geodesic_tsit5_kernel<T, Metric, P><<<dim3(unsigned(blocks)), dim3(threads), 0,
-                                         static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const T*>(y0), n, static_cast<T*>(out[0]),
-      static_cast<T*>(out[1]), static_cast<T*>(out[2]), static_cast<T*>(out[3]),
-      static_cast<T*>(out[4]), static_cast<int32_t*>(out[5]),
-      static_cast<int32_t*>(out[6]), static_cast<int32_t*>(out[7]),
-      static_cast<T*>(out[8]), static_cast<T*>(out[9]), static_cast<T*>(out[10]),
-      static_cast<int32_t*>(out[11]));
+                                         static_cast<cudaStream_t>(l.stream)>>>(
+      p, l.modes, l.carry, l.y0, l.n, o.y, o.k1, o.lam, o.dt, o.ln_qold, o.status,
+      o.steps, o.failed, o.c_prev, o.dc_prev, o.hit_theta, o.attempts, o.crossings);
   return int(cudaGetLastError());
 }
 
-// Defined in geodesic_tsit5_deformed.cu: the launch for the metric kinds
-// other than Kerr.
+// The launches for the dual-number metric kinds, each defined in the file of
+// its metric module: geodesic_tsit5_deformed.cu (kinds 1-5),
+// geodesic_tsit5_exotic.cu (6-9: Kerr-Newman and exotic.py),
+// geodesic_tsit5_minkowski.cu (10-11). Each returns cudaErrorInvalidValue
+// for a kind it does not hold.
 template <typename T>
-int launch_deformed(int metric, const DeformedParams<T>& p, const void* y0,
-                    int64_t n, void* const* out, void* stream);
+int launch_deformed(int metric, const DeformedParams<T>& p, const Launch<T>& l);
+template <typename T>
+int launch_exotic(int metric, const DeformedParams<T>& p, const Launch<T>& l);
+template <typename T>
+int launch_minkowski(int metric, const DeformedParams<T>& p, const Launch<T>& l);
 
 }  // namespace gradus

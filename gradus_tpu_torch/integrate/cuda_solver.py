@@ -6,20 +6,25 @@ version, and the tracer built on them (counterpart of
 CUDA tensor it launches `csrc/geodesic_tsit5.cu` (one thread per ray, the
 whole adaptive solve in registers); on a CPU tensor it runs
 `integrate_rays_plain`, a lockstep masked loop over the same arithmetic.
-The kernel takes `KerrMetric` (hand-derived Jacobian) and the five metrics
-of `metrics/deformed.py` (Jacobian by forward-mode dual numbers,
-`csrc/geodesic_tsit5_deformed.cu`); the plain version reaches
-``m.components5_jac`` for any metric.
+The kernel takes every metric of the port: `KerrMetric` and
+`KerrSpacetimeFirstOrder` through Kerr's hand-derived Jacobian, the others
+through forward-mode dual numbers (`csrc/metrics.cuh`); the plain version
+reaches ``m.components5_jac`` for any metric.
 `CudaTracer` wraps it the way `PallasTracer` wraps the Pallas kernel:
-constrain, integrate, Newton-polish the disc hits, unpack.
+constrain, integrate (in one pass, or in a capped pass and a resumed tail
+pass), Newton-polish the disc hits, unpack.
 
-Per-ray semantics match `pallas_solver._make_kernel` in the modes the
-flagship render and the line profiles use: HNW initial step, FSAL Tsit5, RMS
-error norm, log-space PI controller, cubic-Hermite crossing events against no
-geometry, a `ThinDisc` or a `DatumPlane` of one height, chart exits at step
-end, and hit rays that do not commit their step. One difference: a ray that
-is done keeps its outputs, where the TPU kernel's lockstep tile kept
-rewriting the finished rays' ``dt``.
+Per-ray semantics match `pallas_solver._make_kernel`: HNW initial step, FSAL
+Tsit5, RMS error norm, log-space PI controller, cubic-Hermite or sampled
+crossing events against no geometry, a `ThinDisc` or a `DatumPlane` of one
+height, chart exits at step end, hit rays that do not commit their step (or,
+with ``terminate_on_hit=False``, crossings counted and the flight going on),
+and a resumable carry. Divergences: a ray that is done keeps its outputs,
+where the TPU kernel's lockstep tile kept rewriting the finished rays'
+``dt``; ``iter_cap`` caps each ray's loop iterations, where the TPU kernel
+caps a tile's; crossings are counted in an output of their own,
+``crossings``, where the TPU kernel adds 1 to the last state slot (v^φ of a
+geodesic, a fault of the reference: ROADMAP C).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from gradus_tpu_torch import config as _config
@@ -48,14 +54,21 @@ from gradus_tpu_torch.integrate.solver import (
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import TraceGeodesic, make_geodesic_rhs
 from gradus_tpu_torch.integrate.tsit5 import _A, _BTILDE
-from gradus_tpu_torch.metrics.deformed import (
+from gradus_tpu_torch.metrics import (
     BumblebeeMetric,
+    CartesianMetric,
     DilatonAxion,
     JohannsenMetric,
     JohannsenPsaltisMetric,
+    KerrDarkMatter,
+    KerrMetric,
+    KerrNewmanMetric,
+    KerrRefractive,
+    KerrSpacetimeFirstOrder,
+    MorrisThorneWormhole,
     NoZMetric,
+    SphericalMetric,
 )
-from gradus_tpu_torch.metrics.kerr import KerrMetric
 
 __all__ = [
     "cuda_integrate_rays",
@@ -69,8 +82,9 @@ KERNEL_LAUNCHES = 0
 
 _WARP = 32
 _LN_QOLD_INIT = math.log(_QOLD_INIT)
-_OUTPUT_KEYS = (
-    "y",
+# The carry a capped pass returns and a resumed one reads: the TPU kernel's
+# ten fields (pallas_solver.py:485-496) and the port's crossing count.
+_STATE_KEYS = (
     "k1",
     "lam",
     "dt",
@@ -81,8 +95,11 @@ _OUTPUT_KEYS = (
     "c_prev",
     "dc_prev",
     "hit_theta",
-    "attempts",
+    "crossings",
 )
+# The kernel's outputs, in the order of csrc/tsit5.cuh::Outputs.
+_OUTPUT_KEYS = ("y",) + _STATE_KEYS[:-1] + ("attempts", "crossings")
+_EVENT_METHODS = ("cubic", "sampled")
 
 
 def _warp_iters(attempts):
@@ -182,27 +199,42 @@ def _hermite_pos(theta, y, y_new, f0, f1, dt):
     )
 
 
+def _mid_flight(out, lam1):
+    """The rays a capped pass left mid-flight (pallas_solver.py:236-240)."""
+    return (out["status"] == StatusCodes.NoStatus) & (out["failed"] == 0) & (out["lam"] < lam1 - 1e-12)
+
+
 def integrate_rays_plain(
     m,
     y0,
     lam_span,
     *,
     geometry=None,
-    mu: float = 0.0,
     abstol: float,
     reltol: float,
     r_inner: float,
     r_outer: float,
     max_steps: int = 40000,
     dt_min: float = 1e-10,
+    event_method: str = "cubic",
+    n_interp: int = 8,
+    bisect_iters: int = 10,
+    terminate_on_hit: bool = True,
+    iter_cap: int | None = None,
+    state: dict | None = None,
 ):
     """Plain PyTorch version of the integrator kernel, on any device.
 
     All rays advance in lockstep over state-major tuples of (N,) tensors,
     each masked by its own ``alive`` flag, until no ray is alive or
-    ``max_steps`` iterations have run. ``mu`` enters only through the
-    constraint of ``y0``. Returns the kernel's 13 outputs."""
+    ``iter_cap`` (else ``max_steps``) iterations have run. With ``state``
+    (the `_STATE_KEYS` of a capped pass, ``y0`` its ``y``) the rays resume
+    where that pass stopped.
+    Returns the kernel's 13 outputs and ``warp_iters``."""
     lam0, lam1 = float(lam_span[0]), float(lam_span[1])
+    if event_method not in _EVENT_METHODS:
+        raise ValueError(f"event_method must be one of {_EVENT_METHODS}, not {event_method!r}")
+    sampled = event_method == "sampled"
 
     def f(ys):
         return _f_cm(m, ys)
@@ -211,25 +243,36 @@ def integrate_rays_plain(
         return torch.func.jvp(geometry.crossing_indicator_c, pos, vel)
 
     y = tuple(y0.unbind(-1))
-    lam = torch.full_like(y[0], lam0)
-    dt, k1 = _initial_dt_cm(f, y, abstol, reltol)
-    dt = torch.minimum(dt, lam1 - lam)
-    finite0 = torch.isfinite(dt)
-    for yi, ki in zip(y, k1):
-        finite0 = finite0 & torch.isfinite(yi) & torch.isfinite(ki)
-    alive = finite0
-    failed = ~finite0
-    int_zeros = torch.zeros_like(y[0], dtype=torch.int32)
-    status, steps, attempts = int_zeros, int_zeros, int_zeros
-    ln_qold = torch.full_like(y[0], _LN_QOLD_INIT)
     zero = torch.zeros_like(y[0])
-    hit_th = zero
-    if geometry is not None:
-        c_prev, dc_prev = crossing_jvp(y[0:4], k1[0:4])
+    if state is not None:
+        k1 = tuple(state["k1"].unbind(-1))
+        lam, dt, ln_qold = state["lam"], state["dt"], state["ln_qold"]
+        status, steps, crossings = state["status"], state["steps"], state["crossings"]
+        failed = state["failed"] != 0
+        c_prev, dc_prev, hit_th = state["c_prev"], state["dc_prev"], state["hit_theta"]
+        alive = _mid_flight(state, lam1)
     else:
-        c_prev, dc_prev = zero, zero
+        lam = torch.full_like(y[0], lam0)
+        dt, k1 = _initial_dt_cm(f, y, abstol, reltol)
+        dt = torch.minimum(dt, lam1 - lam)
+        finite0 = torch.isfinite(dt)
+        for yi, ki in zip(y, k1):
+            finite0 = finite0 & torch.isfinite(yi) & torch.isfinite(ki)
+        alive = finite0
+        failed = ~finite0
+        status = steps = crossings = torch.zeros_like(y[0], dtype=torch.int32)
+        ln_qold = torch.full_like(y[0], _LN_QOLD_INIT)
+        hit_th = zero
+        if geometry is None:
+            c_prev, dc_prev = zero, zero
+        elif sampled:
+            c_prev, dc_prev = geometry.crossing_indicator_c(*y[0:4]), zero
+        else:
+            c_prev, dc_prev = crossing_jvp(y[0:4], k1[0:4])
+    attempts = torch.zeros_like(y[0], dtype=torch.int32)
+    theta_grid = [torch.tensor(t, dtype=y[0].dtype, device=y[0].device) for t in np.linspace(0.0, 1.0, n_interp + 1)]
 
-    for it in range(max_steps):
+    for it in range(max_steps if iter_cap is None else iter_cap):
         # the any() is a device→host sync: check it every 8 iterations
         if it % 8 == 0 and not bool(alive.any()):
             break
@@ -256,8 +299,37 @@ def integrate_rays_plain(
         ln_qold = torch.where(accept, torch.clamp(ln_err, min=_LN_QOLD_INIT), ln_qold)
         lam_new = lam + dt_eff
 
-        # disc event on the cubic model of the crossing indicator
-        if geometry is not None:
+        def crossing_at(theta):
+            return geometry.crossing_indicator_c(*_hermite_pos(theta, y, y_new, k1, k7, dt_eff))
+
+        # disc event: on the cubic model of the crossing indicator, or on
+        # n_interp samples of its interpolant, then bisections
+        if geometry is None:
+            hit_now = torch.zeros_like(accept)
+        elif sampled:
+            found = torch.zeros_like(accept)
+            th_lo, th_hi = zero, torch.ones_like(zero)
+            c_lo = c_left = c_prev
+            for k in range(n_interp):
+                c_right = crossing_at(theta_grid[k + 1])
+                sc = ((c_left < 0) != (c_right < 0)) & ~found
+                th_lo = torch.where(sc, theta_grid[k], th_lo)
+                th_hi = torch.where(sc, theta_grid[k + 1], th_hi)
+                c_lo = torch.where(sc, c_left, c_lo)
+                found = found | sc
+                c_left = c_right
+            for _ in range(bisect_iters):
+                mid = 0.5 * (th_lo + th_hi)
+                cm = crossing_at(mid)
+                same = (cm < 0) == (c_lo < 0)
+                th_lo, th_hi = torch.where(same, mid, th_lo), torch.where(same, th_hi, mid)
+                c_lo = torch.where(same, cm, c_lo)
+            th_c = 0.5 * (th_lo + th_hi)
+            pos_c = _hermite_pos(th_c, y, y_new, k1, k7, dt_eff)
+            hit_now = found & accept & geometry.is_hit_c(*pos_c)
+            c_prev = torch.where(accept, c_left, c_prev)
+            hit_th = torch.where(hit_now, th_c, hit_th)
+        else:
             c1v, dc1v = crossing_jvp(y_new[0:4], k7[0:4])
             found, th_c = cubic_first_crossing(
                 c_prev, dt_eff * dc_prev, c1v, dt_eff * dc1v
@@ -267,8 +339,6 @@ def integrate_rays_plain(
             c_prev = torch.where(accept, c1v, c_prev)
             dc_prev = torch.where(accept, dc1v, dc_prev)
             hit_th = torch.where(hit_now, th_c, hit_th)
-        else:
-            hit_now = torch.zeros_like(accept)
 
         # chart bounds and span end, at step end
         r_new = y_new[1]
@@ -277,18 +347,21 @@ def integrate_rays_plain(
         finished = accept & (lam_new >= lam1 - 1e-12)
         status = torch.where(inner, StatusCodes.WithinInnerBoundary, status)
         status = torch.where(outer, StatusCodes.OutOfDomain, status)
-        status = torch.where(hit_now, StatusCodes.IntersectedWithGeometry, status)
+        crossings = crossings + hit_now.to(torch.int32)
 
-        # hit rays do not commit: (y, k1, lam) stay at the step start and dt
-        # records the step span; rays that are done keep their outputs
-        sel = accept & ~hit_now
-        dt = torch.where(hit_now, dt_eff, torch.where(alive, dt_next, dt))
+        # a hit that ends the ray does not commit: (y, k1, lam) stay at the
+        # step start and dt records the step span; rays that are done keep
+        # their outputs
+        stop_at_hit = hit_now & terminate_on_hit
+        status = torch.where(stop_at_hit, StatusCodes.IntersectedWithGeometry, status)
+        sel = accept & ~stop_at_hit
+        dt = torch.where(stop_at_hit, dt_eff, torch.where(alive, dt_next, dt))
         y = tuple(torch.where(sel, a, b) for a, b in zip(y_new, y))
         k1 = tuple(torch.where(sel, a, b) for a, b in zip(k7, k1))
         lam = torch.where(sel, lam_new, lam)
         steps = steps + accept.to(torch.int32)
         attempts = attempts + alive.to(torch.int32)
-        alive = alive & ~(hit_now | inner | outer | finished | failed)
+        alive = alive & ~(stop_at_hit | inner | outer | finished | failed)
 
     return dict(
         y=torch.stack(y, dim=-1),
@@ -304,57 +377,63 @@ def integrate_rays_plain(
         hit_theta=hit_th,
         warp_iters=_warp_iters(attempts),
         attempts=attempts,
+        crossings=crossings,
     )
 
 
 # --- the kernel -----------------------------------------------------------------
 
-# The kernel's metric kinds (csrc/tsit5.cuh, kMetric*) and the
-# deformation parameters each passes, in the kernel's order (csrc/metrics.cuh).
+# The kernel's metric kinds (csrc/tsit5.cuh, kMetric*) and the parameters
+# each passes besides M and a, in the kernel's order (csrc/metrics.cuh).
+# The first-order Kerr class runs as Kerr (its docstring says why).
 _KERNEL_METRICS = {
     KerrMetric: (0, lambda m: ()),
+    KerrSpacetimeFirstOrder: (0, lambda m: ()),
     JohannsenMetric: (1, lambda m: (m.alpha13, m.alpha22, m.alpha52, m.eps3)),
     JohannsenPsaltisMetric: (2, lambda m: (m.eps3,)),
     NoZMetric: (3, lambda m: (m.eps,)),
     BumblebeeMetric: (4, lambda m: (m.l,)),
     DilatonAxion: (5, lambda m: (m.beta, m.b, *m.guarded_ratios())),
+    KerrNewmanMetric: (6, lambda m: (m.Q,)),
+    MorrisThorneWormhole: (7, lambda m: (m.b,)),
+    KerrRefractive: (8, lambda m: (m.n, m.corona_radius)),
+    KerrDarkMatter: (9, lambda m: (m.M_dark_matter, m.delta_r, m.r_s)),
+    SphericalMetric: (10, lambda m: ()),
+    CartesianMetric: (11, lambda m: ()),
 }
 _N_METRIC_PARAMS = 5
 
 
 def _metric_args(m):
-    """(kind, the deformation parameters as a ctypes double[5])."""
+    """(kind, M, a, the other parameters as a ctypes double[5]); M and a are
+    0 for a metric without them."""
     kind, params = _KERNEL_METRICS[type(m)]
     q = [float(v) for v in params(m)]
-    return kind, (ctypes.c_double * _N_METRIC_PARAMS)(*q)
+    M, a = (float(getattr(m, k, 0.0)) for k in ("M", "a"))
+    return kind, M, a, (ctypes.c_double * _N_METRIC_PARAMS)(*q)
 
 
-def _check_kernel_config(m, geometry, mu, dtype):
+def _check_kernel_config(m, geometry, dtype):
     if type(m) not in _KERNEL_METRICS:
         raise NotImplementedError(
-            f"the CUDA integrator takes KerrMetric and the metrics of "
-            f"metrics/deformed.py, not {type(m).__name__} (the other metrics are "
-            "in ROADMAP queue B)"
+            f"the CUDA integrator takes the metrics of gradus_tpu_torch.metrics, "
+            f"not {type(m).__name__}"
         )
     if geometry is not None and type(geometry) not in (ThinDisc, DatumPlane):
         raise NotImplementedError(
             f"the CUDA integrator takes no geometry, ThinDisc or DatumPlane, not "
-            f"{type(geometry).__name__}"
+            f"{type(geometry).__name__} (the other geometries are in ROADMAP queue B)"
         )
     if type(geometry) is DatumPlane and geometry.height.dim() != 0:
         raise NotImplementedError(
             "the CUDA integrator takes a DatumPlane of one height; per-ray heights "
             "(thick-disc transfer functions) are not ported yet (ROADMAP A2)"
         )
-    if float(mu) != 0.0:
-        raise NotImplementedError("the CUDA integrator takes null rays (mu = 0) only")
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"the CUDA integrator takes f32 or f64, not {dtype}")
 
 
-def _launch_kernel(
-    m, y0, lam_span, geometry, abstol, reltol, r_inner, r_outer, max_steps, dt_min
-):
+def _launch_kernel(m, y0, lam_span, geometry, kw):
     global KERNEL_LAUNCHES
     from gradus_tpu_torch._build import load_library
 
@@ -364,21 +443,34 @@ def _launch_kernel(
     fn = lib.geodesic_tsit5_f64 if y0.dtype == torch.float64 else lib.geodesic_tsit5_f32
     n = y0.shape[0]
     y0t = y0.t().contiguous()
+    ints = dict(dtype=torch.int32, device=y0.device)
     outs = dict(
         y=torch.empty_like(y0t),
         k1=torch.empty_like(y0t),
         lam=y0t.new_empty(n),
         dt=y0t.new_empty(n),
         ln_qold=y0t.new_empty(n),
-        status=torch.empty(n, dtype=torch.int32, device=y0.device),
-        steps=torch.empty(n, dtype=torch.int32, device=y0.device),
-        failed=torch.empty(n, dtype=torch.int32, device=y0.device),
+        status=torch.empty(n, **ints),
+        steps=torch.empty(n, **ints),
+        failed=torch.empty(n, **ints),
         c_prev=y0t.new_empty(n),
         dc_prev=y0t.new_empty(n),
         hit_theta=y0t.new_empty(n),
-        attempts=torch.empty(n, dtype=torch.int32, device=y0.device),
+        attempts=torch.empty(n, **ints),
+        crossings=torch.empty(n, **ints),
     )
     if n > 0:
+        state = kw["state"]
+        carry = None
+        if state is not None:
+            # the carry, on the device in the kernel's layout: k1 state-major
+            # like y0, the rest (n,) in the output's dtypes
+            carry_t = [state["k1"].t().contiguous()] + [
+                state[k].to(dtype=outs[k].dtype).contiguous() for k in _STATE_KEYS[1:]
+            ]
+            if any(t.device != y0.device or t.shape[-1] != n for t in carry_t):
+                raise ValueError("state must hold one value per ray of y0, on its device")
+            carry = (ctypes.c_void_p * len(_STATE_KEYS))(*(t.data_ptr() for t in carry_t))
         inner_r = outer_r = height = 0.0
         if geometry is None:
             kind = 0
@@ -386,28 +478,38 @@ def _launch_kernel(
             kind, inner_r, outer_r = 1, float(geometry.inner_r), float(geometry.outer_r)
         else:
             kind, height = 2, float(geometry.height)
-        metric_kind, q = _metric_args(m)
+        metric_kind, M, a, q = _metric_args(m)
+        modes = (ctypes.c_int * 4)(
+            int(kw["event_method"] == "sampled"),
+            int(kw["n_interp"]),
+            int(kw["bisect_iters"]),
+            int(bool(kw["terminate_on_hit"])),
+        )
+        out_ptrs = (ctypes.c_void_p * len(_OUTPUT_KEYS))(*(outs[k].data_ptr() for k in _OUTPUT_KEYS))
+        cap = kw["max_steps"] if kw["iter_cap"] is None else kw["iter_cap"]
         with torch.cuda.device(y0.device):
             rc = fn(
                 y0t.data_ptr(),
                 n,
                 metric_kind,
-                float(m.M),
-                float(m.a),
+                M,
+                a,
                 q,
                 kind,
                 inner_r,
                 outer_r,
                 height,
-                float(abstol),
-                float(reltol),
-                float(r_inner),
-                float(r_outer),
+                float(kw["abstol"]),
+                float(kw["reltol"]),
+                float(kw["r_inner"]),
+                float(kw["r_outer"]),
                 float(lam_span[0]),
                 float(lam_span[1]),
-                int(max_steps),
-                float(dt_min),
-                *(outs[k].data_ptr() for k in _OUTPUT_KEYS),
+                int(cap),
+                float(kw["dt_min"]),
+                modes,
+                carry,
+                out_ptrs,
                 torch.cuda.current_stream(y0.device).cuda_stream,
             )
         if rc != 0:
@@ -425,55 +527,72 @@ def cuda_integrate_rays(
     lam_span,
     *,
     geometry=None,
-    mu: float = 0.0,
     abstol: float,
     reltol: float,
     r_inner: float,
     r_outer: float,
     max_steps: int = 40000,
     dt_min: float = 1e-10,
+    event_method: str = "cubic",
+    n_interp: int = 8,
+    bisect_iters: int = 10,
+    terminate_on_hit: bool = True,
+    iter_cap: int | None = None,
+    state: dict | None = None,
 ):
-    """Integrate a constrained (N, 8) batch; returns the 13 raw per-ray
-    outputs (``y``/``k1`` (N, 8); ``lam``, ``dt``, ``ln_qold``, ``c_prev``,
+    """Integrate a constrained (N, 8) batch; returns the raw per-ray outputs
+    (``y``/``k1`` (N, 8); ``lam``, ``dt``, ``ln_qold``, ``c_prev``,
     ``dc_prev``, ``hit_theta`` float (N,); ``status``, ``steps``, ``failed``,
-    ``warp_iters``, ``attempts`` int32 (N,)). For a hit ray ``y``, ``k1`` and
-    ``lam`` are the hit step's start and ``dt`` its span.
+    ``warp_iters``, ``attempts``, ``crossings`` int32 (N,)). For a ray that
+    a hit ended, ``y``, ``k1`` and ``lam`` are the hit step's start and
+    ``dt`` its span. ``crossings`` counts the validated crossings (0 or 1
+    when a hit ends the ray).
+
+    ``event_method`` is "cubic" or "sampled" (``n_interp`` samples of the
+    indicator's interpolant a step, ``bisect_iters`` bisections);
+    ``terminate_on_hit=False`` counts the crossings and flies on.
+    ``iter_cap`` stops each ray after that many loop iterations; the
+    returned `_STATE_KEYS`, gathered or reordered as the caller likes, go
+    back in as ``state`` (with ``y`` as ``y0``) to resume exactly where the
+    capped pass stopped. A timelike ray is one whose ``y0`` was constrained
+    with ``mu``: the right-hand side of an uncharged ray does not read it.
 
     A CUDA tensor launches the kernel, and raises `NotImplementedError` for
     a configuration the kernel does not take; a CPU tensor runs
     `integrate_rays_plain`."""
     kw = dict(
         geometry=geometry,
-        mu=mu,
         abstol=abstol,
         reltol=reltol,
         r_inner=r_inner,
         r_outer=r_outer,
         max_steps=max_steps,
         dt_min=dt_min,
+        event_method=event_method,
+        n_interp=n_interp,
+        bisect_iters=bisect_iters,
+        terminate_on_hit=terminate_on_hit,
+        iter_cap=iter_cap,
+        state=state,
     )
+    if event_method not in _EVENT_METHODS:
+        raise ValueError(f"event_method must be one of {_EVENT_METHODS}, not {event_method!r}")
     if y0.device.type == "cpu":
         return integrate_rays_plain(m, y0, lam_span, **kw)
     if y0.device.type != "cuda":
         raise NotImplementedError(f"no integrator for device {y0.device}")
-    _check_kernel_config(m, geometry, mu, y0.dtype)
-    return _launch_kernel(
-        m, y0, lam_span, geometry, abstol, reltol, r_inner, r_outer, max_steps, dt_min
-    )
+    _check_kernel_config(m, geometry, y0.dtype)
+    return _launch_kernel(m, y0, lam_span, geometry, kw)
 
 
 class CudaTracer:
     """Tracer over a fixed (metric, geometry) pair, running the per-ray CUDA
     integrator (counterpart of `PallasTracer`; not differentiable).
 
-    Takes `PallasTracer`'s arguments except those the port does not read,
-    which raise `TypeError`: ``tile_rows``, ``steps_per_check``,
-    ``tail_tile_rows`` and ``interpret`` shape the TPU kernel's tiles and
-    have no counterpart (one thread integrates one ray). The modes of the
-    TPU kernel that are not ported yet raise `NotImplementedError`:
-    ``event_method="sampled"`` (``n_interp`` and ``bisect_iters`` come back
-    with it) and segmented tail passes (``segment_iters``; ``tail_bucket``
-    comes back with it), both in ROADMAP queue B."""
+    Takes `PallasTracer`'s arguments except those that shape the TPU
+    kernel's tiles, which have no counterpart (one thread integrates one
+    ray) and raise `TypeError`: ``tile_rows``, ``steps_per_check``,
+    ``tail_tile_rows`` and ``interpret``."""
 
     def __init__(
         self,
@@ -488,19 +607,16 @@ class CudaTracer:
         abstol: float | None = None,
         reltol: float | None = None,
         max_steps: int = 40000,
+        n_interp: int = 8,
+        bisect_iters: int = 10,
         newton_iters: int = 3,
         event_method: str = "cubic",
         segment_iters: int | None = None,
+        tail_bucket: int = 16384,
         dtype=None,
     ):
-        if event_method != "cubic":
-            raise NotImplementedError(
-                "event_method='sampled' is not ported yet (ROADMAP queue B)"
-            )
-        if segment_iters is not None:
-            raise NotImplementedError(
-                "segmented tail passes are not ported yet (ROADMAP queue B)"
-            )
+        if event_method not in _EVENT_METHODS:
+            raise ValueError(f"event_method must be one of {_EVENT_METHODS}, not {event_method!r}")
         self.m = m
         self.geometry = geometry
         self.mu = mu
@@ -513,6 +629,11 @@ class CudaTracer:
         self.r_inner = float(chart_inner)
         self.r_outer = float(chart_outer)
         self.max_steps = max_steps
+        self.n_interp = n_interp
+        self.bisect_iters = bisect_iters
+        self.event_method = event_method
+        self.segment_iters = segment_iters
+        self.tail_bucket = tail_bucket
         self.last_aux = None
 
         self._polish_problem = None
@@ -530,12 +651,14 @@ class CudaTracer:
         a_tol, r_tol = _config.default_tols(self.dtype or dtype)
         return dict(
             geometry=self.geometry,
-            mu=self.mu,
             abstol=a_tol if self.abstol is None else self.abstol,
             reltol=r_tol if self.reltol is None else self.reltol,
             r_inner=self.r_inner,
             r_outer=self.r_outer,
             max_steps=self.max_steps,
+            event_method=self.event_method,
+            n_interp=self.n_interp,
+            bisect_iters=self.bisect_iters,
         )
 
     def _finish(self, out, y0, lam0):
@@ -553,23 +676,60 @@ class CudaTracer:
         )
         return unpack_solution(res)
 
+    def _integrate(self, y0, lam_span):
+        """The raw outputs of `cuda_integrate_rays` for a constrained batch:
+        one pass, or, with ``segment_iters`` and more rays than
+        ``tail_bucket``, a pass capped at ``segment_iters`` loop iterations
+        and a resumed pass over its survivors (pallas_solver.py:861-913).
+
+        The survivors are compacted by a cumulative sum into a
+        ``tail_bucket``-sized index (a slot left over, or a survivor past
+        the bucket, points at ray N: gathers clip it to ray N-1, scatters
+        drop it), ordered by their estimated remaining steps (λ1 − λ)/dt,
+        most first, so that a warp's rays end together. The resumed pass
+        runs the same instantiation of the kernel, so a ray's result is
+        bit for bit the single pass's. ``warp_iters`` and ``attempts`` add
+        up over the passes."""
+        kw = self._integrate_kwargs(y0.dtype)
+        N = y0.shape[0]
+        if self.segment_iters is None or N <= self.tail_bucket:
+            return cuda_integrate_rays(self.m, y0, lam_span, **kw)
+        lam1 = float(lam_span[1])
+        st1 = cuda_integrate_rays(self.m, y0, lam_span, iter_cap=self.segment_iters, **kw)
+        alive = _mid_flight(st1, lam1)
+        K = self.tail_bucket
+        dest = torch.cumsum(alive.to(torch.int64), 0) - 1
+        dest = torch.where(alive & (dest < K), dest, K)
+        idx = torch.full((K + 1,), N, dtype=torch.int64, device=y0.device)
+        idx = idx.scatter(0, dest, torch.arange(N, device=y0.device))[:K]
+        est = (lam1 - st1["lam"]) / torch.clamp(st1["dt"], min=1e-30)
+        key = torch.where(alive, -est, torch.inf)
+        idx = idx[torch.argsort(key[idx.clamp(max=N - 1)], stable=True)]
+        gather = idx.clamp(max=N - 1)
+        st2 = cuda_integrate_rays(
+            self.m, st1["y"][gather], lam_span, state={k: st1[k][gather] for k in _STATE_KEYS}, **kw
+        )
+        valid = idx < N
+        dst, src = idx[valid], valid.nonzero().squeeze(-1)
+        out = {}
+        for k in ("y",) + _STATE_KEYS:
+            out[k] = st1[k].index_copy(0, dst, st2[k][src])
+        for k in ("warp_iters", "attempts"):
+            out[k] = st1[k].index_add(0, dst, st2[k][src])
+        return out
+
     def trace(self, y0, lam_span):
         """Trace a constrained (N, 8) batch.
 
         Returns ``(GeodesicPoint, aux)``; aux holds per-ray ``warp_iters``
-        (loop iterations the ray's warp executed), ``steps`` (accepted
-        steps), ``attempts`` (iterations the ray was alive) and the count of
-        rays still mid-flight at exit, ``unfinished`` (0 unless ``max_steps``
-        was reached)."""
+        (loop iterations the ray's warp executed, summed over the passes),
+        ``steps`` (accepted steps), ``attempts`` (iterations the ray was
+        alive) and the count of rays still mid-flight at exit,
+        ``unfinished`` (0 unless ``max_steps`` was reached or a
+        ``tail_bucket`` was too small for the survivors of a capped pass)."""
         lam0, lam1 = float(lam_span[0]), float(lam_span[1])
-        out = cuda_integrate_rays(
-            self.m, y0, (lam0, lam1), **self._integrate_kwargs(y0.dtype)
-        )
-        unfinished = torch.sum(
-            (out["status"] == StatusCodes.NoStatus)
-            & (out["failed"] == 0)
-            & (out["lam"] < lam1 - 1e-12)
-        )
+        out = self._integrate(y0, (lam0, lam1))
+        unfinished = torch.sum(_mid_flight(out, lam1))
         gp = self._finish(out, y0, lam0)
         aux = {
             "warp_iters": out["warp_iters"],

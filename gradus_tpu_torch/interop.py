@@ -15,14 +15,21 @@ import torch
 from gradus_tpu_torch.config import default_device
 from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
 from gradus_tpu_torch.integrate.points import GeodesicPoint
-from gradus_tpu_torch.metrics.deformed import (
+from gradus_tpu_torch.metrics import (
     BumblebeeMetric,
+    CartesianMetric,
     DilatonAxion,
     JohannsenMetric,
     JohannsenPsaltisMetric,
+    KerrDarkMatter,
+    KerrMetric,
+    KerrNewmanMetric,
+    KerrRefractive,
+    KerrSpacetimeFirstOrder,
+    MorrisThorneWormhole,
     NoZMetric,
+    SphericalMetric,
 )
-from gradus_tpu_torch.metrics.kerr import KerrMetric
 from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid
 
 __all__ = ["from_numpy", "geodesic_points_from_numpy", "transfer_grid_from_numpy"]
@@ -34,6 +41,13 @@ _KINDS = {
     "NoZMetric": (NoZMetric, ("M", "a", "eps")),
     "BumblebeeMetric": (BumblebeeMetric, ("M", "a", "l")),
     "DilatonAxion": (DilatonAxion, ("M", "a", "beta", "b")),
+    "KerrNewmanMetric": (KerrNewmanMetric, ("M", "a", "Q")),
+    "MorrisThorneWormhole": (MorrisThorneWormhole, ("b",)),
+    "KerrRefractive": (KerrRefractive, ("M", "a", "n", "corona_radius")),
+    "KerrDarkMatter": (KerrDarkMatter, ("M", "a", "M_dark_matter", "delta_r", "r_s")),
+    "SphericalMetric": (SphericalMetric, ()),
+    "CartesianMetric": (CartesianMetric, ()),
+    "KerrSpacetimeFirstOrder": (KerrSpacetimeFirstOrder, ("M", "a")),
     "ThinDisc": (ThinDisc, ("inner_r", "outer_r")),
     "DatumPlane": (DatumPlane, ("height",)),
 }

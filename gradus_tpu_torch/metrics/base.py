@@ -28,6 +28,7 @@ class AbstractMetric(nn.Module):
         """One 0-d buffer per parameter, in ``dtype`` on ``device`` (the card
         when None)."""
         device = default_device(device)
+        self._device = device
         for name, value in params.items():
             self.register_buffer(name, torch.as_tensor(value, dtype=dtype, device=device))
 
@@ -65,13 +66,23 @@ class AbstractMetric(nn.Module):
 
         return _isco(self)
 
+    @property
+    def device(self):
+        """The device of the parameters (of the constructor's ``device`` for
+        a metric without parameters)."""
+        b = next(self.buffers(), None)
+        return getattr(self, "_device", None) if b is None else b.device
+
 
 class _Dual:
     """A value and its derivatives along (r, θ), stacked on a leading axis
     of 2: the plain PyTorch version of the kernel's dual numbers
     (`csrc/dual.cuh`), with the derivative rules of JAX's jvp. A tensor or
     a number met in an operation is a constant. ``components5`` written with
-    Python operators, integer powers and `torch.sin`/`cos`/`sqrt` runs on it
+    Python operators, integer powers, comparisons (on the value),
+    `torch.sin`/`cos`/`sqrt`/`arctan`, `torch.where` (value and tangent of
+    the branch the value's condition selects, as jax.jvp differentiates
+    jnp.where) and `torch.ones_like`/`zeros_like` (constants) runs on it
     unchanged (`__torch_function__`)."""
 
     __slots__ = ("v", "t")
@@ -139,6 +150,24 @@ class _Dual:
     def __neg__(self):
         return _Dual(-self.v, -self.t)
 
+    def __lt__(self, o):
+        return self.v < _Dual._parts(o)[0]
+
+    def __le__(self, o):
+        return self.v <= _Dual._parts(o)[0]
+
+    def __ge__(self, o):
+        return self.v >= _Dual._parts(o)[0]
+
+    @staticmethod
+    def where(cond, a, b):
+        (av, at), (bv, bt) = _Dual._parts(a), _Dual._parts(b)
+        v = torch.where(cond, av, bv)
+        if at is None and bt is None:
+            return v
+        zero = torch.zeros_like(at if bt is None else bt)
+        return _Dual(v, torch.where(cond, zero if at is None else at, zero if bt is None else bt))
+
     def __pow__(self, n):
         if not isinstance(n, int):
             raise TypeError("a dual number takes integer powers only")
@@ -147,7 +176,8 @@ class _Dual:
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         """A tensor operator with a dual operand (``tensor * dual`` reaches
-        here as ``mul``), or `torch.sin`/`cos`/`sqrt` of a dual."""
+        here as ``mul``), a function of a dual (`_DUAL_UNARY`), `torch.where`
+        with a dual branch, or a constant shaped like a dual."""
         name = getattr(func, "__name__", "")
         if name in _DUAL_UNARY and len(args) == 1 and not kwargs:
             x = args[0]
@@ -155,6 +185,10 @@ class _Dual:
             return _Dual(v, dv * x.t)
         if name in _DUAL_BINARY and len(args) == 2 and not kwargs:
             return _DUAL_BINARY[name](*args)
+        if name == "where" and len(args) == 3 and not kwargs:
+            return _Dual.where(*args)
+        if name in ("ones_like", "zeros_like") and len(args) == 1:
+            return func(args[0].v, **(kwargs or {}))
         raise TypeError(f"{name} is not defined on the port's dual numbers")
 
 
@@ -163,11 +197,16 @@ def _sqrt_rule(v):
     return s, 0.5 / s
 
 
+def _atan_rule(v):
+    return torch.arctan(v), 1.0 / (1.0 + v * v)
+
+
 # (value, derivative) of the functions a metric's components5 may call
 _DUAL_UNARY = {
     "sin": lambda v: (torch.sin(v), torch.cos(v)),
     "cos": lambda v: (torch.cos(v), -torch.sin(v)),
     "sqrt": _sqrt_rule,
+    "arctan": _atan_rule,
 }
 _DUAL_BINARY = {"add": _Dual.add, "sub": _Dual.sub, "mul": _Dual.mul, "div": _Dual.div}
 

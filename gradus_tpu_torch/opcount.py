@@ -71,34 +71,37 @@ inline Counted sin(Counted a) { ++op_counts[4]; return std::sin(a.x); }
 inline Counted cos(Counted a) { ++op_counts[4]; return std::cos(a.x); }
 inline Counted log(Counted a) { ++op_counts[4]; return std::log(a.x); }
 inline Counted exp(Counted a) { ++op_counts[4]; return std::exp(a.x); }
+inline Counted atan(Counted a) { ++op_counts[4]; return std::atan(a.x); }
 inline Counted pow(Counted a, Counted b) { ++op_counts[4]; return std::pow(a.x, b.x); }
 inline Counted fabs(Counted a) { return std::fabs(a.x); }
 inline bool isfinite(Counted a) { return std::isfinite(a.x); }
 using std::sin; using std::cos; using std::sqrt; using std::fabs; using std::log;
-using std::exp; using std::pow; using std::isfinite;
+using std::exp; using std::pow; using std::isfinite; using std::atan;
 """
 
 _HARNESS = r"""
-#include "geodesic_tsit5.cu"
-#include "geodesic_tsit5_deformed.cu"
+HARNESS_INCLUDES
 #include <vector>
 
 extern "C" int count_ops(const double* y0, int64_t n, int metric, double M, double a,
                          const double* q, int geometry, double inner_r, double outer_r,
                          double height, double abstol, double reltol, double r_inner,
                          double r_outer, double lam0, double lam1, int max_steps,
-                         double dt_min, long long* counts, int32_t* attempts) {
+                         double dt_min, const int* modes, long long* counts,
+                         int32_t* attempts) {
   std::vector<Counted> y(y0, y0 + 8 * n), f8a(8 * n), f8b(8 * n), f[6];
   for (auto& v : f) v.resize(n);
-  std::vector<int32_t> i4[3];
+  std::vector<int32_t> i4[4];
   for (auto& v : i4) v.resize(n);
   void* const out[gradus::kOutputs] = {
       f8a.data(), f8b.data(), f[0].data(), f[1].data(), f[2].data(), i4[0].data(),
-      i4[1].data(), i4[2].data(), f[3].data(), f[4].data(), f[5].data(), attempts};
+      i4[1].data(), i4[2].data(), f[3].data(), f[4].data(), f[5].data(), attempts,
+      i4[3].data()};
   for (auto& c : op_counts) c = 0;
   const int rc = gradus::launch_metric<Counted>(
       y.data(), n, metric, M, a, q, geometry, inner_r, outer_r, height, abstol,
-      reltol, r_inner, r_outer, lam0, lam1, max_steps, dt_min, out, nullptr);
+      reltol, r_inner, r_outer, lam0, lam1, max_steps, dt_min, modes, nullptr, out,
+      nullptr);
   for (int k = 0; k < 5; ++k) counts[k] = op_counts[k];
   return rc;
 }
@@ -125,7 +128,8 @@ def build() -> ctypes.CDLL:
                 raise RuntimeError("the kernel launch in tsit5.cuh was not found")
         (_BUILD / src.name).write_text(text)
     (_BUILD / "cuda_runtime.h").write_text(_STUB)
-    (_BUILD / "harness.cpp").write_text(_HARNESS)
+    includes = "\n".join(f'#include "{src.name}"' for src in sorted(_CSRC.glob("*.cu")))
+    (_BUILD / "harness.cpp").write_text(_HARNESS.replace("HARNESS_INCLUDES", includes))
     lib = _BUILD / "libopcount.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(_BUILD), "-o", str(lib), str(_BUILD / "harness.cpp")],
@@ -135,7 +139,7 @@ def build() -> ctypes.CDLL:
     vp, dbl, i32, i64 = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int64
     so.count_ops.argtypes = [
         vp, i64, i32, dbl, dbl, ctypes.POINTER(dbl), i32, dbl, dbl, dbl,
-        dbl, dbl, dbl, dbl, dbl, dbl, i32, dbl, vp, vp,
+        dbl, dbl, dbl, dbl, dbl, dbl, i32, dbl, ctypes.POINTER(i32), vp, vp,
     ]
     so.count_ops.restype = ctypes.c_int
     return so
@@ -156,7 +160,8 @@ def count(so, m, geometry, y0, lam_span, **tracer_kw):
 
     tracer = CudaTracer(m, geometry=geometry, **tracer_kw)
     kw = tracer._integrate_kwargs(torch.float64)
-    kind, q = _metric_args(m)
+    kind, M, a, q = _metric_args(m)
+    modes = (ctypes.c_int * 4)(int(kw["event_method"] == "sampled"), kw["n_interp"], kw["bisect_iters"], 1)
     if geometry is None:
         geo, inner_r, outer_r, height = 0, 0.0, 0.0, 0.0
     elif hasattr(geometry, "height"):
@@ -170,9 +175,9 @@ def count(so, m, geometry, y0, lam_span, **tracer_kw):
         counts = np.zeros(5, np.int64)
         attempts = np.zeros(n, np.int32)
         rc = so.count_ops(
-            y.ctypes.data, n, kind, float(m.M), float(m.a), q, geo, inner_r, outer_r, height,
+            y.ctypes.data, n, kind, M, a, q, geo, inner_r, outer_r, height,
             kw["abstol"], kw["reltol"], kw["r_inner"], kw["r_outer"], float(lam_span[0]),
-            float(lam_span[1]), max_steps, 1e-10, counts.ctypes.data, attempts.ctypes.data,
+            float(lam_span[1]), max_steps, 1e-10, modes, counts.ctypes.data, attempts.ctypes.data,
         )
         if rc != 0:
             raise RuntimeError(f"count_ops failed: {rc}")
@@ -192,7 +197,7 @@ def count(so, m, geometry, y0, lam_span, **tracer_kw):
 def main(n: int = 512):
     from gradus_tpu_torch.geometry import DatumPlane, ThinDisc
     from gradus_tpu_torch.integrate.cuda_solver import CudaTracer
-    from gradus_tpu_torch.metrics import JohannsenPsaltisMetric, KerrMetric
+    from gradus_tpu_torch.metrics import JohannsenPsaltisMetric, KerrMetric, KerrNewmanMetric
 
     so = build()
     rng = np.random.default_rng(0)
@@ -206,6 +211,15 @@ def main(n: int = 512):
         (
             "johannsen_psaltis_thin_disc",
             JohannsenPsaltisMetric(1.0, 0.6, 2.0, **cpu),
+            ThinDisc(0.0, 50.0, **cpu),
+            flagship,
+            (alpha, beta),
+            (0.0, 2200.0),
+            {},
+        ),
+        (
+            "kerr_newman_thin_disc",
+            KerrNewmanMetric(1.0, 0.5, 0.3, **cpu),
             ThinDisc(0.0, 50.0, **cpu),
             flagship,
             (alpha, beta),

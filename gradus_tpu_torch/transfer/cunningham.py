@@ -59,7 +59,7 @@ def _as_observer(x, m):
     unless it is one."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(x, dtype=torch.float64, device=m.M.device)
+    return torch.as_tensor(x, dtype=torch.float64, device=m.device)
 
 
 def _interval_index(xs, q):

@@ -1,7 +1,9 @@
 """Small linear-algebra utilities on 4-vectors (counterpart of
-`gradus_tpu/utils/linalg.py`, the main-path subset)."""
+`gradus_tpu/utils/linalg.py`, the subset the port's modules use)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -10,6 +12,7 @@ __all__ = [
     "sym4x4_inverse_components",
     "equatorial_project",
     "spinaxis_project",
+    "smooth_step_interpolate",
 ]
 
 
@@ -59,3 +62,14 @@ def spinaxis_project(x, signed: bool = False):
     r, th = x[..., 1], x[..., 2]
     c = torch.cos(th)
     return r * (c if signed else torch.abs(c))
+
+
+def smooth_step_interpolate(x, x0, dx=2.5, smoothing_offset=1e4):
+    """Smoothed 1→0 step centred at ``x0`` over width ``dx``; used by the
+    refractive-index and dark-matter metrics so the boundary has a gradient
+    (reference `_smooth_interpolate`, `src/utils.jl:159-169`). ``x`` may be
+    a dual number of `metrics/base.py`."""
+    t = (x - x0) / dx
+    v = torch.arctan(smoothing_offset * t) / math.pi + 0.5
+    mid = 1.0 - v
+    return torch.where(x <= x0 - dx / 2, 1.0, torch.where(x >= x0 + dx / 2, 0.0, mid))

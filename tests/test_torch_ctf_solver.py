@@ -171,9 +171,9 @@ def test_cuda_path_refuses_what_it_does_not_take(case):
         elif case == "per_ray_heights_ctf":
             cunningham_transfer_function(m, x, DatumPlane([0.1, 0.2], device="cpu"), radii, N=5, backend="cuda")
         else:
-            _check_kernel_config(m, DatumPlane([0.1, 0.2], device="cpu"), 0.0, torch.float64)
+            _check_kernel_config(m, DatumPlane([0.1, 0.2], device="cpu"), torch.float64)
     # a DatumPlane of one height is a kernel configuration
-    _check_kernel_config(m, DatumPlane(0.3, device="cpu"), 0.0, torch.float32)
+    _check_kernel_config(m, DatumPlane(0.3, device="cpu"), torch.float32)
 
 
 def test_solver_cache_keys_dtype_and_device():

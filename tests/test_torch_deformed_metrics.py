@@ -145,7 +145,7 @@ def test_parameter_modules_default_to_the_card(make):
 @pytest.mark.parametrize("kind", [*DEFORMED, "KerrMetric"])
 def test_kernel_takes_the_deformed_metrics(kind):
     m = getattr(metrics, kind)(**DEFORMED.get(kind, dict(M=1.0, a=0.5)), device="cpu")
-    _check_kernel_config(m, ThinDisc(0.0, 50.0, device="cpu"), 0.0, torch.float32)
+    _check_kernel_config(m, ThinDisc(0.0, 50.0, device="cpu"), torch.float32)
 
 
 # --- the kernel's path through its plain version -------------------------------

@@ -270,27 +270,39 @@ def test_warp_iters_is_max_attempts_per_32_rays():
     "case", ["metric", "geometry", "mu", "dtype"]
 )
 def test_kernel_rejects_configurations_it_does_not_take(setup, case):
+    """The kernel refuses a metric, a geometry or a dtype it does not take.
+    A timelike ray it takes: its right-hand side does not read ``mu``,
+    which enters through the constraint of the initial state."""
     from gradus_tpu_torch.geometry.discs import AbstractAccretionGeometry
     from gradus_tpu_torch.metrics.base import AbstractMetric
 
-    args = dict(m=setup["tm"], geometry=setup["td"], mu=0.0, dtype=torch.float32)
+    args = dict(m=setup["tm"], geometry=setup["td"], dtype=torch.float32)
+    if case == "mu":
+        tracer = CudaTracer(setup["tm"], geometry=setup["td"], mu=1.0)
+        assert tracer.mu == 1.0 and "mu" not in tracer._integrate_kwargs(torch.float32)
+        _check_kernel_config(args["m"], args["geometry"], args["dtype"])
+        return
     args.update(
         dict(
             metric=dict(m=AbstractMetric()),
             geometry=dict(geometry=AbstractAccretionGeometry()),
-            mu=dict(mu=1.0),
             dtype=dict(dtype=torch.float16),
         )[case]
     )
     with pytest.raises(NotImplementedError):
-        _check_kernel_config(args["m"], args["geometry"], args["mu"], args["dtype"])
+        _check_kernel_config(args["m"], args["geometry"], args["dtype"])
 
 
 def test_tracer_rejects_unported_modes(setup):
-    with pytest.raises(NotImplementedError):
-        CudaTracer(setup["tm"], event_method="sampled")
-    with pytest.raises(NotImplementedError):
-        CudaTracer(setup["tm"], segment_iters=48)
+    """Sampled events and segmented tail passes are ported: the tracer takes
+    them and hands them to the integrator. An event method that neither
+    package has is refused."""
+    t = CudaTracer(setup["tm"], geometry=setup["td"], event_method="sampled")
+    assert t._integrate_kwargs(torch.float64)["event_method"] == "sampled"
+    t = CudaTracer(setup["tm"], segment_iters=48)
+    assert (t.segment_iters, t.tail_bucket) == (48, 16384)
+    with pytest.raises(ValueError):
+        CudaTracer(setup["tm"], event_method="quintic")
 
 
 @pytest.mark.parametrize(
@@ -298,8 +310,13 @@ def test_tracer_rejects_unported_modes(setup):
     ["tile_rows", "steps_per_check", "tail_tile_rows", "interpret", "n_interp", "bisect_iters", "tail_bucket"],
 )
 def test_tracer_refuses_options_it_does_not_read(setup, option):
-    """The TPU kernel's tile options, and the options of modes that are not
-    ported, are no keyword of `CudaTracer`: passing one fails instead of
-    being ignored."""
+    """The TPU kernel's tile options are no keyword of `CudaTracer`: passing
+    one fails instead of being ignored. The options of the sampled events
+    and of the tail pass it takes and reads."""
+    if option in ("n_interp", "bisect_iters", "tail_bucket"):
+        t = CudaTracer(setup["tm"], event_method="sampled", segment_iters=48, **{option: 8})
+        read = {**t._integrate_kwargs(torch.float64), "tail_bucket": t.tail_bucket}
+        assert read[option] == 8
+        return
     with pytest.raises(TypeError):
         CudaTracer(setup["tm"], **{option: 8})
