@@ -4,9 +4,10 @@ Builds the port's CUDA kernel from `gradus_tpu_torch/csrc/`, holds it against
 its plain PyTorch version on the card (f64 and f32; flagship rays against a
 ThinDisc, rays without geometry, transfer-function rays against a
 DatumPlane, every metric of the port, and the kernel's modes: sampled
-events, capped and resumed passes, crossing counters, timelike rays),
+events, capped and resumed passes, crossing counters, timelike rays, and
+the Newton polish of the hits in the kernel against `_polish_hits`),
 reproduces the two render goldens through it, then runs the port's products
-through their entry points:
+through their entry points, none of which may call the plain-torch polish:
 
 - the flagship render at full size: 1024² rays, f32, Kerr a=0.998, observer
   at r=1000 and i=75°, ThinDisc(0, 50), λ ∈ (0, 2200), analytic Kerr
@@ -15,6 +16,8 @@ through their entry points:
 - the same camera in Johannsen-Psaltis (a=0.6, ε₃=2) and in Kerr-Newman
   (a=0.5, Q=0.3), through the kernel's dual-number path and the
   dot-product redshift with the generic ISCO;
+- the flagship render's longest chain of steps: its slowest ray launched
+  alone, and the kernel's static SASS counts;
 - the Gradus.jl line-profile edge goldens (Kerr a=0.6, i=60°), f64, through
   `lineprofile(..., backend="cuda")`;
 - the transfer-function line profile at full size (`bench.py::bench_ctf`'s
@@ -36,10 +39,13 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,6 +64,8 @@ from gradus_tpu_torch.integrate.cuda_solver import (
     cuda_integrate_rays,
     integrate_rays_plain,
 )
+from gradus_tpu_torch.integrate.solver import _Problem
+from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs
 from gradus_tpu_torch import metrics
 from gradus_tpu_torch.lineprofile import binned_flux, lineprofile
 from gradus_tpu_torch.metrics import (
@@ -124,14 +132,15 @@ SEGMENT_ITERS, TAIL_BUCKET = 128, 32768
 
 
 # The kernel's operations (additions, multiplications, divisions, square
-# roots and transcendental calls, one each) per ray start and per attempted
-# step, counted by running its C++ on a CPU with a counting scalar over 512
-# rays of each configuration: `python -m gradus_tpu_torch.opcount`.
+# roots and transcendental calls, one each) per ray start, per attempted step
+# and per hit it polishes (3 Newton iterations), counted by running
+# its C++ on a CPU with a counting scalar over 512 rays of each
+# configuration: `python -m gradus_tpu_torch.opcount`.
 KERNEL_OPS = {
-    "kerr": (427.0, 1641.5810057681372),
-    "johannsen_psaltis": (675.0, 2385.5925913741485),
-    "kerr_newman": (559.0, 2037.583382536246),
-    "kerr_datum_plane": (428.0, 1642.1925643294255),
+    "kerr": (427.0, 1431.2514095377364, 4351.0),
+    "johannsen_psaltis": (675.0, 2175.2740566503276, 6831.0),
+    "kerr_newman": (559.0, 1827.2608574427607, 5671.0),
+    "kerr_datum_plane": (428.0, 1431.9918712674187, 4354.0),
 }
 # NVIDIA H100 SXM data sheet, at its 700 W limit: FP32 and FP64 outside the
 # tensor cores, and HBM3
@@ -139,14 +148,14 @@ PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
-def _bound(metric, rays, attempts, dtype):
+def _bound(metric, rays, attempts, hits, dtype):
     """(the least milliseconds the card could take for the kernel's work on
     these rays, what bounds it): the larger of the operations (per ray
-    start and per attempted step, `KERNEL_OPS`) over the peak rate and the
-    bytes it must move (8 state values in; 22 values and 5 int32 out per
-    ray) over the memory rate."""
-    per_start, per_step = KERNEL_OPS[metric]
-    ops_ms = (rays * per_start + attempts * per_step) / PEAK_OPS[dtype] * 1e3
+    start, per attempted step and per polished hit, `KERNEL_OPS`) over the
+    peak rate and the bytes it must move (8 state values in; 22 values and
+    5 int32 out per ray) over the memory rate."""
+    per_start, per_step, per_hit = KERNEL_OPS[metric]
+    ops_ms = (rays * per_start + attempts * per_step + hits * per_hit) / PEAK_OPS[dtype] * 1e3
     itemsize = torch.finfo(dtype).bits // 8
     bytes_ms = rays * (30 * itemsize + 20) / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -180,6 +189,29 @@ def _constrained(tracer, m, x, A, B):
 
 def _rel(a, b):
     return (a - b).abs() / b.abs()
+
+
+def _hits(out):
+    return int((out["status"] == HIT).sum())
+
+
+class _PolishCounter:
+    """Counts the calls of the plain-torch polish, `_polish_hits`, while it
+    is entered: the port's CUDA paths polish in the kernel and must make
+    none."""
+
+    def __enter__(self):
+        self.calls, self._fn = 0, cuda_solver._polish_hits
+
+        def counting(*args, **kw):
+            self.calls += 1
+            return self._fn(*args, **kw)
+
+        cuda_solver._polish_hits = counting
+        return self
+
+    def __exit__(self, *exc):
+        cuda_solver._polish_hits = self._fn
 
 
 def _timed(fn):
@@ -664,6 +696,75 @@ def _timelike(dev, n):
     return res
 
 
+def _polish_epilogue(dev, n=2048):
+    """The kernel's polish of its hits (each hit ray's epilogue: its last
+    loop iterations) against its plain version, `_polish_hits`, on the same
+    carry, f64 and f32: the kernel with ``newton_iters=3`` against
+    the torch polish of its own ``newton_iters=0`` outputs, for Kerr against
+    ThinDisc(0, 50) and DatumPlane(0), Johannsen-Psaltis (dual numbers) and
+    sampled events. Every output but a hit's y and λ is the same bit for
+    bit; the polished hits agree relative to max(1, |value|): the position
+    and λ within 1e-6 in both precisions, the velocity within 1e-6 in f64
+    and 3e-5 in f32, where the two right-hand sides round differently (the
+    kernel's FMA contractions) and its components, sums that cancel, differ
+    by up to 1.3e-5 on the DatumPlane rays. Also prints the kernel's largest
+    |indicator| at its polished hits."""
+    rng = np.random.default_rng(29)
+    alpha, beta = rng.uniform(-28.0, 28.0, n), rng.uniform(-18.0, 18.0, n)
+    rho, th = rng.uniform(1.5, 60.0, n), rng.uniform(0.0, 2 * math.pi, n)
+    out = {}
+    for case in ("kerr_thin_disc", "kerr_datum_plane", "johannsen_psaltis", "sampled"):
+        for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            x_obs, A, B, span, tkw = X_OBS, alpha, beta, SPAN, {}
+            if case == "johannsen_psaltis":
+                m = JohannsenPsaltisMetric(**JP, dtype=dtype, device=dev)
+            else:
+                m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
+            if case == "kerr_datum_plane":
+                d = DatumPlane(0.0, dtype=dtype, device=dev)
+                x_obs, A, B, span = CTF_X_OBS, rho * np.cos(th), rho * np.sin(th), (0.0, 2000.0)
+                tkw = dict(chart_outer=2000.0)
+            else:
+                d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev)
+            if case == "sampled":
+                tkw = dict(event_method="sampled")
+            tracer = CudaTracer(m, geometry=d, **tkw)
+            x = torch.tensor(x_obs, dtype=dtype, device=dev)
+            y0 = _constrained(
+                tracer, m, x, torch.as_tensor(A, dtype=dtype, device=dev), torch.as_tensor(B, dtype=dtype, device=dev)
+            )
+            kw = tracer._integrate_kwargs(dtype)
+            raw0 = cuda_integrate_rays(m, y0, span, **{**kw, "newton_iters": 0})
+            raw = cuda_integrate_rays(m, y0, span, **kw)
+            problem = _Problem(
+                f=make_geodesic_rhs(m),
+                crossing_fn=lambda ys, d=d: d.crossing_indicator(ys[..., 0:4]),
+                newton_iters=kw["newton_iters"],
+            )
+            y_p, lam_p = cuda_solver._polish_hits(problem, raw0, raw0["y"], raw0["lam"])
+            torch.cuda.synchronize()
+            hit = raw["status"] == HIT
+            same = all(torch.equal(raw0[k], raw[k]) for k in cuda_solver._OUTPUT_KEYS if k not in ("y", "lam"))
+            same = same and torch.equal(raw0["y"][~hit], raw["y"][~hit]) and torch.equal(raw0["lam"][~hit], raw["lam"][~hit])
+            ends_k = torch.cat([raw["y"][hit], raw["lam"][hit, None]], dim=-1)
+            ends_p = torch.cat([y_p[hit], lam_p[hit, None]], dim=-1)
+            rel = (ends_k - ends_p).abs() / ends_p.abs().clamp(min=1.0)
+            res = dict(
+                rays=n,
+                hits=int(hit.sum()),
+                other_outputs_identical=bool(same),
+                hit_max_rel_err=float(rel.max()),
+                hit_max_rel_err_t_r_th_ph_v_lam=rel.amax(dim=0).tolist(),
+                kernel_indicator_max=float(d.crossing_indicator(raw["y"][hit, 0:4]).abs().max()),
+            )
+            v_rtol = 1e-6 if dtype == torch.float64 else 3e-5
+            pos_lam = float(rel[:, [0, 1, 2, 3, 8]].max())
+            if not same or res["hits"] < n // 10 or pos_lam > 1e-6 or float(rel[:, 4:8].max()) > v_rtol:
+                raise AssertionError(f"polish epilogue {case} {name} disagrees with _polish_hits: {res}")
+            out[f"{case}_{name}"] = res
+    return out
+
+
 def phase_kernel_vs_plain(
     dev,
     n_disc=8192,
@@ -676,13 +777,15 @@ def phase_kernel_vs_plain(
     n_seg=16384,
     n_cross=2048,
     n_timelike=512,
+    n_polish=2048,
 ):
-    """The kernel and its plain version on the same card tensors, compared
-    after the polish: flagship rays with the disc, rays without one,
+    """The kernel and its plain version on the same card tensors, each
+    polishing its hits: flagship rays with the disc, rays without one,
     transfer-function rays against a DatumPlane, the deformed metrics and
-    the other metrics; the kernel's dual-number path against its
-    hand-derived Kerr path; then the kernel's modes: sampled events, the
-    tail pass, crossing counters and timelike rays."""
+    the other metrics; the kernel's dual-number
+    path against its hand-derived Kerr path; then the kernel's modes:
+    sampled events, the tail pass, crossing counters and timelike rays; and
+    the kernel's polish against the plain polish on the same carry."""
     rng = np.random.default_rng(20)
     alpha = rng.uniform(-28.0, 28.0, n_disc + n_free)
     beta = rng.uniform(-18.0, 18.0, n_disc + n_free)
@@ -732,6 +835,7 @@ def phase_kernel_vs_plain(
         segmented=_segmented(dev, n_seg),
         crossing_counters=_crossing_counters(dev, n_cross),
         timelike=_timelike(dev, n_timelike),
+        polish_epilogue=_polish_epilogue(dev, n_polish),
     )
     _say("kernel_vs_plain", **results)
     return results
@@ -767,9 +871,11 @@ def _full_render(dev, m, side, name, ops_key, subset=True, **tracer_kw):
     ThinDisc(0, 50), λ ∈ (0, 2200)) through the port's entry points, with
     the metric's redshift point function; one warm-up and three timed
     renders, one kernel launch each (two with a tail pass, ``tracer_kw``'s
-    ``segment_iters``). With ``subset``, every 64th pixel is held against
-    the plain version on the card. Returns (the printed result, the last
-    render's GeodesicPoint)."""
+    ``segment_iters``), none of which may call the plain-torch polish; then
+    one render split by CUDA events into camera + constraint, the kernel
+    with its polish, and unpack + shading. With ``subset``, every 64th
+    pixel is held against the plain version on the card. Returns (the
+    printed result, the last render's GeodesicPoint)."""
     dtype = torch.float32
     n = side * side
     d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev)
@@ -787,19 +893,22 @@ def _full_render(dev, m, side, name, ops_key, subset=True, **tracer_kw):
 
     cuda_solver.KERNEL_LAUNCHES = 0
     torch.cuda.synchronize()
-    img = render()  # warm-up
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        img = render()
+    with _PolishCounter() as polish:
+        img = render()  # warm-up
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = render()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     launches = cuda_solver.KERNEL_LAUNCHES
     aux = tracer.last_aux
     per_render = 1 if tracer.segment_iters is None else 2
     if launches != 4 * per_render:
         raise AssertionError(f"{name}: 4 renders launched the kernel {launches} times")
+    if polish.calls != 0:
+        raise AssertionError(f"{name}: the renders called the plain-torch polish {polish.calls} times")
     if int(aux["unfinished"]) != 0:
         raise AssertionError(f"{name}: {int(aux['unfinished'])} rays unfinished")
     finite = torch.isfinite(img)
@@ -820,12 +929,32 @@ def _full_render(dev, m, side, name, ops_key, subset=True, **tracer_kw):
         g_min=float(g.min()),
         g_max=float(g.max()),
         launches=launches,
+        torch_polish_calls=polish.calls,
         unfinished=int(aux["unfinished"]),
         executed_lane_steps=executed,
         attempted_lane_steps=attempted,
         useful_ray_steps=useful,
         wasted_step_fraction=1.0 - useful / max(executed, 1),
         dead_lane_share=(executed - attempted) / max(executed, 1),
+    )
+
+    # one more render, split on the card's timeline
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    v = map_impact_parameters(m, x, *_pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, dtype, dev))
+    y0_split = tracer._constrain(x.expand_as(v), v)
+    ev[1].record()
+    out_split = tracer._integrate(y0_split, SPAN)
+    ev[2].record()
+    pf(m, tracer._finish(out_split, y0_split, SPAN[0]), SPAN[1])
+    ev[3].record()
+    torch.cuda.synchronize()
+    result["split_ms"] = dict(
+        zip(
+            ("camera_constraint", "kernel_with_polish", "unpack_shading"),
+            (ev[k].elapsed_time(ev[k + 1]) for k in range(3)),
+        )
     )
 
     if subset:
@@ -841,25 +970,33 @@ def _full_render(dev, m, side, name, ops_key, subset=True, **tracer_kw):
         if mask_agree < 0.995 or not g_rel <= 1e-4:
             raise AssertionError(f"{name} subset: hit mask agree {mask_agree}, median rel g {g_rel}")
         cuda_integrate_rays(m, y0, SPAN, **kw)  # warm-up
-        kernel_ms, subset_attempts = [], 0
+        kernel_ms = []
         for _ in range(3):
             out_k, ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **kw))
             kernel_ms.append(ms)
-            subset_attempts = int(out_k["attempts"].sum())
         result.update(
             subset_rays=int(idx.numel()),
             subset_hit_mask_agree=mask_agree,
             subset_g_median_rel=g_rel,
             subset_kernel_ms=statistics.median(kernel_ms),
             subset_plain_ms=plain_ms,
-            subset_attempted_lane_steps=subset_attempts,
+            subset_attempted_lane_steps=int(out_k["attempts"].sum()),
+            subset_hits=_hits(out_k),
         )
     # the kernel alone (both passes and the compaction, with a tail pass) on
-    # every ray of the render
+    # every ray of the render; and its single pass without the polish
     y0_full = _constrained(tracer, m, x, A, B)
     out_full, full_ms = _timed(lambda: tracer._integrate(y0_full, SPAN))
-    full_bound_ms, _ = _bound(ops_key, n, int(out_full["attempts"].sum()), dtype)
-    result.update(full_kernel_ms=full_ms, full_bound_ms=full_bound_ms, full_bound_share=full_bound_ms / full_ms)
+    full_hits = _hits(out_full)
+    full_bound_ms, _ = _bound(ops_key, n, int(out_full["attempts"].sum()), full_hits, dtype)
+    _, no_polish_ms = _timed(lambda: cuda_integrate_rays(m, y0_full, SPAN, **{**kw, "newton_iters": 0}))
+    result.update(
+        full_kernel_ms=full_ms,
+        full_hits=full_hits,
+        full_bound_ms=full_bound_ms,
+        full_bound_share=full_bound_ms / full_ms,
+        full_kernel_ms_single_pass_without_polish=no_polish_ms,
+    )
     _say(name, **result)
     return result, last["gp"]
 
@@ -913,6 +1050,77 @@ def phase_kerr_newman_render(dev, side=1024):
     ISCO (the metric has no closed-form one)."""
     m = KerrNewmanMetric(**KN, dtype=torch.float32, device=dev)
     return _full_render(dev, m, side, "kerr_newman_render", "kerr_newman")[0]
+
+
+def _sass_counts(lib_path, want=("geodesic_tsit5_kernelIf", "4KerrE")):
+    """Static SASS counts (cuobjdump -sass) of the Kerr f32 instantiation:
+    its instructions, and those of its main loop, taken as the span of its
+    longest backward branch, with the loop's most frequent opcodes. The
+    loop's count holds the cubic event's 26 bisections and the other inner
+    loops once each, whatever a step runs of them."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        name, _, body = body.partition("\n")
+        if not all(w in name for w in want):
+            continue
+        instrs = [
+            (int(a, 16), op.strip())
+            for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+        ]
+        backward = []
+        for addr, op in instrs:
+            target = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if target and int(target.group(1), 16) < addr:
+                backward.append((addr - int(target.group(1), 16), int(target.group(1), 16), addr))
+        _, lo, hi = max(backward)
+        loop = [op for addr, op in instrs if lo <= addr <= hi]
+        opcodes = {}
+        for op in loop:
+            word = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
+            opcodes[word] = opcodes.get(word, 0) + 1
+        top = sorted(opcodes.items(), key=lambda kv: -kv[1])[:12]
+        return dict(function=name.strip(), instructions=len(instrs), loop_instructions=len(loop), loop_top_opcodes=top)
+    raise AssertionError(f"no SASS function with {want} in {lib_path}")
+
+
+def phase_chain(dev, side=1024):
+    """The flagship render's longest chain of steps, f32: the ray with the
+    most attempts launched alone (its milliseconds and µs per attempt), the
+    1/64 subset and all 1024² rays beside their longest ray's attempts, and
+    all rays again with the warps of most attempts launched first; the
+    kernel's static SASS counts (ncu does not run on the machine)."""
+    dtype = torch.float32
+    m, d, x = _flagship(dtype, dev)
+    tracer = CudaTracer(m, geometry=d)
+    y0 = _constrained(tracer, m, x, *_pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, dtype, dev))
+    kw = tracer._integrate_kwargs(dtype)
+
+    def launch(y, **extra):
+        args = {**kw, **extra}
+        cuda_integrate_rays(m, y, SPAN, **args)  # warm-up
+        runs = [_timed(lambda: cuda_integrate_rays(m, y, SPAN, **args)) for _ in range(5)]
+        return runs[-1][0], statistics.median(ms for _, ms in runs)
+
+    res = {}
+    out_full, full_ms = launch(y0)
+    k = int(out_full["attempts"].argmax())
+    for name, y in (("ray", y0[k : k + 1]), ("subset", y0[::64]), ("full", y0)):
+        out, ms = (out_full, full_ms) if name == "full" else launch(y)
+        longest = int(out["attempts"].max())
+        res[name] = dict(rays=y.shape[0], longest_attempts=longest, ms=ms, us_per_longest_attempt=ms * 1e3 / longest)
+    out, res["ray"]["ms_without_polish"] = launch(y0[k : k + 1], newton_iters=0)
+    res["ray"].update(index=k, status=int(out["status"][0]), steps=int(out["steps"][0]))
+    res["ray_share_of_full"] = res["ray"]["ms"] / full_ms
+    # the same rays with the longest warps first (warps of 32 raster rays,
+    # ordered by this run's attempts: an oracle for any longest-first order)
+    order = torch.argsort(out_full["attempts"].view(-1, 32).amax(dim=1), descending=True)
+    perm = (order[:, None] * 32 + torch.arange(32, device=dev)).reshape(-1)
+    _, res["oracle_longest_warps_first_ms"] = launch(y0[perm])
+    res["ncu_on_path"] = shutil.which("ncu") is not None
+    res["sass_kerr_f32"] = _sass_counts(_build.build_info()["path"])
+    _say("chain", **res)
+    return res
 
 
 def _m1(flux, bins):
@@ -993,19 +1201,22 @@ def phase_ctf_lineprofile(dev):
 
     cuda_solver.KERNEL_LAUNCHES = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    flux = profile()  # warm-up: builds the solver
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
-    times = []
-    for _ in range(3):
+    with _PolishCounter() as polish:
         t0 = time.perf_counter()
-        flux = profile()
+        flux = profile()  # warm-up: builds the solver
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        first = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            flux = profile()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     launches = cuda_solver.KERNEL_LAUNCHES
     if launches == 0:
         raise AssertionError("the CTF line profile did not go through the kernel")
+    if polish.calls != 0:
+        raise AssertionError(f"the CTF line profile called the plain-torch polish {polish.calls} times")
     total = float(flux.double().sum())
     if not bool(torch.isfinite(flux).all()) or abs(total - 1.0) > 1e-4:
         raise AssertionError(f"CTF flux not finite or not normalised: sum {total}")
@@ -1015,14 +1226,18 @@ def phase_ctf_lineprofile(dev):
     if drift > 1e-3:
         raise AssertionError(f"CTF m1 {m1} drifts {drift} from the f64 CPU value")
     dt = statistics.median(times)
-    # one more profile under the profiler, counting the rays and attempted
-    # steps of every launch for the kernel's bound (a sum on the card per
-    # launch, read once at the end)
+    # one more profile under the profiler, counting the rays, attempted
+    # steps and hits of every launch for the kernel's bound (sums on the card
+    # per launch, read once at the end)
     counted = []
 
     def counting(*args, **kw):
         out = integrate(*args, **kw)
-        counted.append(torch.stack([torch.tensor(out["attempts"].numel(), device=dev), out["attempts"].sum()]))
+        counted.append(
+            torch.stack(
+                [torch.tensor(out["attempts"].numel(), device=dev), out["attempts"].sum(), (out["status"] == HIT).sum()]
+            )
+        )
         return out
 
     integrate, cuda_solver.cuda_integrate_rays = cuda_solver.cuda_integrate_rays, counting
@@ -1030,24 +1245,27 @@ def phase_ctf_lineprofile(dev):
         busy_ms, kernel_ms, device_events = _device_busy_ms(profile)
     finally:
         cuda_solver.cuda_integrate_rays = integrate
-    rays, attempts = (int(v) for v in torch.stack(counted).sum(dim=0))
-    bound_ms, bound_by = _bound("kerr_datum_plane", rays, attempts, dtype)
+    rays, attempts, hits = (int(v) for v in torch.stack(counted).sum(dim=0))
+    bound_ms, bound_by = _bound("kerr_datum_plane", rays, attempts, hits, dtype)
     res = dict(
         seconds_per_profile=dt,
         profile_seconds=times,
         first_profile_seconds=first,
         launches=launches,
         launches_per_profile=launches / 4,
+        torch_polish_calls=polish.calls,
         flux_sum=total,
         m1=m1,
         m1_drift_vs_f64_cpu=drift,
         nonzero_bins=int((flux > 0).sum()),
         device_events=device_events,
+        device_events_per_launch=device_events / len(counted),
         device_busy_ms=busy_ms,
         device_busy_share=None if busy_ms is None else busy_ms / 1e3 / dt,
         kernel_ms=kernel_ms,
         kernel_rays=rays,
         attempted_lane_steps=attempts,
+        hits=hits,
         bound_ms=bound_ms,
         bound_by=bound_by,
         bound_share=None if kernel_ms is None else bound_ms / kernel_ms,
@@ -1062,7 +1280,7 @@ def _binned_profile(dev, side, incl_deg, r_max_plane, bins, isco_margin, max_re)
     `binned_flux` with the analytic redshift, ε = r⁻³ and rₑ ∈
     [isco + isco_margin, max_re]. Returns (profile, tracer, kernel_only),
     the last timing the kernel alone on the plane's rays: (attempted
-    lane-steps, ms)."""
+    lane-steps, hits, ms)."""
     lam_max = 2000.0
     dtype = torch.float32
     m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
@@ -1093,7 +1311,7 @@ def _binned_profile(dev, side, incl_deg, r_max_plane, bins, isco_margin, max_re)
         y0 = _constrained(tracer, m, x, alpha, beta)
         kw = tracer._integrate_kwargs(dtype)
         out, ms = _timed(lambda: cuda_integrate_rays(m, y0, (0.0, lam_max), **kw))
-        return int(out["attempts"].sum()), ms
+        return int(out["attempts"].sum()), _hits(out), ms
 
     return profile, tracer, kernel_only
 
@@ -1107,18 +1325,21 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
     n = side * side
     cuda_solver.KERNEL_LAUNCHES = 0
     torch.cuda.synchronize()
-    flux = profile()  # warm-up
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        flux = profile()
+    with _PolishCounter() as polish:
+        flux = profile()  # warm-up
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            flux = profile()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     launches = cuda_solver.KERNEL_LAUNCHES
     aux = tracer.last_aux
     if launches != 4:
         raise AssertionError(f"4 binned profiles launched the kernel {launches} times")
+    if polish.calls != 0:
+        raise AssertionError(f"the binned profiles called the plain-torch polish {polish.calls} times")
     if int(aux["unfinished"]) != 0:
         raise AssertionError(f"{int(aux['unfinished'])} rays unfinished")
     total = float(flux.double().sum())
@@ -1128,8 +1349,8 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
     dt = statistics.median(times)
     executed = int(aux["warp_iters"].sum())
     useful = int(aux["steps"].sum())
-    attempted, kernel_ms = kernel_only()
-    bound_ms, _ = _bound("kerr", n, attempted, torch.float32)
+    attempted, hits, kernel_ms = kernel_only()
+    bound_ms, _ = _bound("kerr", n, attempted, hits, torch.float32)
 
     # the binned method at the transfer-function profile's configuration
     ctf_bins = torch.linspace(*CTF_BINS, dtype=torch.float32, device=dev)
@@ -1143,6 +1364,7 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
         profile_seconds=times,
         rays_per_s=n / dt,
         launches=launches,
+        torch_polish_calls=polish.calls,
         unfinished=int(aux["unfinished"]),
         flux_sum=total,
         nonzero_bins=nonzero,
@@ -1150,6 +1372,7 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
         attempted_lane_steps=attempted,
         useful_ray_steps=useful,
         wasted_step_fraction=1.0 - useful / max(executed, 1),
+        hits=hits,
         kernel_ms=kernel_ms,
         bound_ms=bound_ms,
         bound_share=bound_ms / kernel_ms,
@@ -1181,25 +1404,22 @@ def main():
     rendered, segmented = timed_phase("main_path", phase_main_path, dev)
     deformed = timed_phase("deformed_render", phase_deformed_render, dev)
     kerr_newman = timed_phase("kerr_newman_render", phase_kerr_newman_render, dev)
+    chain = timed_phase("chain", phase_chain, dev)
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
     binned = timed_phase("binning_lineprofile", phase_binning_lineprofile, dev, ctf_flux)
     _say("timing", seconds=seconds, total_seconds=time.perf_counter() - t_start)
-    bound_ms, bound_by = _bound(
-        "kerr", rendered["subset_rays"], rendered["subset_attempted_lane_steps"], torch.float32
-    )
-    deformed_bound_ms, deformed_bound_by = _bound(
-        "johannsen_psaltis",
-        deformed["subset_rays"],
-        deformed["subset_attempted_lane_steps"],
-        torch.float32,
-    )
-    kn_bound_ms, kn_bound_by = _bound(
-        "kerr_newman",
-        kerr_newman["subset_rays"],
-        kerr_newman["subset_attempted_lane_steps"],
-        torch.float32,
-    )
+    bounds = {
+        key: _bound(ops, r["subset_rays"], r["subset_attempted_lane_steps"], r["subset_hits"], torch.float32)
+        for key, ops, r in (
+            ("flagship", "kerr", rendered),
+            ("deformed", "johannsen_psaltis", deformed),
+            ("kerr_newman", "kerr_newman", kerr_newman),
+        )
+    }
+    bound_ms, bound_by = bounds["flagship"]
+    deformed_bound_ms, deformed_bound_by = bounds["deformed"]
+    kn_bound_ms, kn_bound_by = bounds["kerr_newman"]
     print(
         json.dumps(
             {
@@ -1224,6 +1444,7 @@ def main():
                             "resume",
                             "crossing_counter",
                             "timelike",
+                            "polish_epilogue",
                         ],
                         "metrics": [
                             "kerr",
@@ -1249,6 +1470,10 @@ def main():
                             checks["new_metrics"][kind]["hit_max_abs_err"] for kind in NEW_METRICS
                         ),
                         "dual_max_abs_err": checks["dual_vs_hand"]["f64"]["hit_max_abs_err"],
+                        "polish_epilogue_max_rel_err": max(
+                            r["hit_max_rel_err"] for r in checks["modes"]["polish_epilogue"].values()
+                        ),
+                        "torch_polish_calls": rendered["torch_polish_calls"],
                         "dual_over_hand_per_step": checks["dual_vs_hand"]["f32"][
                             "dual_over_hand_per_step"
                         ],
@@ -1286,6 +1511,13 @@ def main():
                             "binning_lineprofile": binned["launches"],
                         },
                         "ctf_launches_per_profile": ctf["launches_per_profile"],
+                        "ctf_device_events_per_launch": ctf["device_events_per_launch"],
+                        "chain": {
+                            "longest_attempts": chain["ray"]["longest_attempts"],
+                            "ray_ms": chain["ray"]["ms"],
+                            "ray_us_per_attempt": chain["ray"]["us_per_longest_attempt"],
+                            "ray_share_of_full": chain["ray_share_of_full"],
+                        },
                     }
                 ]
             }

@@ -137,7 +137,7 @@ def _declare(lib):
             i32, dbl, dbl, dbl,  # geometry kind, inner_r, outer_r, height
             dbl, dbl, dbl, dbl,  # abstol, reltol, r_inner, r_outer
             dbl, dbl, i32, dbl,  # lam0, lam1, max_steps (or the iteration cap), dt_min
-            ctypes.POINTER(i32),  # modes: sampled, n_interp, bisect_iters, terminate_on_hit
+            ctypes.POINTER(i32),  # modes: sampled, n_interp, bisect_iters, terminate_on_hit, newton_iters
             ctypes.POINTER(vp),  # the carry of a resumed launch (11 pointers), or null
             ctypes.POINTER(vp),  # the 13 outputs
             vp,  # stream

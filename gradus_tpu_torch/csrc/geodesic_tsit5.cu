@@ -22,11 +22,13 @@
 // of the TPU kernel's geometries (warped and thick discs, which carry a
 // Python callable) are not ported.
 //
-// What bounds it on an H100: compute and instruction issue. Each accepted or
-// rejected step is 7 evaluations of the geodesic right-hand side (sin/cos,
-// the 5-component metric with its r- and theta-derivatives, the inverse
-// and the Christoffel contraction), the 6-stage Runge-Kutta sums, the error
-// norm, one log and two exp for the controller, and the event test.
+// What bounds it on an H100: compute and instruction issue, and the serial
+// chain of one ray's steps. Each accepted or rejected step is 7 evaluations
+// of the geodesic right-hand side (sin/cos, the 5-component metric with its
+// r- and theta-derivatives, the inverse and the Christoffel contraction),
+// the 6-stage Runge-Kutta sums, the error norm, one log and one exp for the
+// controller, and on an accepted step the event test. A hit adds its Newton
+// polish: newton_iters + 1 Tsit5 sub-steps of 5 right-hand sides each.
 // There is no device-memory traffic inside the loop: a ray reads its 8
 // initial values once (a resumed ray its carry too, 18 more) and writes 27
 // values once. The dual-number right-hand side carries three values through
@@ -36,12 +38,23 @@
 // What the design does about it: the whole integrator carry (state, FSAL
 // derivative, step size, controller and event state) stays in registers for
 // the ray's lifetime, and every thread leaves its loop as soon as its own ray
-// is done, so the warp (not a 1024-ray tile) is the unit of early exit. The
-// kernel is a template over the metric, so each instantiation inlines its
-// own right-hand side. Metric and disc parameters, tolerances, the affine
-// span and the modes are runtime arguments, so one build serves every
-// configuration, and a capped pass and its resumption run the same machine
-// code.
+// is done, so the warp (not a 1024-ray tile) is the unit of early exit. Work
+// the TPU's lockstep lanes compute and throw away is skipped per thread: the
+// controller computes only the factor of the step's outcome, the event test
+// runs on accepted steps only, and the cubic event bisects only a sign
+// change it found. A hit is polished where the hit step's start is still in
+// registers, as the ray's last loop iterations: each sub-step runs the
+// step's own stage code, so a warp's polishing lanes take the same
+// instructions as its stepping lanes and the kernel holds one inlined copy
+// of the stages (a separate epilogue after the loop, run once all the
+// warp's lanes had left it, took 4-20% more kernel time than this form on
+// the f32 1024² renders of Kerr, Johannsen-Psaltis and Kerr-Newman on an
+// H100, and more registers). No pass over every ray after the kernel
+// remains. The kernel is a template over the metric, so each
+// instantiation inlines its own right-hand side. Metric and disc
+// parameters, tolerances, the affine span and the modes are runtime
+// arguments, so one build serves every configuration, and a capped pass and
+// its resumption run the same machine code.
 //
 // Layout: inputs and outputs are state-major, (8, n) and (n,), contiguous,
 // so neighbouring threads touch neighbouring addresses.
@@ -167,6 +180,7 @@ int launch_metric(const void* y0, int64_t n, int metric, double M, double a,
   l.modes.bisect_iters = modes[2];
   l.modes.theta_step = 1.0 / double(modes[1] > 0 ? modes[1] : 1);
   l.modes.terminate_on_hit = modes[3];
+  l.modes.newton_iters = modes[4];
   const void* const none[11] = {};
   const void* const* c = carry != nullptr ? carry : none;
   l.carry = {static_cast<const T*>(c[0]),       static_cast<const T*>(c[1]),
@@ -211,9 +225,10 @@ int launch_metric(const void* y0, int64_t n, int metric, double M, double a,
 }  // namespace gradus
 
 // metric: the metric kind; q: its parameters (metrics.cuh), 5 doubles on the
-// host. modes: 4 ints on the host (sampled, n_interp, bisect_iters,
-// terminate_on_hit). carry: null for a fresh start, or the 11 device
-// pointers of tsit5.cuh's Carry. out: the 13 device pointers of Outputs.
+// host. modes: 5 ints on the host (sampled, n_interp, bisect_iters,
+// terminate_on_hit, newton_iters). carry: null for a fresh start, or the 11
+// device pointers of tsit5.cuh's Carry. out: the 13 device pointers of
+// Outputs.
 #define GEODESIC_TSIT5_ENTRY(NAME, T)                                           \
   extern "C" int NAME(const void* y0, int64_t n, int metric, double M,          \
                       double a, const double* q, int geometry, double inner_r,  \

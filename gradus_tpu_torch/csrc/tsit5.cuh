@@ -23,7 +23,10 @@
 //     the TPU kernel adds 1 to the last state slot, v^phi);
 //   - a fresh start, or the resumption of a saved carry (:182-240), and a
 //     cap on a ray's loop iterations (max_steps, per ray here, per tile of
-//     1024 rays on the TPU).
+//     1024 rays on the TPU);
+//   - the Newton polish of the hits (gradus_tpu/integrate/solver.py::
+//     _polish_hits, which the TPU tracer runs after its kernel): here as a
+//     hit ray's last loop iterations, newton_iters > 0, or not at all, 0.
 
 #pragma once
 
@@ -111,6 +114,7 @@ struct Modes {
   int bisect_iters;      // sampled: bisections of the first sign change
   double theta_step;     // sampled: 1 / n_interp, as numpy.linspace takes it
   int terminate_on_hit;  // 0: count the crossings and fly on
+  int newton_iters;      // > 0: polish the hits this launch makes
 };
 
 // The carry a resumed launch starts from (integrate/cuda_solver.py::
@@ -306,6 +310,11 @@ __device__ __forceinline__ bool cubic_first_crossing(T c0, T m0, T c1, T m1,
       found = true;
     }
   }
+  if (!found) {
+    // the reference bisects in lockstep and then discards the result
+    theta = T(0);
+    return false;
+  }
   for (int it = 0; it < 26; ++it) {
     const T mid = T(0.5) * (lo + hi);
     const T cm = poly(mid);
@@ -316,8 +325,42 @@ __device__ __forceinline__ bool cubic_first_crossing(T c0, T m0, T c1, T m1,
       hi = mid;
     }
   }
-  theta = found ? T(0.5) * (lo + hi) : T(0);
-  return found;
+  theta = T(0.5) * (lo + hi);
+  return true;
+}
+
+// The stages of one Tsit5 step of span h from (y, k1): k2..k6 and the
+// fifth-order solution y_new (integrate/tsit5.py::tsit5_step). The loop runs
+// it once an iteration, for a step or for a sub-step of a hit's polish.
+template <class Metric, typename T, class P>
+__device__ __forceinline__ void tsit5_stages(const P& p, const T* y, const T* k1, T h,
+                                             T* k2, T* k3, T* k4, T* k5, T* k6,
+                                             T* y_new) {
+  T tmp[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) tmp[s] = y[s] + h * (T(A21) * k1[s]);
+  Metric::rhs(p, tmp, k2);
+#pragma unroll
+  for (int s = 0; s < S; ++s) tmp[s] = y[s] + h * (T(A31) * k1[s] + T(A32) * k2[s]);
+  Metric::rhs(p, tmp, k3);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    tmp[s] = y[s] + h * (T(A41) * k1[s] + T(A42) * k2[s] + T(A43) * k3[s]);
+  Metric::rhs(p, tmp, k4);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    tmp[s] = y[s] + h * (T(A51) * k1[s] + T(A52) * k2[s] + T(A53) * k3[s] +
+                         T(A54) * k4[s]);
+  Metric::rhs(p, tmp, k5);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    tmp[s] = y[s] + h * (T(A61) * k1[s] + T(A62) * k2[s] + T(A63) * k3[s] +
+                         T(A64) * k4[s] + T(A65) * k5[s]);
+  Metric::rhs(p, tmp, k6);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    y_new[s] = y[s] + h * (T(A71) * k1[s] + T(A72) * k2[s] + T(A73) * k3[s] +
+                           T(A74) * k4[s] + T(A75) * k5[s] + T(A76) * k6[s]);
 }
 
 // Hairer-Norsett-Wanner initial step (pallas_solver.py:105-133); writes
@@ -356,8 +399,13 @@ __device__ __forceinline__ T initial_dt(const P& p, const T* y, T* f0) {
   return mn(T(100) * h0, h1);
 }
 
+// 128 threads a block, and at least 3 blocks an SM in f32 (at most 170
+// registers) and 2 in f64 (255). Without the f32 minimum ptxas holds some
+// f32 instantiations under what they need, and Morris-Thorne's spills at 96
+// registers; with it none spills, and NoZ takes 131 registers (3 blocks an
+// SM, where 128 gave 4).
 template <typename T, class Metric, class P>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
     geodesic_tsit5_kernel(P p, Modes md, Carry<T> in, const T* __restrict__ y0,
                           int64_t n, T* __restrict__ y_out, T* __restrict__ k1_out,
                           T* __restrict__ lam_out, T* __restrict__ dt_out,
@@ -417,38 +465,48 @@ __global__ void __launch_bounds__(128)
     }
   }
   int attempts = 0;
+  // The Newton polish of a hit on the exact trajectory
+  // (integrate/solver.py::_polish_hits), as the ray's last loop iterations:
+  // from the hit step's start (y, k1), a Tsit5 sub-step over theta * dt,
+  // then theta <- clip(theta - c / (c' dt), 0, 1), newton_iters times; the
+  // next sub-step moves y and lam to the crossing. c' is the indicator's
+  // derivative along f(y*), whose position part is y*[4:8]. A sub-step runs
+  // the step's stage code, so the warp's polishing lanes take the same
+  // instructions as its stepping lanes. polish_it is -1 while the ray steps.
+  int polish_it = -1;
+  T theta = T(0);
 
-  while (alive && attempts < p.max_steps) {
-    ++attempts;
-    const T dt_eff = mn(mx(p.lam1 - lam, p.dt_min), dt);
+  while (true) {
+    const bool stepping = alive && attempts < p.max_steps;
+    if (!stepping && polish_it < 0) break;
+    T h;
+    if (stepping) {
+      ++attempts;
+      h = mn(mx(p.lam1 - lam, p.dt_min), dt);
+    } else {
+      h = theta * dt;
+    }
+    T k2[S], k3[S], k4[S], k5[S], k6[S], k7[S], y_new[S];
+    tsit5_stages<Metric>(p, y, k1, h, k2, k3, k4, k5, k6, y_new);
+    if (!stepping) {
+      // --- a polish sub-step --------------------------------------------------
+      if (polish_it == md.newton_iters) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) y[s] = y_new[s];
+        lam = lam + h;
+        polish_it = -1;
+      } else {
+        T c, dc;
+        crossing_jvp(p, y_new, y_new + 4, c, dc);
+        if (fabs(dc) < T(1e-30)) dc = T(1);
+        theta = clip(theta - c / (dc * dt), T(0), T(1));
+        ++polish_it;
+      }
+      continue;
+    }
 
-    // --- one FSAL Tsit5 step ------------------------------------------------
-    T k2[S], k3[S], k4[S], k5[S], k6[S], k7[S], y_new[S], tmp[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) tmp[s] = y[s] + dt_eff * (T(A21) * k1[s]);
-    Metric::rhs(p, tmp, k2);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      tmp[s] = y[s] + dt_eff * (T(A31) * k1[s] + T(A32) * k2[s]);
-    Metric::rhs(p, tmp, k3);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      tmp[s] = y[s] + dt_eff * (T(A41) * k1[s] + T(A42) * k2[s] + T(A43) * k3[s]);
-    Metric::rhs(p, tmp, k4);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      tmp[s] = y[s] + dt_eff * (T(A51) * k1[s] + T(A52) * k2[s] + T(A53) * k3[s] +
-                                T(A54) * k4[s]);
-    Metric::rhs(p, tmp, k5);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      tmp[s] = y[s] + dt_eff * (T(A61) * k1[s] + T(A62) * k2[s] + T(A63) * k3[s] +
-                                T(A64) * k4[s] + T(A65) * k5[s]);
-    Metric::rhs(p, tmp, k6);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      y_new[s] = y[s] + dt_eff * (T(A71) * k1[s] + T(A72) * k2[s] + T(A73) * k3[s] +
-                                  T(A74) * k4[s] + T(A75) * k5[s] + T(A76) * k6[s]);
+    // --- the rest of one FSAL Tsit5 step ---------------------------------------
+    const T dt_eff = h;
     Metric::rhs(p, y_new, k7);
 
     // --- RMS error norm -------------------------------------------------------
@@ -469,40 +527,43 @@ __global__ void __launch_bounds__(128)
     if (!step_ok) err = T(2);
     const bool accept = err <= T(1);
 
-    // --- PI controller in log space ---------------------------------------------
+    // --- PI controller in log space: the factor of the step's outcome only ----
     const T ln_err = log(err);
-    const T q = exp(T(kBeta1) * ln_err - T(kBeta2) * ln_qold) / T(kGamma);
-    const T fac_acc = T(1) / clip(q, T(1.0 / kQmaxFactor), T(1.0 / kQminFactor));
-    const T fac_rej = T(1) / clip(exp(T(0.2) * ln_err) / T(kGamma), T(1),
-                                  T(1.0 / kQminFactor));
-    const T dt_next = accept ? dt_eff * fac_acc : dt_eff * fac_rej;
+    T dt_next;
+    if (accept) {
+      const T q = exp(T(kBeta1) * ln_err - T(kBeta2) * ln_qold) / T(kGamma);
+      const T fac_acc = T(1) / clip(q, T(1.0 / kQmaxFactor), T(1.0 / kQminFactor));
+      dt_next = dt_eff * fac_acc;
+      ln_qold = mx(ln_err, T(kLnQoldInit));
+    } else {
+      const T fac_rej = T(1) / clip(exp(T(0.2) * ln_err) / T(kGamma), T(1),
+                                    T(1.0 / kQminFactor));
+      dt_next = dt_eff * fac_rej;
+    }
     failed = !step_ok && (dt_next < p.dt_min || !isfinite(dt_next));
-    if (accept) ln_qold = mx(ln_err, T(kLnQoldInit));
     const T lam_new = lam + dt_eff;
 
-    // --- disc event -----------------------------------------------------------
+    // --- disc event, on an accepted step only -----------------------------------
     bool hit_now = false;
-    if (disc && !md.sampled) {
+    if (disc && accept && !md.sampled) {
       // on the cubic model of the indicator
       T c1v, dc1v, th_c;
       crossing_jvp(p, y_new, k7, c1v, dc1v);
       const bool found =
           cubic_first_crossing(c_prev, dt_eff * dc_prev, c1v, dt_eff * dc1v, th_c);
-      if (found && accept && p.geometry == kDatumPlane) {
+      if (found && p.geometry == kDatumPlane) {
         // every crossing of the plane is a hit (discs.py:173-174)
         hit_now = true;
         hit_th = th_c;
-      } else if (found && accept) {
+      } else if (found) {
         // ThinDisc: Hermite position at the crossing, only r and theta are read
         T rc, thc;
         hermite_rth(th_c, y, y_new, k1, k7, dt_eff, rc, thc);
         hit_now = thin_disc_hit(p, rc, thc);
         if (hit_now) hit_th = th_c;
       }
-      if (accept) {
-        c_prev = c1v;
-        dc_prev = dc1v;
-      }
+      c_prev = c1v;
+      dc_prev = dc1v;
     } else if (disc && accept) {
       // on n_interp samples of the indicator's interpolant
       T th_c, c_end;
@@ -531,9 +592,14 @@ __global__ void __launch_bounds__(128)
     const bool stop_at_hit = hit_now && md.terminate_on_hit;
     if (stop_at_hit) {
       // a hit does not commit its step: y, k1 and lam stay at the step start
-      // and dt records the step span, for the post-kernel Newton polish
+      // and dt records the step span, for the Newton polish; the polish moves
+      // y and lam only
       status = kIntersectedWithGeometry;
       dt = dt_eff;
+      if (md.newton_iters > 0) {
+        polish_it = 0;
+        theta = hit_th;
+      }
     } else {
       dt = dt_next;
       if (accept) {

@@ -12,7 +12,10 @@ through forward-mode dual numbers (`csrc/metrics.cuh`); the plain version
 reaches ``m.components5_jac`` for any metric.
 `CudaTracer` wraps it the way `PallasTracer` wraps the Pallas kernel:
 constrain, integrate (in one pass, or in a capped pass and a resumed tail
-pass), Newton-polish the disc hits, unpack.
+pass), unpack. The Newton polish of the disc hits, which `PallasTracer`
+runs over every ray after its kernel, runs in the kernel on the hits alone,
+as a hit ray's last loop iterations (``newton_iters``); the plain version
+runs the loop and then `_polish_hits`.
 
 Per-ray semantics match `pallas_solver._make_kernel`: HNW initial step, FSAL
 Tsit5, RMS error norm, log-space PI controller, cubic-Hermite or sampled
@@ -52,7 +55,7 @@ from gradus_tpu_torch.integrate.solver import (
     _polish_hits,
 )
 from gradus_tpu_torch.integrate.status import StatusCodes
-from gradus_tpu_torch.integrate.tracing import TraceGeodesic, make_geodesic_rhs
+from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs
 from gradus_tpu_torch.integrate.tsit5 import _A, _BTILDE
 from gradus_tpu_torch.metrics import (
     BumblebeeMetric,
@@ -222,6 +225,7 @@ def integrate_rays_plain(
     terminate_on_hit: bool = True,
     iter_cap: int | None = None,
     state: dict | None = None,
+    newton_iters: int = 0,
 ):
     """Plain PyTorch version of the integrator kernel, on any device.
 
@@ -229,8 +233,9 @@ def integrate_rays_plain(
     each masked by its own ``alive`` flag, until no ray is alive or
     ``iter_cap`` (else ``max_steps``) iterations have run. With ``state``
     (the `_STATE_KEYS` of a capped pass, ``y0`` its ``y``) the rays resume
-    where that pass stopped.
-    Returns the kernel's 13 outputs and ``warp_iters``."""
+    where that pass stopped. With ``newton_iters > 0``, `_polish_hits`
+    then polishes the hits this call made, as the kernel does.
+    Returns the kernel's 13 outputs, ``warp_iters`` and ``polished``."""
     lam0, lam1 = float(lam_span[0]), float(lam_span[1])
     if event_method not in _EVENT_METHODS:
         raise ValueError(f"event_method must be one of {_EVENT_METHODS}, not {event_method!r}")
@@ -363,7 +368,7 @@ def integrate_rays_plain(
         attempts = attempts + alive.to(torch.int32)
         alive = alive & ~(stop_at_hit | inner | outer | finished | failed)
 
-    return dict(
+    out = dict(
         y=torch.stack(y, dim=-1),
         k1=torch.stack(k1, dim=-1),
         lam=lam,
@@ -378,7 +383,19 @@ def integrate_rays_plain(
         warp_iters=_warp_iters(attempts),
         attempts=attempts,
         crossings=crossings,
+        polished=torch.tensor(newton_iters > 0),
     )
+    if newton_iters > 0 and geometry is not None:
+        # the hits of this call: a carry that arrived with a hit took no step
+        here = (status == StatusCodes.IntersectedWithGeometry) & (attempts > 0)
+        problem = _Problem(
+            f=make_geodesic_rhs(m),
+            crossing_fn=lambda ys: geometry.crossing_indicator(ys[..., 0:4]),
+            newton_iters=newton_iters,
+        )
+        cf = {**out, "status": torch.where(here, status, StatusCodes.NoStatus)}
+        out["y"], out["lam"] = _polish_hits(problem, cf, out["y"], out["lam"])
+    return out
 
 
 # --- the kernel -----------------------------------------------------------------
@@ -479,11 +496,12 @@ def _launch_kernel(m, y0, lam_span, geometry, kw):
         else:
             kind, height = 2, float(geometry.height)
         metric_kind, M, a, q = _metric_args(m)
-        modes = (ctypes.c_int * 4)(
+        modes = (ctypes.c_int * 5)(
             int(kw["event_method"] == "sampled"),
             int(kw["n_interp"]),
             int(kw["bisect_iters"]),
             int(bool(kw["terminate_on_hit"])),
+            int(kw["newton_iters"]),
         )
         out_ptrs = (ctypes.c_void_p * len(_OUTPUT_KEYS))(*(outs[k].data_ptr() for k in _OUTPUT_KEYS))
         cap = kw["max_steps"] if kw["iter_cap"] is None else kw["iter_cap"]
@@ -518,6 +536,7 @@ def _launch_kernel(m, y0, lam_span, geometry, kw):
     outs["y"] = outs["y"].t()
     outs["k1"] = outs["k1"].t()
     outs["warp_iters"] = _warp_iters(outs["attempts"])
+    outs["polished"] = torch.tensor(kw["newton_iters"] > 0)
     return outs
 
 
@@ -539,14 +558,19 @@ def cuda_integrate_rays(
     terminate_on_hit: bool = True,
     iter_cap: int | None = None,
     state: dict | None = None,
+    newton_iters: int = 0,
 ):
     """Integrate a constrained (N, 8) batch; returns the raw per-ray outputs
     (``y``/``k1`` (N, 8); ``lam``, ``dt``, ``ln_qold``, ``c_prev``,
     ``dc_prev``, ``hit_theta`` float (N,); ``status``, ``steps``, ``failed``,
-    ``warp_iters``, ``attempts``, ``crossings`` int32 (N,)). For a ray that
-    a hit ended, ``y``, ``k1`` and ``lam`` are the hit step's start and
-    ``dt`` its span. ``crossings`` counts the validated crossings (0 or 1
-    when a hit ends the ray).
+    ``warp_iters``, ``attempts``, ``crossings`` int32 (N,)) and
+    ``polished``, a 0-d bool on the CPU. For a ray that a hit ended, ``k1``
+    is the hit step's start, ``dt`` its span and ``hit_theta`` the event's
+    fraction of it; ``y`` and ``lam`` are the step's start too with
+    ``newton_iters=0``, and the Newton-polished crossing
+    (`_polish_hits`'s arithmetic) with ``newton_iters > 0``, which polishes
+    the hits this call makes. ``crossings`` counts the validated crossings
+    (0 or 1 when a hit ends the ray).
 
     ``event_method`` is "cubic" or "sampled" (``n_interp`` samples of the
     indicator's interpolant a step, ``bisect_iters`` bisections);
@@ -574,9 +598,12 @@ def cuda_integrate_rays(
         terminate_on_hit=terminate_on_hit,
         iter_cap=iter_cap,
         state=state,
+        newton_iters=newton_iters,
     )
     if event_method not in _EVENT_METHODS:
         raise ValueError(f"event_method must be one of {_EVENT_METHODS}, not {event_method!r}")
+    if newton_iters < 0:
+        raise ValueError(f"newton_iters must be >= 0, not {newton_iters}")
     if y0.device.type == "cpu":
         return integrate_rays_plain(m, y0, lam_span, **kw)
     if y0.device.type != "cuda":
@@ -592,7 +619,10 @@ class CudaTracer:
     Takes `PallasTracer`'s arguments except those that shape the TPU
     kernel's tiles, which have no counterpart (one thread integrates one
     ray) and raise `TypeError`: ``tile_rows``, ``steps_per_check``,
-    ``tail_tile_rows`` and ``interpret``."""
+    ``tail_tile_rows`` and ``interpret``. With a geometry, ``newton_iters``
+    must be at least 1: the integrator polishes the hits itself, and reads
+    0 as no polish, where `PallasTracer` would still move each hit along
+    the trajectory to the event's θ."""
 
     def __init__(
         self,
@@ -617,6 +647,8 @@ class CudaTracer:
     ):
         if event_method not in _EVENT_METHODS:
             raise ValueError(f"event_method must be one of {_EVENT_METHODS}, not {event_method!r}")
+        if geometry is not None and newton_iters < 1:
+            raise ValueError(f"with a geometry, newton_iters must be at least 1, not {newton_iters}")
         self.m = m
         self.geometry = geometry
         self.mu = mu
@@ -631,18 +663,11 @@ class CudaTracer:
         self.max_steps = max_steps
         self.n_interp = n_interp
         self.bisect_iters = bisect_iters
+        self.newton_iters = newton_iters
         self.event_method = event_method
         self.segment_iters = segment_iters
         self.tail_bucket = tail_bucket
         self.last_aux = None
-
-        self._polish_problem = None
-        if geometry is not None:
-            self._polish_problem = _Problem(
-                f=make_geodesic_rhs(m, TraceGeodesic(mu=mu)),
-                crossing_fn=lambda y: geometry.crossing_indicator(y[..., 0:4]),
-                newton_iters=newton_iters,
-            )
 
     def _constrain(self, x, v):
         return torch.cat([x, constrain_all(self.m, x, v, mu=self.mu)], dim=-1)
@@ -659,17 +684,22 @@ class CudaTracer:
             event_method=self.event_method,
             n_interp=self.n_interp,
             bisect_iters=self.bisect_iters,
+            newton_iters=self.newton_iters,
         )
 
     def _finish(self, out, y0, lam0):
-        y_f, lam_f = out["y"], out["lam"]
-        if self._polish_problem is not None:
-            y_f, lam_f = _polish_hits(self._polish_problem, out, y_f, lam_f)
+        """Unpack the integrator's outputs, whose hits the integrator has
+        polished (`_integrate_kwargs` asks it to)."""
+        if self.geometry is not None and not bool(out["polished"]):
+            raise ValueError(
+                "the hits are not polished: integrate with newton_iters > 0, which polishes "
+                "them in the kernel (in the plain version, after its loop)"
+            )
         res = IntegrationResult(
-            y=y_f,
-            lam=lam_f,
+            y=out["y"],
+            lam=out["lam"],
             y0=y0,
-            lam0=torch.full_like(lam_f, lam0),
+            lam0=torch.full_like(out["lam"], lam0),
             status=out["status"],
             steps=out["steps"],
             failed=out["failed"].bool(),
@@ -688,8 +718,8 @@ class CudaTracer:
         drop it), ordered by their estimated remaining steps (λ1 − λ)/dt,
         most first, so that a warp's rays end together. The resumed pass
         runs the same instantiation of the kernel, so a ray's result is
-        bit for bit the single pass's. ``warp_iters`` and ``attempts`` add
-        up over the passes."""
+        bit for bit the single pass's; each pass polishes its own hits.
+        ``warp_iters`` and ``attempts`` add up over the passes."""
         kw = self._integrate_kwargs(y0.dtype)
         N = y0.shape[0]
         if self.segment_iters is None or N <= self.tail_bucket:
@@ -716,6 +746,7 @@ class CudaTracer:
             out[k] = st1[k].index_copy(0, dst, st2[k][src])
         for k in ("warp_iters", "attempts"):
             out[k] = st1[k].index_add(0, dst, st2[k][src])
+        out["polished"] = st2["polished"]
         return out
 
     def trace(self, y0, lam_span):

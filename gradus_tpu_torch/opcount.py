@@ -1,5 +1,6 @@
-"""Count the integrator kernel's arithmetic, per ray start and per attempted
-step, for the bound that `chip_smoke.py` puts beside the kernel's time.
+"""Count the integrator kernel's arithmetic, per ray start, per attempted
+step and per polished hit, for the bound that `chip_smoke.py` puts beside
+the kernel's time.
 
 The CUDA sources of `csrc/` are compiled for the host with g++, their
 ``<<<...>>>`` launch turned into a loop over blocks and threads and the
@@ -7,9 +8,11 @@ CUDA qualifiers stubbed, and instantiated with a scalar that counts every
 addition or subtraction, multiplication, division, square root and
 transcendental call (sin, cos, log, exp, pow) it takes part in. Rays made
 by the port's camera and constraint on the CPU run through it once with
-``max_steps = 0`` (the start: initial step and first crossing test) and once
-to their end. Prints one JSON object: for each case, the operations per ray
-start and per attempted step, and their split by kind.
+``max_steps = 0`` (the start: initial step and first crossing test), then to
+their end without the Newton polish of the hits and with it (3 iterations,
+`CudaTracer`'s default): the difference over the hits is the polish's cost
+per hit. Prints one JSON object: for each case, the operations per ray
+start, per attempted step and per polished hit, and their split by kind.
 
     python -m gradus_tpu_torch.opcount
 
@@ -40,7 +43,7 @@ _STUB = r"""
 #define __global__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3 { unsigned x, y, z; };
 inline uint3 threadIdx, blockIdx;
@@ -88,15 +91,15 @@ extern "C" int count_ops(const double* y0, int64_t n, int metric, double M, doub
                          double height, double abstol, double reltol, double r_inner,
                          double r_outer, double lam0, double lam1, int max_steps,
                          double dt_min, const int* modes, long long* counts,
-                         int32_t* attempts) {
+                         int32_t* status, int32_t* attempts) {
   std::vector<Counted> y(y0, y0 + 8 * n), f8a(8 * n), f8b(8 * n), f[6];
   for (auto& v : f) v.resize(n);
-  std::vector<int32_t> i4[4];
+  std::vector<int32_t> i4[3];
   for (auto& v : i4) v.resize(n);
   void* const out[gradus::kOutputs] = {
-      f8a.data(), f8b.data(), f[0].data(), f[1].data(), f[2].data(), i4[0].data(),
-      i4[1].data(), i4[2].data(), f[3].data(), f[4].data(), f[5].data(), attempts,
-      i4[3].data()};
+      f8a.data(), f8b.data(), f[0].data(), f[1].data(), f[2].data(), status,
+      i4[0].data(), i4[1].data(), f[3].data(), f[4].data(), f[5].data(), attempts,
+      i4[2].data()};
   for (auto& c : op_counts) c = 0;
   const int rc = gradus::launch_metric<Counted>(
       y.data(), n, metric, M, a, q, geometry, inner_r, outer_r, height, abstol,
@@ -139,7 +142,7 @@ def build() -> ctypes.CDLL:
     vp, dbl, i32, i64 = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int64
     so.count_ops.argtypes = [
         vp, i64, i32, dbl, dbl, ctypes.POINTER(dbl), i32, dbl, dbl, dbl,
-        dbl, dbl, dbl, dbl, dbl, dbl, i32, dbl, ctypes.POINTER(i32), vp, vp,
+        dbl, dbl, dbl, dbl, dbl, dbl, i32, dbl, ctypes.POINTER(i32), vp, vp, vp,
     ]
     so.count_ops.restype = ctypes.c_int
     return so
@@ -154,14 +157,15 @@ def _rays(m, x_obs, alpha, beta, tracer):
 
 
 def count(so, m, geometry, y0, lam_span, **tracer_kw):
-    """(operations per ray start, per attempted step, the split of each by
-    kind, rays, attempts) for the rays ``y0`` of a `CudaTracer`."""
+    """(operations per ray start, per attempted step and per polished hit,
+    the split of each by kind, rays, attempts, hits) for the rays ``y0`` of
+    a `CudaTracer`."""
     from gradus_tpu_torch.integrate.cuda_solver import CudaTracer, _metric_args
+    from gradus_tpu_torch.integrate.status import StatusCodes
 
     tracer = CudaTracer(m, geometry=geometry, **tracer_kw)
     kw = tracer._integrate_kwargs(torch.float64)
     kind, M, a, q = _metric_args(m)
-    modes = (ctypes.c_int * 4)(int(kw["event_method"] == "sampled"), kw["n_interp"], kw["bisect_iters"], 1)
     if geometry is None:
         geo, inner_r, outer_r, height = 0, 0.0, 0.0, 0.0
     elif hasattr(geometry, "height"):
@@ -171,26 +175,35 @@ def count(so, m, geometry, y0, lam_span, **tracer_kw):
     y = np.ascontiguousarray(y0.t().numpy())
     n = y0.shape[0]
     results = []
-    for max_steps in (0, kw["max_steps"]):
+    for max_steps, newton_iters in ((0, 0), (kw["max_steps"], 0), (kw["max_steps"], kw["newton_iters"])):
+        modes = (ctypes.c_int * 5)(
+            int(kw["event_method"] == "sampled"), kw["n_interp"], kw["bisect_iters"], 1, newton_iters
+        )
         counts = np.zeros(5, np.int64)
+        status = np.zeros(n, np.int32)
         attempts = np.zeros(n, np.int32)
         rc = so.count_ops(
             y.ctypes.data, n, kind, M, a, q, geo, inner_r, outer_r, height,
             kw["abstol"], kw["reltol"], kw["r_inner"], kw["r_outer"], float(lam_span[0]),
-            float(lam_span[1]), max_steps, 1e-10, modes, counts.ctypes.data, attempts.ctypes.data,
+            float(lam_span[1]), max_steps, 1e-10, modes, counts.ctypes.data, status.ctypes.data,
+            attempts.ctypes.data,
         )
         if rc != 0:
             raise RuntimeError(f"count_ops failed: {rc}")
-        results.append((counts, int(attempts.sum())))
-    (start, _), (total, attempts) = results
+        results.append((counts, int(attempts.sum()), int((status == StatusCodes.IntersectedWithGeometry).sum())))
+    (start, _, _), (total, attempts, hits), (polished, _, _) = results
     per_step = (total - start) / attempts
+    per_hit = (polished - total) / max(hits, 1)
     return dict(
         rays=n,
         attempts=attempts,
+        hits=hits,
         ops_per_start=float(start.sum() / n),
         ops_per_step=float(per_step.sum()),
+        ops_per_hit=float(per_hit.sum()),
         start_by_kind=dict(zip(KINDS, (start / n).tolist())),
         step_by_kind=dict(zip(KINDS, per_step.tolist())),
+        hit_by_kind=dict(zip(KINDS, per_hit.tolist())),
     )
 
 

@@ -298,3 +298,92 @@ def test_resumed_kernel_equals_single_pass(dev, dtype):
     assert torch.equal(gp_1.status, gp_2.status)
     assert torch.equal(gp_1.x.nan_to_num(), gp_2.x.nan_to_num())
     assert torch.equal(gp_1.lam_max, gp_2.lam_max)
+
+
+# --- the Newton polish of the hits in the kernel ----------------------------------
+
+
+def _polish_rays(dev, case, dtype, n=512):
+    """(metric, geometry, constrained states, λ span, integrator kwargs):
+    flagship rays against ThinDisc(0, 50) (Kerr, Johannsen-Psaltis, sampled
+    events), or transfer-function rays against DatumPlane(0)."""
+    rng = np.random.default_rng(8)
+    tkw, span = {}, SPAN
+    if case == "johannsen_psaltis":
+        m = metrics.JohannsenPsaltisMetric(**DEFORMED["JohannsenPsaltisMetric"], dtype=dtype, device=dev)
+    else:
+        m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
+    if case == "datum_plane":
+        d = DatumPlane(0.0, dtype=dtype, device=dev)
+        x = torch.tensor([0.0, 1000.0, math.radians(60.0), 0.0], dtype=dtype, device=dev)
+        rho, th = rng.uniform(1.5, 60.0, n), rng.uniform(0.0, 2 * math.pi, n)
+        alpha, beta = rho * np.cos(th), rho * np.sin(th)
+        span, tkw = (0.0, 2000.0), dict(chart_outer=2000.0)
+    else:
+        d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev)
+        x = torch.tensor([0.0, 1000.0, math.radians(75.0), 0.0], dtype=dtype, device=dev)
+        alpha, beta = rng.uniform(-28, 28, n), rng.uniform(-18, 18, n)
+    if case == "sampled":
+        tkw = dict(event_method="sampled")
+    tracer = CudaTracer(m, geometry=d, **tkw)
+    v = map_impact_parameters(
+        m, x, torch.as_tensor(alpha, dtype=dtype, device=dev), torch.as_tensor(beta, dtype=dtype, device=dev)
+    )
+    return m, d, tracer._constrain(x.expand_as(v), v), span, tracer._integrate_kwargs(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["thin_disc", "datum_plane", "johannsen_psaltis", "sampled"])
+def test_kernel_polish_matches_plain_polish(dev, case, dtype):
+    """The kernel's polished hits (``newton_iters=3``) against the plain
+    polish, `_polish_hits`, of the kernel's own unpolished carry
+    (``newton_iters=0``), relative to max(1, |value|): the position and λ
+    within 1e-6 in both precisions; the velocity within 1e-6 in f64 and
+    3e-5 in f32, where the two right-hand sides round differently (the
+    kernel's FMA contractions) and its components, sums that cancel, differ
+    by up to 1.3e-5 on the DatumPlane rays; every other output the same bit
+    for bit."""
+    from gradus_tpu_torch.integrate.solver import _Problem, _polish_hits
+    from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs
+
+    m, d, y0, span, kw = _polish_rays(dev, case, dtype)
+    raw0 = cuda_integrate_rays(m, y0, span, **{**kw, "newton_iters": 0})
+    raw = cuda_integrate_rays(m, y0, span, **kw)
+    problem = _Problem(
+        f=make_geodesic_rhs(m), crossing_fn=lambda ys: d.crossing_indicator(ys[..., 0:4]), newton_iters=3
+    )
+    y_p, lam_p = _polish_hits(problem, raw0, raw0["y"], raw0["lam"])
+    torch.cuda.synchronize()
+    hit = raw["status"] == StatusCodes.IntersectedWithGeometry
+    assert hit.double().mean() > 0.3
+    for k in cuda_solver._OUTPUT_KEYS:
+        if k not in ("y", "lam"):
+            assert torch.equal(raw[k], raw0[k]), k
+    assert torch.equal(raw["y"][~hit], raw0["y"][~hit]) and torch.equal(raw["lam"][~hit], raw0["lam"][~hit])
+    ends_k = torch.cat([raw["y"][hit], raw["lam"][hit, None]], dim=-1)
+    ends_p = torch.cat([y_p[hit], lam_p[hit, None]], dim=-1)
+    rel = (ends_k - ends_p).abs() / ends_p.abs().clamp(min=1.0)
+    assert rel[:, [0, 1, 2, 3, 8]].max() < 1e-6
+    assert rel[:, 4:8].max() < (1e-6 if dtype == torch.float64 else 3e-5)
+
+
+def test_cuda_trace_runs_no_torch_polish(dev, monkeypatch):
+    """A trace on the card, in one pass and with a tail pass, polishes in
+    the kernel: the plain-torch `_polish_hits` is never called."""
+    calls = []
+    polish = cuda_solver._polish_hits
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return polish(*args, **kw)
+
+    monkeypatch.setattr(cuda_solver, "_polish_hits", counting)
+    m, tracer, y0 = _flagship_tracer_rays(dev, torch.float32, n=4096)
+    seg = CudaTracer(m, geometry=tracer.geometry, segment_iters=128, tail_bucket=3072)
+    before = cuda_solver.KERNEL_LAUNCHES
+    (gp_1, _), (gp_2, _) = tracer.trace(y0, SPAN), seg.trace(y0, SPAN)
+    torch.cuda.synchronize()
+    assert cuda_solver.KERNEL_LAUNCHES == before + 3
+    assert calls == []
+    assert (gp_1.status == StatusCodes.IntersectedWithGeometry).any()
+    assert torch.equal(gp_1.x.nan_to_num(), gp_2.x.nan_to_num())
