@@ -25,7 +25,15 @@ through their entry points, none of which may call the plain-torch polish:
   moment against the JAX package's f64 CPU value;
 - the binned line profile at full size (`bench.py::bench_binning`'s
   configuration: a 1000×1000 polar plane, f32, i=70°), and once more at the
-  transfer-function profile's configuration to compare the two methods.
+  transfer-function profile's configuration to compare the two methods;
+- the public entry points over the lockstep solver (`trace_geodesics`, plain
+  torch on the card, which launches no kernel): `trace_api` holds
+  `trace_geodesics` against `CudaTracer` on 8,192 flagship rays in f64 and
+  f32 and a forward-mode derivative through it against a central
+  difference; `render_api` runs the render goldens and the 1024² flagship
+  redshift render through `rendergeodesics`; `binning_api` runs
+  `lineprofile(..., method=BinningMethod())` at `bench_binning`'s
+  configuration and at the transfer-function profile's.
 
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The last line is a JSON object with the device.
@@ -37,6 +45,7 @@ Needs one CUDA device and the CUDA toolkit (nvcc). Imports no JAX.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import re
@@ -55,8 +64,12 @@ from gradus_tpu_torch.camera import (
     ConstPointFunctions,
     GeometricGrid,
     PolarPlane,
+    apply,
     map_impact_parameters,
+    prerendergeodesics,
+    rendergeodesics,
 )
+from gradus_tpu_torch.camera.render import _pixel_velocities
 from gradus_tpu_torch.geometry import DatumPlane, ThinDisc
 from gradus_tpu_torch.integrate import StatusCodes, cuda_solver
 from gradus_tpu_torch.integrate.cuda_solver import (
@@ -64,10 +77,11 @@ from gradus_tpu_torch.integrate.cuda_solver import (
     cuda_integrate_rays,
     integrate_rays_plain,
 )
+from gradus_tpu_torch.integrate import solver as lockstep_solver
 from gradus_tpu_torch.integrate.solver import _Problem
-from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs
+from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs, trace_geodesics
 from gradus_tpu_torch import metrics
-from gradus_tpu_torch.lineprofile import binned_flux, lineprofile
+from gradus_tpu_torch.lineprofile import BinningMethod, binned_flux, lineprofile
 from gradus_tpu_torch.metrics import (
     JohannsenMetric,
     JohannsenPsaltisMetric,
@@ -76,6 +90,9 @@ from gradus_tpu_torch.metrics import (
 )
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.utils import equatorial_project
+
+# the module, which the package's function of the same name shadows
+lineprofile_module = importlib.import_module("gradus_tpu_torch.lineprofile")
 
 SPAN = (0.0, 2200.0)
 X_OBS = [0.0, 1000.0, math.radians(75.0), 0.0]
@@ -1385,6 +1402,332 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
     return res
 
 
+# --- the lockstep solver (plain torch on the card) through the public API ------
+
+
+class _Lockstep:
+    """Counts the lockstep iterations `integrate_rays` runs while it is
+    entered (the loop body's calls), and, with ``window``, profiles the
+    card over that many iterations from iteration ``start`` of each call:
+    the busy share of the loop in its steady state."""
+
+    def __init__(self, window=0, start=256):
+        self.window, self.start = window, start
+
+    def __enter__(self):
+        self.iters, self.calls, self._make = 0, 0, lockstep_solver._make_body
+        self.busy_ms = self.wall_ms = 0.0
+        self.device_events = 0
+        self._prof = None
+        outer = self
+
+        def make(*args):
+            body = outer._make(*args)
+            outer.calls += 1
+            k = [0]
+
+            def counted(c):
+                if outer.window and k[0] == outer.start:
+                    torch.cuda.synchronize()
+                    outer._prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                    outer._prof.__enter__()
+                    outer._t0 = time.perf_counter()
+                out = body(c)
+                k[0] += 1
+                outer.iters += 1
+                if outer.window and k[0] == outer.start + outer.window:
+                    torch.cuda.synchronize()
+                    outer.wall_ms += (time.perf_counter() - outer._t0) * 1e3
+                    outer._prof.__exit__(None, None, None)
+                    cuda = torch.autograd.DeviceType.CUDA
+                    events = [
+                        e for e in outer._prof.profiler.kineto_results.events() if e.device_type() == cuda
+                    ]
+                    outer._prof = None
+                    outer.busy_ms += sum(e.duration_ns() for e in events) / 1e6
+                    outer.device_events += len(events)
+                return out
+
+            return counted
+
+        lockstep_solver._make_body = make
+        return self
+
+    def __exit__(self, *exc):
+        lockstep_solver._make_body = self._make
+        if self._prof is not None:  # a loop shorter than the window
+            self._prof.__exit__(None, None, None)
+
+    def busy_share(self):
+        return self.busy_ms / self.wall_ms if self.wall_ms else None
+
+
+class _NoKernelRoute:
+    """Counts calls of the integrator kernel's entry points (the kernel and
+    its plain version) and kernel launches while it is entered: the lockstep
+    solver's path must make none."""
+
+    def __enter__(self):
+        self.calls, self._fns = 0, {k: getattr(cuda_solver, k) for k in ("cuda_integrate_rays", "integrate_rays_plain")}
+        self._launches = cuda_solver.KERNEL_LAUNCHES
+        for name, fn in self._fns.items():
+
+            def counting(*args, _fn=fn, **kw):
+                self.calls += 1
+                return _fn(*args, **kw)
+
+            setattr(cuda_solver, name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._fns.items():
+            setattr(cuda_solver, name, fn)
+        self.launches = cuda_solver.KERNEL_LAUNCHES - self._launches
+        if exc[0] is None and (self.calls or self.launches):
+            raise AssertionError(
+                f"the lockstep solver's path reached the integrator kernel: {self.calls} calls, "
+                f"{self.launches} launches"
+            )
+
+
+def _trace_seconds(fn):
+    """(fn(), its seconds on the host clock up to a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _hit_radius_jvp(dev, n, seed=31):
+    """∂r_hit/∂β by `torch.func.jvp` through `trace_geodesics` on ``n`` f64
+    flagship rays at ρ ∈ [8, 20] (outside the critical curve), against a
+    central difference (ε = 1e-3) at the reference's rtol 2e-3
+    (tests/test_integrate.py:193)."""
+    m, d, x = _flagship(torch.float64, dev)
+    rng = np.random.default_rng(seed)
+    rho, phi = rng.uniform(8.0, 20.0, n), rng.uniform(0.0, 2 * math.pi, n)
+    A = torch.as_tensor(rho * np.cos(phi), device=dev)
+    B0 = torch.as_tensor(rho * np.sin(phi), device=dev)
+
+    def hit(B):
+        v = map_impact_parameters(m, x, A, B)
+        gp = trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d)
+        return gp.x[:, 1] * torch.sin(gp.x[:, 2]), gp.status
+
+    eps = 1e-3
+    with _Lockstep() as steps:
+        (r0, dr, s0), seconds = _trace_seconds(
+            lambda: torch.func.jvp(hit, (B0,), (torch.ones_like(B0),), has_aux=True)
+        )
+    (rp, sp), (rm, sm) = hit(B0 + eps), hit(B0 - eps)
+    ok = (s0 == HIT) & (sp == HIT) & (sm == HIT)
+    fd = (rp - rm) / (2 * eps)
+    rel = float(((dr - fd).abs() / fd.abs())[ok].max())
+    res = dict(rays=n, hit_in_all_three=int(ok.sum()), max_rel_err=rel, seconds=seconds, iterations=steps.iters)
+    if int(ok.sum()) < n // 2 or not rel <= 2e-3:
+        raise AssertionError(f"∂r_hit/∂β by jvp against the central difference: {res}")
+    return res
+
+
+def phase_trace_api(dev, n=8192, n_jvp=64):
+    """`trace_geodesics` (the lockstep solver, plain torch on the card)
+    against `CudaTracer` on the same constrained flagship states (Kerr a =
+    0.998, i = 75°, r = 1000, ThinDisc(0, 50), λ ≤ 2200), f64 and f32:
+    statuses ≥ 0.995 alike; hit positions within atol 1e-5 in f64 (as
+    tests/test_torch_integrate.py holds the kernel's plain version) and to
+    a median relative difference ≤ 1e-5 in f32; lockstep iterations and ms
+    per iteration. Then a forward-mode derivative through it
+    (`_hit_radius_jvp`)."""
+    res = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        m, tracer, y0 = _flagship_rays(dev, dtype, n, 30)
+        d = tracer.geometry
+
+        def trace(y):
+            return trace_geodesics(m, y[:, :4], y[:, 4:], SPAN, geometry=d, constrain=False)
+
+        trace(y0[:64])  # warm-up
+        with _NoKernelRoute(), _Lockstep() as steps:
+            gp, seconds = _trace_seconds(lambda: trace(y0))
+        gk, _ = tracer.trace(y0, SPAN)
+        torch.cuda.synchronize()
+        agree = float((gp.status == gk.status).double().mean())
+        hit = (gp.status == HIT) & (gk.status == HIT)
+        pos_abs = (gp.x[hit] - gk.x[hit]).abs()
+        pos_rel = pos_abs / gk.x[hit].abs().clamp(min=1e-30)
+        r = dict(
+            rays=n,
+            status_agree=agree,
+            hits=int(hit.sum()),
+            hit_x_max_abs=float(pos_abs.max()),
+            hit_x_max_rel=float(pos_rel.max()),
+            hit_x_median_rel=float(pos_rel.median()),
+            hit_lam_max_abs=float((gp.lam_max[hit] - gk.lam_max[hit]).abs().max()),
+            unfinished=int(((gp.status == StatusCodes.NoStatus) & (gp.lam_max < SPAN[1] - 1e-3)).sum()),
+            iterations=steps.iters,
+            seconds=seconds,
+            ms_per_iteration=seconds * 1e3 / max(steps.iters, 1),
+        )
+        res[name] = r
+        if agree < 0.995 or r["unfinished"]:
+            raise AssertionError(f"trace_geodesics {name} against CudaTracer: {r}")
+        if name == "f64" and not r["hit_x_max_abs"] <= 1e-5:
+            raise AssertionError(f"trace_geodesics f64 hits off CudaTracer's: {r}")
+        if name == "f32" and not r["hit_x_median_rel"] <= 1e-5:
+            raise AssertionError(f"trace_geodesics f32 hits off CudaTracer's: {r}")
+    res["jvp"] = _hit_radius_jvp(dev, n_jvp)
+    _say("trace_api", **res)
+    return res
+
+
+def phase_render_api(dev, side=1024):
+    """`rendergeodesics` through the public API: first the f64 render
+    goldens (20×20, r = 100, i = 85°, λ ≤ 200; the Kerr and Johannsen
+    shadows and the Kerr thin disc, rtol 1e-1 as tests/test_render.py),
+    then the flagship redshift render at side² pixels, f32, whose pixel
+    velocities (`_pixel_velocities`) `CudaTracer` traces once more: hit masks
+    ≥ 0.995 alike, median relative g ≤ 1e-4, no unfinished ray. The render
+    is `prerendergeodesics` and `apply`, which is `rendergeodesics`, so that
+    its points can be read; its busy share is profiled over 64 lockstep
+    iterations from the 256th."""
+    goldens = {}
+    x = torch.tensor(GOLDEN_X_OBS, dtype=torch.float64, device=dev)
+    kerr = KerrMetric(1.0, 0.0, device=dev)
+    camera = dict(image_width=20, image_height=20, alpha_lims=(-9.5, 9.5), beta_lims=(-9.5, 9.5))
+    for name, m, d, golden in (
+        ("shadow", kerr, None, 9009.452876609641),
+        ("thin_disc", kerr, ThinDisc(0.0, 40.0, device=dev), 38412.08347901267),
+        ("johannsen_shadow", JohannsenMetric(1.0, 0.0, device=dev), None, 9009.448935932085),
+    ):
+        with _NoKernelRoute():
+            _, _, img = rendergeodesics(m, x, d, 200.0, **camera)
+        total = float(torch.nansum(img))
+        if img.shape != (20, 20) or not math.isclose(total, golden, rel_tol=1e-1):
+            raise AssertionError(f"{name} golden through rendergeodesics: {total} vs {golden}")
+        goldens[name] = total
+
+    dtype = torch.float32
+    m, d, x = _flagship(dtype, dev)
+    pf = ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected()
+    camera = dict(alpha_lims=(-28.0, 28.0), beta_lims=(-18.0, 18.0))
+    rendergeodesics(m, x, d, SPAN[1], pf=pf, image_width=32, image_height=32, **camera)  # warm-up
+    with _NoKernelRoute(), _Lockstep(window=64) as steps:
+        (_, _, cache), seconds = _trace_seconds(
+            lambda: prerendergeodesics(m, x, d, SPAN[1], image_width=side, image_height=side, **camera)
+        )
+        img, shade_s = _trace_seconds(lambda: apply(pf, cache))
+    gp = cache.points
+    unfinished = int(((gp.status == StatusCodes.NoStatus) & (gp.lam_max < SPAN[1] - 1e-3)).sum())
+    _, _, v = _pixel_velocities(m, x, side, side, camera["alpha_lims"], camera["beta_lims"])
+    gk = CudaTracer(m, geometry=d)(x.expand_as(v), v, SPAN)
+    img_k = pf(m, gk, SPAN[1]).reshape(side, side).T
+    fin, fin_k = torch.isfinite(img), torch.isfinite(img_k)
+    both = fin & fin_k
+    res = dict(
+        goldens=goldens,
+        pixels=side * side,
+        seconds_per_render=seconds + shade_s,
+        trace_seconds=seconds,
+        shading_seconds=shade_s,
+        iterations=steps.iters,
+        ms_per_iteration=seconds * 1e3 / max(steps.iters, 1),
+        busy_share=steps.busy_share(),
+        busy_window=dict(iterations=64, from_iteration=256, busy_ms=steps.busy_ms, wall_ms=steps.wall_ms,
+                         device_events=steps.device_events),
+        finite_pixels=int(fin.sum()),
+        hit_mask_agree=float((fin == fin_k).double().mean()),
+        g_median_rel=float(_rel(img[both], img_k[both]).median()),
+        unfinished=unfinished,
+    )
+    if res["hit_mask_agree"] < 0.995 or not res["g_median_rel"] <= 1e-4 or unfinished:
+        raise AssertionError(f"rendergeodesics against CudaTracer: {res}")
+    _say("render_api", **res)
+    return res
+
+
+class _KeepPoints:
+    """Keeps the points `lineprofile` traces while it is entered."""
+
+    def __enter__(self):
+        self.points, self._fn = [], lineprofile_module.trace_geodesics
+
+        def keeping(*args, **kw):
+            self.points.append(self._fn(*args, **kw))
+            return self.points[-1]
+
+        lineprofile_module.trace_geodesics = keeping
+        return self
+
+    def __exit__(self, *exc):
+        lineprofile_module.trace_geodesics = self._fn
+
+
+def phase_binning_api(dev, ctf_flux, side=1000):
+    """`lineprofile(..., method=BinningMethod())` at bench_binning's
+    configuration (f32, i = 70°, a side×side geometric plane to r = 50,
+    ThinDisc(0, ∞), λ ≤ 2000, rₑ ∈ [isco, 200], bins 0.1:1.4×200): Σ = 1 ±
+    1e-4, and bin by bin against `CudaTracer`'s binned profile over the bins
+    above 1e-3 of the peak (median relative difference ≤ 1e-3; the rays
+    `domain_upper_hemisphere` stops are the expected difference). Then once
+    at the transfer-function profile's configuration (i = 60°, plane to
+    r = 250, rₑ ∈ [isco + 1e-2, 50]) against that profile: median relative
+    difference ≤ 2%."""
+    dtype = torch.float32
+    m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
+    d = ThinDisc(0.0, math.inf, dtype=dtype, device=dev)
+
+    def binned(incl_deg, r_max, bins, n, **kw):
+        x = torch.tensor([0.0, 1000.0, math.radians(incl_deg), 0.0], dtype=dtype, device=dev)
+        plane = PolarPlane(GeometricGrid(), Nr=n, Ntheta=n, r_max=r_max, dtype=dtype, device=dev)
+        return lineprofile(m, x, d, bins=bins, method=BinningMethod(), plane=plane, lam_max=2000.0, **kw)[1]
+
+    bins = torch.linspace(0.1, 1.4, 200, dtype=dtype, device=dev)
+    binned(70.0, 50.0, bins, 32, max_re=200.0)  # warm-up
+    with _NoKernelRoute(), _Lockstep() as steps, _KeepPoints() as kept:
+        flux, seconds = _trace_seconds(lambda: binned(70.0, 50.0, bins, side, max_re=200.0))
+    gp = kept.points[-1]
+    below = int(((gp.status == StatusCodes.OutOfDomain) & (gp.x[:, 1] <= 12000.0)).sum())
+    total = float(flux.double().sum())
+    profile_k, _, _ = _binned_profile(dev, side, 70.0, 50.0, bins, 0.0, 200.0)
+    flux_k = profile_k().double().cpu().numpy()
+    f = flux.double().cpu().numpy()
+    top = flux_k > 1e-3 * flux_k.max()
+    res = dict(
+        rays=side * side,
+        seconds_per_profile=seconds,
+        iterations=steps.iters,
+        ms_per_iteration=seconds * 1e3 / max(steps.iters, 1),
+        flux_sum=total,
+        nonzero_bins=int((f > 0).sum()),
+        stopped_below_the_plane=below,
+        hits=int((gp.status == HIT).sum()),
+        vs_cuda_tracer_bins_compared=int(top.sum()),
+        vs_cuda_tracer_median_rel=float(np.median(np.abs(f[top] - flux_k[top]) / flux_k[top])),
+        vs_cuda_tracer_max_rel=float(np.max(np.abs(f[top] - flux_k[top]) / flux_k[top])),
+    )
+    if abs(total - 1.0) > 1e-4 or not res["vs_cuda_tracer_median_rel"] <= 1e-3:
+        raise AssertionError(f"binned lineprofile against CudaTracer's: {res}")
+
+    ctf_bins = torch.linspace(*CTF_BINS, dtype=dtype, device=dev)
+    with _NoKernelRoute():
+        f60, seconds60 = _trace_seconds(
+            lambda: binned(60.0, 250.0, ctf_bins, side, min_re=float(m.isco()) + 1e-2, max_re=50.0)
+        )
+    f60 = f60.double().cpu().numpy()
+    top = ctf_flux > 1e-3 * ctf_flux.max()
+    res.update(
+        ctf_config_seconds=seconds60,
+        ctf_config_flux_sum=float(f60.sum()),
+        vs_ctf_bins_compared=int(top.sum()),
+        vs_ctf_median_rel=float(np.median(np.abs(f60[top] - ctf_flux[top]) / ctf_flux[top])),
+    )
+    if abs(res["ctf_config_flux_sum"] - 1.0) > 1e-4 or not res["vs_ctf_median_rel"] <= 2e-2:
+        raise AssertionError(f"binned lineprofile against the transfer-function profile: {res}")
+    _say("binning_api", **res)
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     seconds = {}
@@ -1408,7 +1751,33 @@ def main():
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
     binned = timed_phase("binning_lineprofile", phase_binning_lineprofile, dev, ctf_flux)
+    trace_api = timed_phase("trace_api", phase_trace_api, dev)
+    render_api = timed_phase("render_api", phase_render_api, dev)
+    binning_api = timed_phase("binning_api", phase_binning_api, dev, ctf_flux)
     _say("timing", seconds=seconds, total_seconds=time.perf_counter() - t_start)
+    # the lockstep solver under trace_geodesics is plain torch, not a kernel
+    print(
+        json.dumps(
+            {
+                "lockstep_solver": {
+                    "source": "gradus_tpu_torch/integrate/solver.py",
+                    "reference": "gradus_tpu/integrate/solver.py:417",
+                    "kernel_launches": 0,
+                    "trace_f64": {k: trace_api["f64"][k] for k in ("rays", "iterations", "seconds", "ms_per_iteration")},
+                    "trace_f32": {k: trace_api["f32"][k] for k in ("rays", "iterations", "seconds", "ms_per_iteration")},
+                    "jvp": trace_api["jvp"],
+                    "render": {
+                        k: render_api[k]
+                        for k in ("pixels", "seconds_per_render", "iterations", "ms_per_iteration", "busy_share")
+                    },
+                    "binned_profile": {
+                        k: binning_api[k] for k in ("rays", "seconds_per_profile", "iterations", "ms_per_iteration")
+                    },
+                }
+            }
+        ),
+        flush=True,
+    )
     bounds = {
         key: _bound(ops, r["subset_rays"], r["subset_attempted_lane_steps"], r["subset_hits"], torch.float32)
         for key, ops, r in (

@@ -13,13 +13,20 @@ Module paths and public names mirror `gradus_tpu`. This package imports
 - the line profiles on that integrator: `lineprofile(..., backend="cuda")`
   (Cunningham transfer functions from a finite-difference Newton solve over
   a `DatumPlane`, then Gauss-Legendre integration), and `binned_flux` over a
-  `PolarPlane` traced by `CudaTracer`.
+  `PolarPlane` traced by `CudaTracer`;
+- the reference's front door over its lockstep solver, as plain torch on
+  the inputs' device (no kernel; differentiable with `torch.func.jvp`):
+  `integrate_rays`, `trace_geodesics`, `tracegeodesics`,
+  `domain_upper_hemisphere`, `rendergeodesics`, `prerendergeodesics`,
+  `EndpointRenderCache`, `apply`, and `lineprofile(...,
+  method=BinningMethod())`.
 """
 
 from gradus_tpu_torch.camera import (
     CartesianPlane,
     ConstPointFunctions,
     CosGrid,
+    EndpointRenderCache,
     FilterPointFunction,
     FilterStatusCode,
     GeometricGrid,
@@ -29,7 +36,10 @@ from gradus_tpu_torch.camera import (
     PointFunction,
     PolarPlane,
     SinGrid,
+    apply,
     map_impact_parameters,
+    prerendergeodesics,
+    rendergeodesics,
 )
 from gradus_tpu_torch.geodesics import metric_jacobian
 from gradus_tpu_torch.geometry import AbstractAccretionGeometry, DatumPlane, ThinDisc
@@ -38,7 +48,11 @@ from gradus_tpu_torch.integrate import (
     GeodesicPoint,
     StatusCodes,
     cuda_integrate_rays,
+    domain_upper_hemisphere,
+    integrate_rays,
     integrate_rays_plain,
+    trace_geodesics,
+    tracegeodesics,
 )
 from gradus_tpu_torch.lineprofile import (
     BinningMethod,

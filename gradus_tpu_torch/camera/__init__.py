@@ -18,3 +18,9 @@ from gradus_tpu_torch.camera.pointfns import (
     PointFunction,
 )
 from gradus_tpu_torch.camera.planes import CartesianPlane, PolarPlane
+from gradus_tpu_torch.camera.render import (
+    EndpointRenderCache,
+    apply,
+    prerendergeodesics,
+    rendergeodesics,
+)

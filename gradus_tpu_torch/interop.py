@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from gradus_tpu_torch.camera.render import EndpointRenderCache
 from gradus_tpu_torch.config import default_device
 from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
 from gradus_tpu_torch.integrate.points import GeodesicPoint
@@ -32,7 +33,12 @@ from gradus_tpu_torch.metrics import (
 )
 from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid
 
-__all__ = ["from_numpy", "geodesic_points_from_numpy", "transfer_grid_from_numpy"]
+__all__ = [
+    "from_numpy",
+    "geodesic_points_from_numpy",
+    "render_cache_from_numpy",
+    "transfer_grid_from_numpy",
+]
 
 _KINDS = {
     "KerrMetric": (KerrMetric, ("M", "a")),
@@ -77,6 +83,23 @@ def geodesic_points_from_numpy(d: dict, *, device=None) -> GeodesicPoint:
         v = d.get(f.name)
         fields[f.name] = None if v is None else torch.as_tensor(np.asarray(v), device=device)
     return GeodesicPoint(**fields)
+
+
+def render_cache_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> EndpointRenderCache:
+    """An `EndpointRenderCache` from the JAX package's one, handed over as a
+    dict: ``metric`` (a kind of `from_numpy`), ``metric_params`` (its dict
+    of numpy parameters), ``max_time``, ``height``, ``width`` and
+    ``points`` (the dict of numpy arrays `geodesic_points_from_numpy`
+    takes); the metric and ``max_time`` in ``dtype``, all on ``device``
+    (the card when None)."""
+    device = default_device(device)
+    return EndpointRenderCache(
+        m=from_numpy(d["metric"], d["metric_params"], dtype=dtype, device=device),
+        max_time=torch.as_tensor(np.asarray(d["max_time"]), dtype=dtype, device=device),
+        height=int(d["height"]),
+        width=int(d["width"]),
+        points=geodesic_points_from_numpy(d["points"], device=device),
+    )
 
 
 def transfer_grid_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> TransferBranchGrid:

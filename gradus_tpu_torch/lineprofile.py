@@ -5,15 +5,13 @@ Reference: `src/line-profiles.jl`. Two methods:
   `integrate_lineprofile` (defaults: bins 0.1:1.5 ×180, minrₑ = isco+1e-2,
   maxrₑ = 50, numrₑ = 100, h = 2e-8). Pass ``backend="cuda"``: on CUDA
   tensors its offset solves run the hand-written CUDA integrator.
-- `BinningMethod`: trace a polar image plane, filter disc hits in
-  [minrₑ, maxrₑ], flux = ε(r)·g³·area bucketed into g bins. `binned_flux` is
-  ported; trace the plane with `CudaTracer` (the JAX package's
-  `bench.py::bench_binning` does so with `PallasTracer`).
+- `BinningMethod`: trace a polar image plane with `trace_geodesics` (the
+  lockstep solver, on the observer position's device) and its
+  `domain_upper_hemisphere` terminator, filter disc hits in [minrₑ, maxrₑ],
+  flux = ε(r)·g³·area bucketed into g bins (`binned_flux`).
 
-Not ported yet, and raising `NotImplementedError`: the BinningMethod branch
-of `lineprofile`, which traces with `trace_geodesics` and its
-`domain_upper_hemisphere` terminator (ROADMAP queue A, item 2); ``profile=``,
-which needs the corona's emissivity profiles (item 9); and
+Not ported yet, and raising `NotImplementedError`: ``profile=``, which
+needs the corona's emissivity profiles (ROADMAP queue A, item 9); and
 `binned_flux(axis_name=...)`, which needs the multi-device port (item 12).
 """
 
@@ -21,10 +19,15 @@ from __future__ import annotations
 
 import torch
 
+from gradus_tpu_torch.camera.grids import GeometricGrid
+from gradus_tpu_torch.camera.impact import map_impact_parameters
+from gradus_tpu_torch.camera.planes import PolarPlane
 from gradus_tpu_torch.integrate.status import StatusCodes
-from gradus_tpu_torch.metrics.base import AbstractMetric
+from gradus_tpu_torch.integrate.tracing import domain_upper_hemisphere, trace_geodesics
+from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
+from gradus_tpu_torch.orbits.special_radii import isco
+from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.transfer import integrate_lineprofile, transferfunctions
-from gradus_tpu_torch.transfer.cunningham import _as_observer
 from gradus_tpu_torch.utils.linalg import equatorial_project
 
 __all__ = ["lineprofile", "TransferFunctionMethod", "BinningMethod", "binned_flux"]
@@ -56,21 +59,22 @@ def lineprofile(
     num_re: int = 100,
     h: float = 2e-8,
     n_radii: int = 1000,
+    lam_max=None,
+    plane=None,
+    redshift_pf=None,
     **kwargs,
 ):
-    """Returns (bins, flux). Emissivity defaults to ε(r) = r⁻³; ``kwargs``
-    go to `cunningham_transfer_function` (``backend="cuda"``, ``N``, ...)."""
+    """Returns (bins, flux). Emissivity defaults to ε(r) = r⁻³. With the
+    default `TransferFunctionMethod`, ``kwargs`` go to
+    `cunningham_transfer_function` (``backend="cuda"``, ``N``, ...); with
+    `BinningMethod`, to `trace_geodesics`, and ``lam_max`` (default 2·r_obs),
+    ``plane`` (default a 450×1300 geometric `PolarPlane` to 5·max_re),
+    ``redshift_pf`` (default `redshift_pointfunction`) and ``min_re``
+    (default the ISCO) shape the binning."""
     if profile is not None:
         raise NotImplementedError(
             "profile= needs the corona's emissivity profiles, which are not ported "
             "yet (ROADMAP queue A, item 9)"
-        )
-    if method is not None and not isinstance(method, TransferFunctionMethod):
-        raise NotImplementedError(
-            "the BinningMethod branch of lineprofile traces with trace_geodesics "
-            "and domain_upper_hemisphere, which wait for the plain solver "
-            "(ROADMAP queue A, item 2); trace a PolarPlane with CudaTracer and "
-            "call binned_flux instead"
         )
     x = _as_observer(x, m)
     if bins is None:
@@ -79,9 +83,50 @@ def lineprofile(
         bins = torch.as_tensor(bins, dtype=x.dtype, device=x.device)
     if emissivity is None:
         emissivity = _default_emissivity
+    if method is None:
+        method = TransferFunctionMethod()
 
-    tfs = transferfunctions(m, x, d, min_re=min_re, max_re=max_re, num_re=num_re, **kwargs)
-    flux = integrate_lineprofile(emissivity, tfs, bins, h=h, n_radii=n_radii)
+    if isinstance(method, TransferFunctionMethod):
+        tfs = transferfunctions(m, x, d, min_re=min_re, max_re=max_re, num_re=num_re, **kwargs)
+        flux = integrate_lineprofile(emissivity, tfs, bins, h=h, n_radii=n_radii)
+        return bins, flux
+
+    # --- BinningMethod (reference line-profiles.jl:157-198) ---------------
+    if min_re is None:
+        min_re = isco(m)
+    if lam_max is None:
+        lam_max = 2.0 * x[1]
+    if plane is None:
+        plane = PolarPlane(
+            GeometricGrid(), Nr=450, Ntheta=1300, r_max=5 * max_re, dtype=x.dtype, device=x.device
+        )
+    if redshift_pf is None:
+        redshift_pf = redshift_pointfunction(m, x)
+
+    alpha, beta = plane.impact_parameters()
+    areas = plane.unnormalized_areas()
+    v = map_impact_parameters(m, x, alpha, beta)
+    xs = torch.broadcast_to(x, v.shape)
+    gps = trace_geodesics(
+        m,
+        xs,
+        v,
+        (0.0, lam_max),
+        geometry=d,
+        terminate_fns=(domain_upper_hemisphere(),),
+        **kwargs,
+    )
+    flux = binned_flux(
+        m,
+        gps,
+        areas,
+        emissivity,
+        bins,
+        min_re=min_re,
+        max_re=max_re,
+        lam_max=lam_max,
+        redshift_pf=redshift_pf,
+    )
     return bins, flux
 
 

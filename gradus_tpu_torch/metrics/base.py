@@ -226,6 +226,14 @@ def _ad_components5_jac(m, r, theta):
     return values, tuple(t[0] for t in tangents), tuple(t[1] for t in tangents)
 
 
+def _as_observer(x, m):
+    """A position or velocity as a tensor: float64 on the metric's device
+    unless it is one."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, dtype=torch.float64, device=m.device)
+
+
 def unpack_rtheta(x):
     """Accept a 4-position ``(t, r, θ, φ)``, an ``(r, θ)`` pair or tuple."""
     if isinstance(x, (tuple, list)):

@@ -27,8 +27,7 @@ from gradus_tpu_torch.camera.impact import map_impact_parameters
 from gradus_tpu_torch.geodesics.equation import constrain_all
 from gradus_tpu_torch.integrate.cuda_solver import CudaTracer
 from gradus_tpu_torch.integrate.status import StatusCodes
-from gradus_tpu_torch.metrics.base import AbstractMetric
-from gradus_tpu_torch.transfer.cunningham import _as_observer
+from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
 from gradus_tpu_torch.transfer.solvers import (
     _conserved_g_helpers,
     _p_t_p_phi,

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
-from gradus_tpu_torch.metrics.base import AbstractMetric
+from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
 
 __all__ = [
     "TransferBranchGrid",
@@ -52,14 +52,6 @@ def g_to_gstar(g, gmin, gmax):
 
 def gstar_to_g(gstar, gmin, gmax):
     return (gmax - gmin) * gstar + gmin
-
-
-def _as_observer(x, m):
-    """The observer position as a tensor: float64 on the metric's device
-    unless it is one."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(x, dtype=torch.float64, device=m.device)
 
 
 def _interval_index(xs, q):

@@ -6,6 +6,11 @@ its plain version for a Johannsen-Psaltis render against `PallasTracer` in
 interpret mode.
 
 Parameters: those of tests/test_metrics.py:26-32.
+
+The comparisons with `PallasTracer` hold only because none of these rays is
+a hit whose polish reads a ``dt`` that the Pallas kernel shrank after the
+ray ended: a fault of the reference, pinned in
+tests/test_torch_pallas_dt_fault.py.
 """
 
 import dataclasses

@@ -7,6 +7,11 @@ integrator through `CudaTracer` against `PallasTracer` in interpret mode.
 
 Parameters: those of tests/test_metrics.py:22-36 (first-order Kerr at the
 spin of the other Kerr-like ones, a = 0.5).
+
+The comparisons with `PallasTracer` hold only because none of these rays is
+a hit whose polish reads a ``dt`` that the Pallas kernel shrank after the
+ray ended: a fault of the reference, pinned in
+tests/test_torch_pallas_dt_fault.py.
 """
 
 import dataclasses

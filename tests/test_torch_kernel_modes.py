@@ -7,6 +7,11 @@ Rays: the flagship camera (Kerr a = 0.998, r = 1000, i = 75°) against
 ThinDisc(0, 50), at image-plane offsets ρ ∈ [7.5, 12] (`_offsets`), outside
 the critical curve, whose rays circle the photon orbit and turn a rounding
 difference between two correct implementations into a different hit.
+
+The comparisons with `PallasTracer` hold only because none of these rays is
+a hit whose polish reads a ``dt`` that the Pallas kernel shrank after the
+ray ended: a fault of the reference, pinned in
+tests/test_torch_pallas_dt_fault.py.
 """
 
 import dataclasses

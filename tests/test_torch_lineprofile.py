@@ -322,7 +322,8 @@ def test_unported_line_profile_paths_raise(case):
     d = DatumPlane(0.0, device="cpu")
     with pytest.raises(NotImplementedError):
         if case == "binning_method":
-            lineprofile(m, x, d, method=BinningMethod())
+            # ported but for an emissivity profile, which needs the corona
+            lineprofile(m, x, d, method=BinningMethod(), profile=object())
         elif case == "profile":
             lineprofile(m, x, d, profile=object())
         elif case == "axis_name":

@@ -12,6 +12,11 @@ refuse.
 
 Rays: the flagship camera (Kerr a = 0.998, r = 1000, i = 75°) against
 ThinDisc(0, 50), and transfer-function rays (i = 60°) against DatumPlane(0).
+
+The comparisons with `PallasTracer` hold only because none of these rays is
+a hit whose polish reads a ``dt`` that the Pallas kernel shrank after the
+ray ended: a fault of the reference, pinned in
+tests/test_torch_pallas_dt_fault.py.
 """
 
 import dataclasses
