@@ -19,7 +19,13 @@ Module paths and public names mirror `gradus_tpu`. This package imports
   `integrate_rays`, `trace_geodesics`, `tracegeodesics`,
   `domain_upper_hemisphere`, `rendergeodesics`, `prerendergeodesics`,
   `EndpointRenderCache`, `apply`, and `lineprofile(...,
-  method=BinningMethod())`.
+  method=BinningMethod())`;
+- the lamp-post corona and the reverberation lags, as plain torch on the
+  metric's device, with their transfer functions on the CUDA integrator:
+  the coronal models and sky samplers, `emissivity_profile`,
+  `lineprofile(profile=...)`, `tracegeodesics(m, model, ...)`,
+  `find_offset_for_radius`, `continuum_time`, `integrate_lagtransfer`,
+  `lag_frequency`, `lagtransfer` and `binflux`.
 """
 
 from gradus_tpu_torch.camera import (
@@ -40,6 +46,21 @@ from gradus_tpu_torch.camera import (
     map_impact_parameters,
     prerendergeodesics,
     rendergeodesics,
+)
+from gradus_tpu_torch.corona import (
+    AnalyticRadialDiscProfile,
+    BeamedPointSource,
+    BothHemispheres,
+    DiscCorona,
+    EvenSampler,
+    LampPostModel,
+    LowerHemisphere,
+    PowerLawSpectrum,
+    RadialDiscProfile,
+    RingCorona,
+    WeierstrassSampler,
+    emissivity_profile,
+    tracecorona,
 )
 from gradus_tpu_torch.geodesics import metric_jacobian
 from gradus_tpu_torch.geometry import AbstractAccretionGeometry, DatumPlane, ThinDisc
@@ -63,12 +84,16 @@ from gradus_tpu_torch.lineprofile import (
 from gradus_tpu_torch.metrics import AbstractMetric, KerrMetric, kerr_isco
 from gradus_tpu_torch.orbits import CircularOrbits, isco
 from gradus_tpu_torch.redshift import redshift_pointfunction
+from gradus_tpu_torch.reverberation import binflux, continuum_time, lag_frequency, lagtransfer
 from gradus_tpu_torch.transfer import (
     CudaCTFSolver,
     CunninghamTransferTable,
     LineProfileModel,
     TransferBranchGrid,
     cunningham_transfer_function,
+    find_offset_for_radius,
+    impact_parameters_for_radius,
+    integrate_lagtransfer,
     integrate_lineprofile,
     interpolated_transfer_branches,
     make_transfer_function_table,

@@ -6,4 +6,13 @@ from gradus_tpu_torch.geodesics.equation import (
     geodesic_equation,
     metric_jacobian,
 )
-from gradus_tpu_torch.geodesics.tetrads import dotproduct, lnrbasis, lnrbasis_matrix
+from gradus_tpu_torch.geodesics.tetrads import (
+    dotproduct,
+    gramschmidt,
+    lnrbasis,
+    lnrbasis_matrix,
+    mproject,
+    propernorm,
+    tetradframe,
+    tetradframe_matrix,
+)

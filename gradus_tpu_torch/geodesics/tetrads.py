@@ -1,5 +1,6 @@
-"""Metric dot products and the locally non-rotating frame (LNRF) co-basis
-(counterpart of `gradus_tpu/geodesics/tetrads.py`, the main-path subset).
+"""Metric dot products, the Gram-Schmidt tetrad frame and the locally
+non-rotating frame (LNRF) co-basis (counterpart of
+`gradus_tpu/geodesics/tetrads.py`).
 
 Contractions are written as elementwise products and sums, never as a
 matmul: on the card a float32 matmul may run in TF32, which keeps about three
@@ -12,12 +13,67 @@ import torch
 
 from gradus_tpu_torch.metrics.base import AbstractMetric
 
-__all__ = ["dotproduct", "lnrbasis", "lnrbasis_matrix"]
+__all__ = [
+    "dotproduct",
+    "propernorm",
+    "mproject",
+    "gramschmidt",
+    "tetradframe",
+    "tetradframe_matrix",
+    "lnrbasis",
+    "lnrbasis_matrix",
+]
 
 
 def dotproduct(g, v1, v2):
     """g_{μν} v1^μ v2^ν for a (..., 4, 4) metric matrix ``g``."""
     return (g * v1[..., :, None] * v2[..., None, :]).sum(dim=(-2, -1))
+
+
+def propernorm(g, v):
+    return dotproduct(g, v, v)
+
+
+def mproject(g, v, u):
+    """Project ``v`` onto ``u`` under ``g`` (reference
+    `orthonormalization.jl:20-26`)."""
+    return dotproduct(g, v, u) / propernorm(g, u)
+
+
+def gramschmidt(v, basis, g, passes: int = 2):
+    """Orthonormalise ``v`` against the (already orthonormal-ish) ``basis``
+    under metric ``g``, with a fixed number of re-projection passes in place
+    of the reference's tolerance loop (`orthonormalization.jl:37-48`)."""
+    for _ in range(passes):
+        p = torch.zeros_like(v)
+        for e in basis:
+            p = p + mproject(g, v, e)[..., None] * e
+        v = v - p
+    norm = torch.sqrt(torch.abs(propernorm(g, v)))
+    return v / norm[..., None]
+
+
+def _basis_vec(i, like):
+    e = torch.zeros_like(like)
+    e[..., i] = 1.0
+    return e
+
+
+def tetradframe(m: AbstractMetric, x, v):
+    """Orthonormal tetrad (e_t, e_r, e_θ, e_φ) whose first leg is ``v``
+    (timelike, with v^t ≠ 0; reference `tetradframe`,
+    `orthonormalization.jl:75-104`)."""
+    g = m.metric(x)
+    v1 = v / torch.sqrt(torch.abs(propernorm(g, v)))[..., None]
+    v2 = gramschmidt(_basis_vec(1, v), (v1,), g)
+    v3 = gramschmidt(_basis_vec(2, v), (v1, v2), g)
+    v4 = gramschmidt(_basis_vec(3, v), (v1, v2, v3), g)
+    return v1, v2, v3, v4
+
+
+def tetradframe_matrix(m: AbstractMetric, x, v):
+    """Columns are the tetrad legs."""
+    return torch.stack(tetradframe(m, x, v), dim=-1)
 
 
 def _lnrf_quantities(g):

@@ -6,9 +6,9 @@ The 8-component state is u = (x, v); the RHS is
 ``du/dλ = (v, geodesic_equation(m, x, v))``.
 
 Not ported yet, and raising `NotImplementedError`: charged traces (the
-Kerr-Newman Lorentz force, ROADMAP queue A, item 10), ``checkpointed=True``
-(item 11), the corona-model dispatch of `tracegeodesics` (item 9) and
-`Tracer`, which wraps the reference's `CompactedIntegrator`.
+Kerr-Newman Lorentz force, ROADMAP queue A, item 10) and
+``checkpointed=True`` (item 11). `Tracer`, which wraps the reference's
+`CompactedIntegrator`, is not here (item 2).
 """
 
 from __future__ import annotations
@@ -188,13 +188,29 @@ def trace_geodesics(
 
 
 def tracegeodesics(m, x, v=None, lam_span=(0.0, 2000.0), **kwargs):
-    """Reference-parity front door: ``tracegeodesics(m, x, v, lam_span,
-    ...)`` is `trace_geodesics`. The reference's second dispatch,
-    ``tracegeodesics(m, model, lam_max_or_span; n_samples, sampler, ...)``,
-    which samples a corona model's local sky, is not ported yet."""
+    """Reference-parity front door. Two dispatches:
+
+    - ``tracegeodesics(m, x, v, lam_span, ...)`` — positions/velocities,
+      exactly `trace_geodesics`;
+    - ``tracegeodesics(m, model, lam_max_or_span; n_samples=64,
+      sampler=None, ...)`` — sample a corona model's local sky and trace the
+      emitted rays (reference corona-models.jl:143-153). As in the JAX
+      package, ``n_samples`` defaults to 64 here where the reference's
+      default is 1024.
+    """
     if hasattr(x, "sample_position_velocity"):
-        raise NotImplementedError(
-            "tracing a corona model's sky needs the corona modules, which are not "
-            "ported yet (ROADMAP queue A, item 9)"
-        )
+        from gradus_tpu_torch.corona.samplers import BothHemispheres, EvenSampler, sky_angles_to_velocity
+
+        model = x
+        span = v if v is not None else lam_span
+        if not isinstance(span, (tuple, list)) and torch.as_tensor(span).dim() == 0:
+            span = (0.0, float(span))
+        n_samples = kwargs.pop("n_samples", 64)
+        sampler = kwargs.pop("sampler", None) or EvenSampler(domain=BothHemispheres())
+        x_src, v_src = model.sample_position_velocity(m)
+        idx = torch.arange(1, n_samples + 1, dtype=x_src.dtype, device=x_src.device)
+        elev, az = sampler.sample_angles(idx, n_samples)
+        vs = sky_angles_to_velocity(m, x_src, v_src, elev, az)
+        kwargs.setdefault("constrain", False)
+        return trace_geodesics(m, x_src.expand_as(vs), vs, span, **kwargs)
     return trace_geodesics(m, x, v, lam_span, **kwargs)

@@ -14,6 +14,8 @@ import torch
 
 from gradus_tpu_torch.camera.render import EndpointRenderCache
 from gradus_tpu_torch.config import default_device
+from gradus_tpu_torch.corona.models import BeamedPointSource, DiscCorona, LampPostModel, RingCorona
+from gradus_tpu_torch.corona.profiles import RadialDiscProfile
 from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
 from gradus_tpu_torch.integrate.points import GeodesicPoint
 from gradus_tpu_torch.metrics import (
@@ -34,11 +36,20 @@ from gradus_tpu_torch.metrics import (
 from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid
 
 __all__ = [
+    "corona_model_from_numpy",
     "from_numpy",
     "geodesic_points_from_numpy",
+    "radial_profile_from_numpy",
     "render_cache_from_numpy",
     "transfer_grid_from_numpy",
 ]
+
+_CORONA_KINDS = {
+    "LampPostModel": (LampPostModel, ("h", "theta", "phi")),
+    "BeamedPointSource": (BeamedPointSource, ("r", "beta")),
+    "RingCorona": (RingCorona, ("r", "h")),
+    "DiscCorona": (DiscCorona, ("r", "h")),
+}
 
 _KINDS = {
     "KerrMetric": (KerrMetric, ("M", "a")),
@@ -111,4 +122,29 @@ def transfer_grid_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> Tr
             f.name: torch.as_tensor(np.asarray(d[f.name]), dtype=dtype, device=device)
             for f in dataclasses.fields(TransferBranchGrid)
         }
+    )
+
+
+def corona_model_from_numpy(kind: str, params: dict):
+    """Build the port's corona model ``kind`` (a key of ``_CORONA_KINDS``)
+    from a dict of its JAX dataclass's fields as numpy scalars; a ring's or
+    disc's ``vf`` is carried as it is."""
+    if kind not in _CORONA_KINDS:
+        raise ValueError(f"unknown corona model {kind!r}; expected one of {sorted(_CORONA_KINDS)}")
+    cls, names = _CORONA_KINDS[kind]
+    missing = set(names) - set(params)
+    if missing:
+        raise ValueError(f"{kind} needs parameters {sorted(missing)}")
+    extra = {"vf": str(params["vf"])} if "vf" in params else {}
+    return cls(*(float(np.asarray(params[k], np.float64)) for k in names), **extra)
+
+
+def radial_profile_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> RadialDiscProfile:
+    """A `RadialDiscProfile` from a dict of numpy arrays keyed by its field
+    names (``radii``, ``eps``, ``t`` and the valid count ``n``), on
+    ``device`` (the card when None)."""
+    device = default_device(device)
+    return RadialDiscProfile(
+        **{k: torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=device) for k in ("radii", "eps", "t")},
+        n=torch.as_tensor(int(np.asarray(d["n"])), device=device),
     )

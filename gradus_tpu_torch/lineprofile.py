@@ -10,9 +10,11 @@ Reference: `src/line-profiles.jl`. Two methods:
   `domain_upper_hemisphere` terminator, filter disc hits in [minrₑ, maxrₑ],
   flux = ε(r)·g³·area bucketed into g bins (`binned_flux`).
 
-Not ported yet, and raising `NotImplementedError`: ``profile=``, which
-needs the corona's emissivity profiles (ROADMAP queue A, item 9); and
-`binned_flux(axis_name=...)`, which needs the multi-device port (item 12).
+With ``profile=`` (an emissivity profile such as `emissivity_profile`'s),
+ε is the profile's ``emissivity_at`` and the default method is
+`BinningMethod`. Not ported yet, and raising `NotImplementedError`:
+`binned_flux(axis_name=...)`, which needs the multi-device port (ROADMAP
+queue A, item 12).
 """
 
 from __future__ import annotations
@@ -70,21 +72,18 @@ def lineprofile(
     `BinningMethod`, to `trace_geodesics`, and ``lam_max`` (default 2·r_obs),
     ``plane`` (default a 450×1300 geometric `PolarPlane` to 5·max_re),
     ``redshift_pf`` (default `redshift_pointfunction`) and ``min_re``
-    (default the ISCO) shape the binning."""
-    if profile is not None:
-        raise NotImplementedError(
-            "profile= needs the corona's emissivity profiles, which are not ported "
-            "yet (ROADMAP queue A, item 9)"
-        )
+    (default the ISCO) shape the binning. A ``profile`` (anything with
+    ``emissivity_at``, such as `emissivity_profile`'s) gives ε where
+    ``emissivity`` is None, and makes `BinningMethod` the default."""
     x = _as_observer(x, m)
     if bins is None:
         bins = torch.linspace(0.1, 1.5, 180, dtype=x.dtype, device=x.device)
     else:
         bins = torch.as_tensor(bins, dtype=x.dtype, device=x.device)
     if emissivity is None:
-        emissivity = _default_emissivity
+        emissivity = _default_emissivity if profile is None else profile.emissivity_at
     if method is None:
-        method = TransferFunctionMethod()
+        method = TransferFunctionMethod() if profile is None else BinningMethod()
 
     if isinstance(method, TransferFunctionMethod):
         tfs = transferfunctions(m, x, d, min_re=min_re, max_re=max_re, num_re=num_re, **kwargs)

@@ -240,9 +240,9 @@ def cunningham_transfer_function(
     of one height is taken as it is."""
     if backend != "cuda":
         raise NotImplementedError(
-            f"backend={backend!r}: only backend='cuda' is ported; the 'xla' backend "
-            "differentiates through the plain lockstep solver (ROADMAP queue A, "
-            "item 2)"
+            f"backend={backend!r}: only backend='cuda' is ported; the 'xla' backend, "
+            "a jvp Newton through the lockstep solver, is not ported yet (ROADMAP "
+            "queue A, item 2.1)"
         )
     x = _as_observer(x, m)
     kw = dict(dtype=x.dtype, device=x.device)

@@ -1,6 +1,7 @@
-"""Line-profile integration over transfer-function branches (counterpart of
-`gradus_tpu/transfer/integration.py`, the line profile; the lag-transfer
-integrals wait for the corona and reverberation, ROADMAP queue A, item 9).
+"""Line-profile and lag-transfer integration over transfer-function
+branches (counterpart of `gradus_tpu/transfer/integration.py`;
+`integrate_lagtransfer_timedep`, which needs the extended coronae's
+light curves, waits for ROADMAP queue A, item 9, second half).
 
 Reference: `src/transfer-functions/integration.jl`. The flux in energy bin
 [g_lo, g_hi] from an annulus at rₑ is
@@ -20,11 +21,11 @@ import math
 
 import torch
 
-from gradus_tpu_torch.camera.grids import InverseGrid
+from gradus_tpu_torch.camera.grids import GeometricGrid, InverseGrid
 from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid, _interval_index
 from gradus_tpu_torch.utils.quadrature import gauss_legendre
 
-__all__ = ["integrate_lineprofile"]
+__all__ = ["integrate_lineprofile", "integrate_lagtransfer"]
 
 
 def _branch_value(grid_rows, gstar_axis, gstar_q):
@@ -154,3 +155,90 @@ def integrate_lineprofile(
     if normalize:
         flux_bins = _normalize_flux(flux_bins, g_grid)
     return torch.cat([flux_bins, flux_bins.new_zeros(1)])
+
+
+def integrate_lagtransfer(
+    profile,
+    tfs: TransferBranchGrid,
+    g_grid,
+    t_grid,
+    *,
+    h: float = 2e-8,
+    n_radii: int = 1000,
+    quadrature_points: int = 7,
+    rmin=None,
+    rmax=None,
+    g_scale: float = 1.0,
+    t0=0.0,
+):
+    """2D (g, t) flux: branch fluxes scatter-added into arrival-time bins
+    (reference `_integrate_transfer_problem!` matrix variant,
+    integration.jl:374-453). ``profile`` must provide emissivity_at(r) and
+    coordtime_at(r) (a `RadialDiscProfile`); ``t0`` is the continuum time
+    offset. Returns (len(g_grid), len(t_grid)), the last row zero, as in
+    the reference's output layout."""
+    device, dtype = tfs.radii.device, tfs.radii.dtype
+    g_grid = torch.as_tensor(g_grid, dtype=dtype, device=device)
+    t_grid = torch.as_tensor(t_grid, dtype=dtype, device=device)
+    rmin = tfs.inner_radius() if rmin is None else rmin
+    rmax = tfs.outer_radius() if rmax is None else rmax
+
+    r_fine = GeometricGrid()(rmin, rmax, n_radii, dtype=dtype, device=device)
+    rmin = torch.as_tensor(rmin, dtype=dtype, device=device)
+    dr = torch.diff(r_fine, prepend=(rmin - (r_fine[1] - rmin)).reshape(1))
+    br = tfs.at_radius(r_fine)
+    gmin, gmax = br["gmin"], br["gmax"]
+
+    eps = profile.emissivity_at(r_fine)
+    t_source_disc = profile.coordtime_at(r_fine) - t0
+    weight = dr * r_fine * eps * math.pi / (gmax - gmin)
+
+    quad = gauss_legendre(quadrature_points)
+
+    def branch_S(which):
+        def S(gvals):
+            gstar = (gvals - gmin[:, None]) / (gmax - gmin)[:, None]
+            gstar_c = torch.clamp(gstar, 1e-12, 1.0 - 1e-12)
+            f = _branch_value(br[which], tfs.gstar, gstar_c)
+            return gvals**3 * torch.nan_to_num(f) / torch.sqrt(gstar_c * (1.0 - gstar_c))
+
+        return S
+
+    k_lower = _integrate_bins(branch_S("lower_f"), g_grid / g_scale, gmin, gmax, h, quad)
+    k_upper = _integrate_bins(branch_S("upper_f"), g_grid / g_scale, gmin, gmax, h, quad)
+
+    # arrival time per (radius, bin): branch time averaged over the bin edges
+    # (reference `_time_bins`, integration.jl:103-112)
+    span_ = (gmax - gmin)[:, None]
+    gstar_e0 = torch.clamp((g_grid[None, :-1] / g_scale - gmin[:, None]) / span_, 1e-6, 1 - 1e-6)
+    gstar_e1 = torch.clamp((g_grid[None, 1:] / g_scale - gmin[:, None]) / span_, 1e-6, 1 - 1e-6)
+
+    def branch_t(which):
+        t_e0 = _branch_value(br[which], tfs.gstar, gstar_e0)
+        t_e1 = _branch_value(br[which], tfs.gstar, gstar_e1)
+        return 0.5 * (t_e0 + t_e1) + t_source_disc[:, None]
+
+    nb = g_grid.shape[0] - 1
+    nt = t_grid.shape[0]
+
+    def scatter(k, t_arr):
+        # searchsorted-first, and a time past the last bin is dropped
+        ti = torch.searchsorted(t_grid, t_arr.contiguous())  # (nf, nb)
+        valid = ti < nt
+        ti = torch.clamp(ti, 0, nt - 1)
+        contrib = torch.where(valid, k * weight[:, None], 0.0)
+        flat_idx = (torch.arange(nb, device=device)[None, :] * nt + ti).reshape(-1)
+        return k.new_zeros(nb * nt).index_add_(0, flat_idx, contrib.reshape(-1)).reshape(nb, nt)
+
+    out = scatter(k_lower, branch_t("lower_t")) + scatter(k_upper, branch_t("upper_t"))
+
+    # normalise (reference matrix `_normalize!`, utils.jl:134-147). The
+    # reference's final `flux = flux ./ maximum(sum(flux, dims=2))` rebinds
+    # a local instead of mutating, so it never reaches the returned array:
+    # the effective normalisation is total = 1 only, kept as the JAX
+    # package keeps it (the reverberation goldens depend on it).
+    gbar = (g_grid[:-1] + g_grid[1:])[:, None]
+    out = out / gbar
+    total = out.sum()
+    out = torch.where(total > 0, out / total, out)
+    return torch.cat([out, out.new_zeros(1, nt)], dim=0)

@@ -387,3 +387,67 @@ def test_cuda_trace_runs_no_torch_polish(dev, monkeypatch):
     assert calls == []
     assert (gp_1.status == StatusCodes.IntersectedWithGeometry).any()
     assert torch.equal(gp_1.x.nan_to_num(), gp_2.x.nan_to_num())
+
+
+def test_lag_frequency_on_the_card_matches_the_cpu(dev):
+    """The small `lag_frequency(m, x, d, model, backend="cuda")` pipeline
+    (a = 0.998, r = 100, i = 45°, ThinDisc(0, ∞), lamp post h = 5, radii 4,
+    8, 16, N = 10, N_extrema = 4, Ng = 16, 64 emissivity samples, 30 g and
+    60 t bins) on the card, whose transfer functions launch the kernel,
+    against the same call on the CPU (the kernel's plain version): the same
+    NaN (empty) bins, Σ = 1 at 1e-8 in each, the bins above 1e-3 of the
+    largest at rtol 1e-4, and the lags over the 50 lowest frequencies at
+    rtol 1e-4."""
+    from gradus_tpu_torch.corona import LampPostModel
+    from gradus_tpu_torch.reverberation import lag_frequency
+
+    def run(device):
+        m = KerrMetric(1.0, 0.998, device=device)
+        x = torch.tensor([0.0, 100.0, math.radians(45.0), 0.0], dtype=torch.float64, device=device)
+        kw = dict(dtype=torch.float64, device=device)
+        return lag_frequency(
+            m, x, ThinDisc(0.0, math.inf, device=device), LampPostModel(),
+            radii=torch.tensor([4.0, 8.0, 16.0], **kw), bins=torch.linspace(0.2, 1.4, 30, **kw),
+            tbins=torch.linspace(0.0, 100.0, 60, **kw), n_samples=64, n_radii=200,
+            backend="cuda", N=10, N_extrema=4, Ng=16,
+        )
+
+    before = cuda_solver.KERNEL_LAUNCHES
+    tb, _, f_card = run(dev)
+    assert cuda_solver.KERNEL_LAUNCHES > before
+    _, _, f_cpu = run("cpu")
+    f_card = f_card.cpu()
+    assert torch.equal(torch.isnan(f_card), torch.isnan(f_cpu))
+    for f in (f_card, f_cpu):
+        assert math.isclose(float(torch.nansum(f)), 1.0, rel_tol=1e-8)
+    top = torch.nan_to_num(f_cpu) > 1e-3 * float(torch.nan_to_num(f_cpu).max())
+    torch.testing.assert_close(f_card[top], f_cpu[top], rtol=1e-4, atol=0)
+    tau_card = lag_frequency(tb.cpu(), f_card)[1][1:51]
+    tau_cpu = lag_frequency(tb.cpu(), f_cpu)[1][1:51]
+    torch.testing.assert_close(tau_card, tau_cpu, rtol=1e-4, atol=0)
+
+
+def test_lifted_jvp_matches_torch_func_jvp_on_the_card(dev):
+    """`utils/jvp.py::jvp` against `torch.func.jvp` through `trace_geodesics`
+    on the card: 16 rays from r = 50 at i = 75° (a = 0.998, ThinDisc(0, 50),
+    λ ≤ 120), differentiated by β; outputs and tangents equal bit for bit."""
+    from gradus_tpu_torch.integrate import trace_geodesics
+    from gradus_tpu_torch.utils.jvp import jvp
+
+    m = KerrMetric(1.0, 0.998, device=dev)
+    d = ThinDisc(0.0, 50.0, device=dev)
+    x = torch.tensor([0.0, 50.0, math.radians(75.0), 0.0], dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(1)
+    rho = torch.as_tensor(rng.uniform(3.0, 25.0, 16), device=dev)
+    phi = torch.as_tensor(rng.uniform(0.0, 2 * math.pi, 16), device=dev)
+
+    def trace(B):
+        v = map_impact_parameters(m, x, rho * torch.cos(phi), B)
+        gp = trace_geodesics(m, x.expand_as(v), v, (0.0, 120.0), geometry=d)
+        return gp.x, gp.v
+
+    B = rho * torch.sin(phi)
+    a = torch.func.jvp(trace, (B,), (torch.ones_like(B),))
+    b = jvp(trace, (B,), (torch.ones_like(B),))
+    for u, w in zip(a[0] + a[1], b[0] + b[1]):
+        assert torch.equal(u.isnan(), w.isnan()) and torch.equal(u.nan_to_num(), w.nan_to_num())

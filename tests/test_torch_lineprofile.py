@@ -34,6 +34,7 @@ from gradus_tpu.transfer.tables import LineProfileModel as JaxLineProfileModel  
 from gradus_tpu.utils.quadrature import gauss_legendre as jax_gauss_legendre  # noqa: E402
 
 import gradus_tpu_torch.camera.grids as grids  # noqa: E402
+from gradus_tpu_torch.corona import DiscCorona, RingCorona, emissivity_profile  # noqa: E402
 from gradus_tpu_torch.camera.planes import CartesianPlane, PolarPlane  # noqa: E402
 from gradus_tpu_torch.geodesics.equation import metric_jacobian  # noqa: E402
 from gradus_tpu_torch.geometry import DatumPlane  # noqa: E402
@@ -321,11 +322,12 @@ def test_unported_line_profile_paths_raise(case):
     x = torch.tensor([0.0, 1000.0, math.radians(60.0), 0.0], dtype=torch.float64)
     d = DatumPlane(0.0, device="cpu")
     with pytest.raises(NotImplementedError):
+        # `profile=` is ported (tests/test_torch_lineprofile_profile.py); the
+        # ring and disc coronae's profiles without a sampler are not (A9)
         if case == "binning_method":
-            # ported but for an emissivity profile, which needs the corona
-            lineprofile(m, x, d, method=BinningMethod(), profile=object())
+            lineprofile(m, x, d, method=BinningMethod(), profile=emissivity_profile(m, d, RingCorona()))
         elif case == "profile":
-            lineprofile(m, x, d, profile=object())
+            lineprofile(m, x, d, profile=emissivity_profile(m, d, DiscCorona()))
         elif case == "axis_name":
             binned_flux(m, None, None, None, None, min_re=1, max_re=2, lam_max=1, redshift_pf=None, axis_name="i")
         else:

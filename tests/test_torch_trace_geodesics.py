@@ -42,6 +42,7 @@ from gradus_tpu.metrics import KerrMetric as JaxKerr  # noqa: E402
 
 import gradus_tpu_torch.integrate.solver as solver  # noqa: E402
 from gradus_tpu_torch.camera import map_impact_parameters  # noqa: E402
+from gradus_tpu_torch.corona import LampPostModel  # noqa: E402
 from gradus_tpu_torch.geometry import ThinDisc  # noqa: E402
 from gradus_tpu_torch.integrate import (  # noqa: E402
     StatusCodes,
@@ -300,8 +301,9 @@ def test_unported_trace_paths_raise(rays):
     m = rays["tm"]
     with pytest.raises(NotImplementedError, match="item 11"):
         trace_geodesics(m, x, v, SPAN, checkpointed=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tracegeodesics(m, types.SimpleNamespace(sample_position_velocity=None), 100.0)
+    # the corona-model dispatch is ported (tests/test_torch_corona.py)
+    gp = tracegeodesics(m, LampPostModel(), 1.0, n_samples=3)
+    assert gp.x.shape == (3, 4) and bool(torch.isfinite(gp.x).all())
     shape = types.SimpleNamespace(thetas=torch.linspace(0, math.pi, 5), rs=torch.full((5,), 2.5))
     with pytest.raises(NotImplementedError, match="item 11"):
         trace_geodesics(m, x, v, SPAN, chart_inner=shape)
