@@ -27,10 +27,10 @@ through their entry points, none of which may call the plain-torch polish:
   configuration: a 1000×1000 polar plane, f32, i=70°), and once more at the
   transfer-function profile's configuration to compare the two methods;
 - the public entry points over the lockstep solver (`trace_geodesics`, plain
-  torch on the card, which launches no kernel): `trace_api` holds
-  `trace_geodesics` against `CudaTracer` on 8,192 flagship rays in f64 and
-  f32 and a forward-mode derivative through it against a central
-  difference; `render_api` runs the render goldens and the 1024² flagship
+  torch on the card, which launches no kernel, its loop replayed as a CUDA
+  graph): `trace_api` holds `trace_geodesics` against `CudaTracer` on 8,192
+  flagship rays in f64 and f32 and a forward-mode derivative through it
+  (`trace_geodesics(..., v_dot=...)`) against a central difference; `render_api` runs the render goldens and the 1024² flagship
   redshift render through `rendergeodesics`; `binning_api` runs
   `lineprofile(..., method=BinningMethod())` at `bench_binning`'s
   configuration and at the transfer-function profile's;
@@ -41,19 +41,30 @@ through their entry points, none of which may call the plain-torch polish:
   `lag_frequency_full` (the lag spectrum at its defaults, timed by part),
   `binflux_golden` (Gradus.jl's test-2d.jl, then `lagtransfer` at its
   defaults), `lagtransfer_semianalytic` and `profiled_lineprofile` (the
-  lamp-post line profile by both methods). They and `trace_api` run in
-  four worker processes (`WORKERS`) beside the main one's
-  `kernel_vs_plain`, `render_api` and `binning_api`, after the phases that
-  time kernels. (`render_api` in a worker slowed to twice its time an
-  iteration: its ~1,600 kernels an iteration share the card with the
-  workers'.)
+  lamp-post line profile by both methods);
+- the lockstep loop as a CUDA graph (every lockstep phase above runs
+  captured, and fails if a loop did not): `lockstep_graph` holds the
+  captured loop against the uncaptured one (`cuda_graphs(False)`) bit for
+  bit on 8,192 flagship rays in f64 and f32 and on the one-ray
+  forward-mode trace of `continuum_time` at r = 10⁴;
+- the `xla` transfer functions (the jvp Newton through the lockstep
+  solver, the default backend) at full size: `ctf_xla` (`bench_ctf`'s thin
+  disc: m1, and against the `cuda` backend) and `thick_disc` (a
+  `ShakuraSunyaev` disc, against `lineprofile(method=BinningMethod())`),
+  and `thick_disc_golden` (tests/test_transfer.py's thick-disc golden in
+  f64, its samples against the JAX package's and the port's CPU runs).
+They and `trace_api` run in worker processes (`WORKERS`) beside the main
+one's `kernel_vs_plain`, `render_api` and `binning_api`, after the phases
+that time kernels. (The workers share the card: captured loops from two
+processes take turns on it.)
 
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The last line is a JSON object with the device.
 
     python3 chip_smoke.py
 
-A worker's phases alone: `python3 chip_smoke.py --worker NAME OUT.json`.
+A worker's phases alone (a name of `WORKERS`):
+`python3 chip_smoke.py --worker NAME OUT.json`.
 
 Needs one CUDA device and the CUDA toolkit (nvcc). Imports no JAX.
 """
@@ -79,6 +90,7 @@ from gradus_tpu_torch.camera import (
     ConstPointFunctions,
     GeometricGrid,
     InverseGrid,
+    LinearGrid,
     PolarPlane,
     apply,
     map_impact_parameters,
@@ -86,16 +98,18 @@ from gradus_tpu_torch.camera import (
     rendergeodesics,
 )
 from gradus_tpu_torch.camera.render import _pixel_velocities
-from gradus_tpu_torch.geometry import DatumPlane, ThinDisc
+from gradus_tpu_torch.geometry import DatumPlane, ShakuraSunyaev, ThinDisc
 from gradus_tpu_torch.integrate import StatusCodes, cuda_solver
 from gradus_tpu_torch.integrate.cuda_solver import (
     CudaTracer,
     cuda_integrate_rays,
     integrate_rays_plain,
 )
+from gradus_tpu_torch.integrate import cuda_graphs
 from gradus_tpu_torch.integrate import solver as lockstep_solver
 from gradus_tpu_torch.integrate.solver import _Problem
 from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs, trace_geodesics
+from gradus_tpu_torch.utils.jvp import jvp as lifted_jvp
 from gradus_tpu_torch import metrics
 from gradus_tpu_torch.lineprofile import BinningMethod, TransferFunctionMethod, binned_flux, lineprofile
 from gradus_tpu_torch.metrics import (
@@ -107,7 +121,8 @@ from gradus_tpu_torch.metrics import (
 from gradus_tpu_torch.corona import BothHemispheres, EvenSampler, LampPostModel, emissivity_profile
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.reverberation import binflux, continuum_time, lag_frequency, lagtransfer
-from gradus_tpu_torch.transfer import integrate_lagtransfer, transferfunctions
+from gradus_tpu_torch.transfer import cunningham_transfer_function, integrate_lagtransfer, transferfunctions
+from gradus_tpu_torch.transfer.solvers import _make_trace_to_disc
 from gradus_tpu_torch.utils import equatorial_project
 
 # the modules, which the package's functions of the same names shadow
@@ -1182,6 +1197,36 @@ def _device_busy_ms(fn):
     return (busy_ns / 1e6 if busy_ns > 0 else None), (kernel_ns / 1e6 if kernel_ns > 0 else None), len(device)
 
 
+def _kernel_counted(fn, dtype, dev):
+    """One call of ``fn`` under the profiler, with the rays, attempted
+    lane-steps and hits of each of B1's launches counted (sums on the card
+    per launch, read once at the end): kernel and busy ms, launches, the
+    counts, and the kernel's bound (`_bound`, Kerr against a DatumPlane)."""
+    counted = []
+
+    def counting(*args, **kw):
+        out = integrate(*args, **kw)
+        counted.append(
+            torch.stack(
+                [torch.tensor(out["attempts"].numel(), device=dev), out["attempts"].sum(), (out["status"] == HIT).sum()]
+            )
+        )
+        return out
+
+    integrate, cuda_solver.cuda_integrate_rays = cuda_solver.cuda_integrate_rays, counting
+    try:
+        busy_ms, kernel_ms, device_events = _device_busy_ms(fn)
+    finally:
+        cuda_solver.cuda_integrate_rays = integrate
+    rays, attempts, hits = (int(v) for v in torch.stack(counted).sum(dim=0))
+    bound_ms, bound_by = _bound("kerr_datum_plane", rays, attempts, hits, dtype)
+    return dict(
+        kernel_ms=kernel_ms, busy_ms=busy_ms, device_events=device_events, counted_launches=len(counted),
+        kernel_rays=rays, attempted_lane_steps=attempts, hits=hits, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=None if kernel_ms is None else bound_ms / kernel_ms,
+    )
+
+
 def phase_ctf_golden(dev):
     """Gradus.jl's test-cunningham.jl edges through the kernel, f64
     (tests/test_transfer.py:32-84): i=60°, ThinDisc(0, 250), bins
@@ -1264,27 +1309,9 @@ def phase_ctf_lineprofile(dev):
     if drift > 1e-3:
         raise AssertionError(f"CTF m1 {m1} drifts {drift} from the f64 CPU value")
     dt = statistics.median(times)
-    # one more profile under the profiler, counting the rays, attempted
-    # steps and hits of every launch for the kernel's bound (sums on the card
-    # per launch, read once at the end)
-    counted = []
-
-    def counting(*args, **kw):
-        out = integrate(*args, **kw)
-        counted.append(
-            torch.stack(
-                [torch.tensor(out["attempts"].numel(), device=dev), out["attempts"].sum(), (out["status"] == HIT).sum()]
-            )
-        )
-        return out
-
-    integrate, cuda_solver.cuda_integrate_rays = cuda_solver.cuda_integrate_rays, counting
-    try:
-        busy_ms, kernel_ms, device_events = _device_busy_ms(profile)
-    finally:
-        cuda_solver.cuda_integrate_rays = integrate
-    rays, attempts, hits = (int(v) for v in torch.stack(counted).sum(dim=0))
-    bound_ms, bound_by = _bound("kerr_datum_plane", rays, attempts, hits, dtype)
+    # one more profile under the profiler, for the kernel's time and bound
+    k = _kernel_counted(profile, dtype, dev)
+    busy_ms, kernel_ms = k["busy_ms"], k["kernel_ms"]
     res = dict(
         seconds_per_profile=dt,
         profile_seconds=times,
@@ -1296,17 +1323,17 @@ def phase_ctf_lineprofile(dev):
         m1=m1,
         m1_drift_vs_f64_cpu=drift,
         nonzero_bins=int((flux > 0).sum()),
-        device_events=device_events,
-        device_events_per_launch=device_events / len(counted),
+        device_events=k["device_events"],
+        device_events_per_launch=k["device_events"] / k["counted_launches"],
         device_busy_ms=busy_ms,
         device_busy_share=None if busy_ms is None else busy_ms / 1e3 / dt,
         kernel_ms=kernel_ms,
-        kernel_rays=rays,
-        attempted_lane_steps=attempts,
-        hits=hits,
-        bound_ms=bound_ms,
-        bound_by=bound_by,
-        bound_share=None if kernel_ms is None else bound_ms / kernel_ms,
+        kernel_rays=k["kernel_rays"],
+        attempted_lane_steps=k["attempted_lane_steps"],
+        hits=k["hits"],
+        bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"],
+        bound_share=k["bound_share"],
     )
     _say("ctf_lineprofile", **res)
     return res, flux_np
@@ -1427,55 +1454,62 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
 
 
 class _Lockstep:
-    """Counts the lockstep iterations `integrate_rays` runs while it is
-    entered (the loop body's calls), and, with ``window``, profiles the
-    card over that many iterations from iteration ``start`` of each call:
-    the busy share of the loop in its steady state."""
+    """Observes the lockstep loops that `integrate_rays` runs while it is
+    entered (`solver.observe_loops`): loops (``calls``), those carrying a
+    tangent (``tangent_calls``), iterations (``iters``), and what their CUDA
+    graphs did (``graph``: captures, replays (one an iteration), the
+    captures' host seconds and reserved bytes); with ``window``,
+    profiles the card over that many iterations from iteration ``start`` of
+    each loop (at the loop's block boundaries): the busy share of the loop
+    in its steady state."""
 
     def __init__(self, window=0, start=256):
         self.window, self.start = window, start
 
     def __enter__(self):
-        self.iters, self.calls, self._make = 0, 0, lockstep_solver._make_body
+        self.calls = self.tangent_calls = self.iters = 0
+        self.graph = dict(captures=0, replays=0, capture_seconds=0.0, capture_reserved_bytes=0)
         self.busy_ms = self.wall_ms = 0.0
         self.device_events = 0
         self._prof = None
-        outer = self
-
-        def make(*args):
-            body = outer._make(*args)
-            outer.calls += 1
-            k = [0]
-
-            def counted(c):
-                if outer.window and k[0] == outer.start:
-                    torch.cuda.synchronize()
-                    outer._prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-                    outer._prof.__enter__()
-                    outer._t0 = time.perf_counter()
-                out = body(c)
-                k[0] += 1
-                outer.iters += 1
-                if outer.window and k[0] == outer.start + outer.window:
-                    torch.cuda.synchronize()
-                    outer.wall_ms += (time.perf_counter() - outer._t0) * 1e3
-                    outer._prof.__exit__(None, None, None)
-                    cuda = torch.autograd.DeviceType.CUDA
-                    events = [
-                        e for e in outer._prof.profiler.kineto_results.events() if e.device_type() == cuda
-                    ]
-                    outer._prof = None
-                    outer.busy_ms += sum(e.duration_ns() for e in events) / 1e6
-                    outer.device_events += len(events)
-                return out
-
-            return counted
-
-        lockstep_solver._make_body = make
+        self._observing = lockstep_solver.observe_loops(self)
+        self._observing.__enter__()
         return self
 
+    def __call__(self, event, **info):
+        if event == "loop":
+            self.calls += 1
+            self.tangent_calls += info["tangent"]
+            self._graphed = info["graphed"]
+        elif event == "capture":
+            self.graph["captures"] += 1
+            self.graph["capture_seconds"] += info["seconds"]
+            self.graph["capture_reserved_bytes"] += info["reserved_bytes"]
+        elif event == "end":
+            self.iters += info["iterations"]
+            if self._graphed:
+                self.graph["replays"] += info["iterations"]
+        if self.window and event in ("block", "end"):
+            self._block(info["iterations"])
+
+    def _block(self, iters):
+        if iters == self.start and self._prof is None:
+            torch.cuda.synchronize()
+            self._prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._t0 = time.perf_counter()
+        elif iters >= self.start + self.window and self._prof is not None:
+            torch.cuda.synchronize()
+            self.wall_ms += (time.perf_counter() - self._t0) * 1e3
+            self._prof.__exit__(None, None, None)
+            cuda = torch.autograd.DeviceType.CUDA
+            events = [e for e in self._prof.profiler.kineto_results.events() if e.device_type() == cuda]
+            self._prof = None
+            self.busy_ms += sum(e.duration_ns() for e in events) / 1e6
+            self.device_events += len(events)
+
     def __exit__(self, *exc):
-        lockstep_solver._make_body = self._make
+        self._observing.__exit__(*exc)
         if self._prof is not None:  # a loop shorter than the window
             self._prof.__exit__(None, None, None)
 
@@ -1511,6 +1545,13 @@ class _NoKernelRoute:
             )
 
 
+def _require_captured(what, steps):
+    """Raises unless every lockstep iteration that ``steps`` counted ran as
+    a CUDA graph replay."""
+    if steps.graph["captures"] < 1 or steps.iters != steps.graph["replays"]:
+        raise AssertionError(f"{what}: the lockstep loop did not run captured: {steps.graph}, {steps.iters} iterations")
+
+
 def _trace_seconds(fn):
     """(fn(), its seconds on the host clock up to a synchronize)."""
     torch.cuda.synchronize()
@@ -1521,9 +1562,10 @@ def _trace_seconds(fn):
 
 
 def _hit_radius_jvp(dev, n, seed=31):
-    """∂r_hit/∂β by `torch.func.jvp` through `trace_geodesics` on ``n`` f64
-    flagship rays at ρ ∈ [8, 20] (outside the critical curve), against a
-    central difference (ε = 1e-3) at the reference's rtol 2e-3
+    """∂r_hit/∂β by `trace_geodesics(..., v_dot=...)` (the tangent carried through the
+    captured loop; the bits of `torch.func.jvp` around `trace_geodesics`)
+    on ``n`` f64 flagship rays at ρ ∈ [8, 20] (outside the critical curve),
+    against a central difference (ε = 1e-3) at the reference's rtol 2e-3
     (tests/test_integrate.py:193)."""
     m, d, x = _flagship(torch.float64, dev)
     rng = np.random.default_rng(seed)
@@ -1536,17 +1578,24 @@ def _hit_radius_jvp(dev, n, seed=31):
         gp = trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d)
         return gp.x[:, 1] * torch.sin(gp.x[:, 2]), gp.status
 
+    def hit_jvp(B):
+        v, v_dot = lifted_jvp(lambda b: map_impact_parameters(m, x, A, b), (B,), (torch.ones_like(B),))
+        gp, gp_dot = trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d, v_dot=v_dot)
+        r, dr = lifted_jvp(lambda X: X[:, 1] * torch.sin(X[:, 2]), (gp.x,), (gp_dot.x,))
+        return r, dr, gp.status
+
     eps = 1e-3
     with _Lockstep() as steps:
-        (r0, dr, s0), seconds = _trace_seconds(
-            lambda: torch.func.jvp(hit, (B0,), (torch.ones_like(B0),), has_aux=True)
-        )
+        (r0, dr, s0), seconds = _trace_seconds(lambda: hit_jvp(B0))
     (rp, sp), (rm, sm) = hit(B0 + eps), hit(B0 - eps)
     ok = (s0 == HIT) & (sp == HIT) & (sm == HIT)
     fd = (rp - rm) / (2 * eps)
     rel = float(((dr - fd).abs() / fd.abs())[ok].max())
-    res = dict(rays=n, hit_in_all_three=int(ok.sum()), max_rel_err=rel, seconds=seconds, iterations=steps.iters)
-    if int(ok.sum()) < n // 2 or not rel <= 2e-3:
+    res = dict(
+        rays=n, hit_in_all_three=int(ok.sum()), max_rel_err=rel, seconds=seconds, iterations=steps.iters,
+        ms_per_iteration=seconds * 1e3 / max(steps.iters, 1), graph=steps.graph,
+    )
+    if int(ok.sum()) < n // 2 or not rel <= 2e-3 or steps.graph["captures"] != 1:
         raise AssertionError(f"∂r_hit/∂β by jvp against the central difference: {res}")
     return res
 
@@ -1589,8 +1638,10 @@ def phase_trace_api(dev, n=8192, n_jvp=64):
             iterations=steps.iters,
             seconds=seconds,
             ms_per_iteration=seconds * 1e3 / max(steps.iters, 1),
+            graph=steps.graph,
         )
         res[name] = r
+        _require_captured(f"trace_api {name}", steps)
         if agree < 0.995 or r["unfinished"]:
             raise AssertionError(f"trace_geodesics {name} against CudaTracer: {r}")
         if name == "f64" and not r["hit_x_max_abs"] <= 1e-5:
@@ -1633,11 +1684,15 @@ def phase_render_api(dev, side=1024):
     pf = ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected()
     camera = dict(alpha_lims=(-28.0, 28.0), beta_lims=(-18.0, 18.0))
     rendergeodesics(m, x, d, SPAN[1], pf=pf, image_width=32, image_height=32, **camera)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with _NoKernelRoute(), _Lockstep(window=64) as steps:
         (_, _, cache), seconds = _trace_seconds(
             lambda: prerendergeodesics(m, x, d, SPAN[1], image_width=side, image_height=side, **camera)
         )
         img, shade_s = _trace_seconds(lambda: apply(pf, cache))
+    peak_bytes = torch.cuda.max_memory_allocated()
+    _require_captured("render_api", steps)
     gp = cache.points
     unfinished = int(((gp.status == StatusCodes.NoStatus) & (gp.lam_max < SPAN[1] - 1e-3)).sum())
     _, _, v = _pixel_velocities(m, x, side, side, camera["alpha_lims"], camera["beta_lims"])
@@ -1656,6 +1711,8 @@ def phase_render_api(dev, side=1024):
         busy_share=steps.busy_share(),
         busy_window=dict(iterations=64, from_iteration=256, busy_ms=steps.busy_ms, wall_ms=steps.wall_ms,
                          device_events=steps.device_events),
+        graph=steps.graph,
+        peak_allocated_bytes=peak_bytes,
         finite_pixels=int(fin.sum()),
         hit_mask_agree=float((fin == fin_k).double().mean()),
         g_median_rel=float(_rel(img[both], img_k[both]).median()),
@@ -1707,6 +1764,7 @@ def phase_binning_api(dev, ctf_flux, side=1000):
     binned(70.0, 50.0, bins, 32, max_re=200.0)  # warm-up
     with _NoKernelRoute(), _Lockstep() as steps, _KeepPoints() as kept:
         flux, seconds = _trace_seconds(lambda: binned(70.0, 50.0, bins, side, max_re=200.0))
+    _require_captured("binning_api", steps)
     gp = kept.points[-1]
     below = int(((gp.status == StatusCodes.OutOfDomain) & (gp.x[:, 1] <= 12000.0)).sum())
     total = float(flux.double().sum())
@@ -1719,6 +1777,7 @@ def phase_binning_api(dev, ctf_flux, side=1000):
         seconds_per_profile=seconds,
         iterations=steps.iters,
         ms_per_iteration=seconds * 1e3 / max(steps.iters, 1),
+        graph=steps.graph,
         flux_sum=total,
         nonzero_bins=int((f > 0).sum()),
         stopped_below_the_plane=below,
@@ -1746,6 +1805,234 @@ def phase_binning_api(dev, ctf_flux, side=1000):
     if abs(res["ctf_config_flux_sum"] - 1.0) > 1e-4 or not res["vs_ctf_median_rel"] <= 2e-2:
         raise AssertionError(f"binned lineprofile against the transfer-function profile: {res}")
     _say("binning_api", **res)
+    return res
+
+
+# --- the lockstep loop's CUDA graph, and the `xla` transfer functions -------------
+
+
+def _graph_ab(fn):
+    """fn() with the lockstep loop captured, then uncaptured
+    (`cuda_graphs(False)`): (captured output, uncaptured output, record of
+    both runs' seconds, iterations, ms an iteration and graph counters)."""
+    rec, outs = {}, []
+    for name, on in (("with_graph", True), ("without_graph", False)):
+        with cuda_graphs(on), _Lockstep() as steps:
+            out, seconds = _trace_seconds(fn)
+        outs.append(out)
+        rec[name] = dict(
+            seconds=seconds, iterations=steps.iters, ms_per_iteration=seconds * 1e3 / max(steps.iters, 1),
+            graph=steps.graph,
+        )
+    return outs[0], outs[1], rec
+
+
+def _same_points(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("status", "x", "v", "lam_max", "x_init", "v_init"))
+
+
+def phase_lockstep_graph(dev, n=8192):
+    """The captured lockstep loop against the uncaptured one, bit for bit:
+    `trace_geodesics` on ``n`` flagship rays (Kerr a = 0.998, r = 1000,
+    i = 75°, ThinDisc(0, 50), λ ≤ 2200) in f64 and f32, and the first
+    forward-mode trace of `continuum_time`'s Newton at r = 10⁴ (one ray,
+    f64: the lamp post's height plane, from the cold start), its tangent
+    too. Seconds, iterations and ms an iteration both ways; the captures'
+    host seconds and reserved bytes."""
+    res = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        m, d, x = _flagship(dtype, dev)
+        rng = np.random.default_rng(30)
+        A = torch.as_tensor(rng.uniform(-28, 28, n), dtype=dtype, device=dev)
+        B = torch.as_tensor(rng.uniform(-18, 18, n), dtype=dtype, device=dev)
+        v = map_impact_parameters(m, x, A, B)
+        got, want, rec = _graph_ab(lambda: trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d))
+        res[name] = dict(rays=n, bit_equal=_same_points(got, want), **rec)
+    m, x = _lag_setup(dev, LAG_X_OBS)
+    x_src, _ = LampPostModel().sample_position_velocity(m)
+    x_src = x_src.to(torch.float64)
+    rho_src = torch.maximum(x_src[1] * torch.sin(x_src[2]), 1e-3 * x_src[1]).reshape(1)
+    plane = DatumPlane(x_src[1] * torch.cos(x_src[2]), device=dev)
+    th = torch.full((1,), math.pi / 2, dtype=torch.float64, device=dev)
+    trace = _make_trace_to_disc(m, x, plane, 2.0 * x[1], th, 0.0, 0.0, 1e-2, {})
+    r0 = torch.clamp(rho_src, min=20.0)
+    (gp, gd), (gp2, gd2), rec = _graph_ab(lambda: trace(r0, torch.ones_like(r0)))
+    res["continuum_jvp_trace"] = dict(rays=1, bit_equal=_same_points(gp, gp2) and _same_points(gd, gd2), **rec)
+    _say("lockstep_graph", **res)
+    bad = {k: r["bit_equal"] for k, r in res.items() if not r["bit_equal"] or r["with_graph"]["graph"]["captures"] != 1}
+    if bad:
+        raise AssertionError(f"the captured lockstep loop against the uncaptured one: {bad}")
+    return res
+
+
+def _binwise_gap(flux, ref, floor):
+    """Median and largest relative gap of ``flux`` to ``ref`` over the bins
+    where ``ref`` ≥ ``floor``."""
+    top = ref >= floor
+    rel = np.abs(flux[top] - ref[top]) / ref[top]
+    return dict(bins_compared=int(top.sum()), median_rel=float(np.median(rel)), max_rel=float(rel.max()))
+
+
+def phase_ctf_xla(dev, num_re=100, N_extrema=15, N=80):
+    """`lineprofile` with the default (``xla``) transfer functions at
+    `bench_ctf`'s configuration (f32, a = 0.998, i = 60°, ThinDisc(0, ∞),
+    ``num_re`` radii × 80 angles, ``N_extrema`` golden-section steps, bins
+    0.1:1.5×180), with no launch of B1: finite, Σ = 1 ± 1e-4, bin by bin
+    within 2% (median over the bins above 1e-3 of the peak) of the
+    ``backend="cuda"`` profile at the same configuration, and at the full
+    configuration (100 radii, 15 steps) m1 within 1e-3 of the JAX package's
+    f64 CPU value. Forward-mode traces, lockstep iterations, ms an
+    iteration and the captures' host seconds."""
+    dtype = torch.float32
+    m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
+    x = torch.tensor(CTF_X_OBS, dtype=dtype, device=dev)
+    d = ThinDisc(0.0, math.inf, dtype=dtype, device=dev)
+    bins = torch.linspace(*CTF_BINS, dtype=dtype, device=dev)
+    kw = dict(bins=bins, num_re=num_re, N=N, N_extrema=N_extrema)
+    with _NoKernelRoute(), _Lockstep() as steps:
+        (_, flux), seconds = _trace_seconds(lambda: lineprofile(m, x, d, **kw))
+    _require_captured("ctf_xla", steps)
+    cuda_flux = lineprofile(m, x, d, backend="cuda", **kw)[1].double().cpu().numpy()
+    f = flux.double().cpu().numpy()
+    m1 = _m1(f, bins.double().cpu().numpy())
+    full = num_re == 100 and N_extrema == 15 and N == 80
+    res = dict(
+        num_re=num_re, angles=N, N_extrema=N_extrema, full_size=full, seconds_per_profile=seconds,
+        seconds_per_radius=seconds / num_re, traces=steps.calls, jvp_traces=steps.tangent_calls,
+        iterations=steps.iters, ms_per_iteration=seconds * 1e3 / max(steps.iters, 1), graph=steps.graph,
+        finite=bool(np.isfinite(f).all()), flux_sum=float(f.sum()), m1=m1, m1_drift_vs_f64_cpu=abs(m1 / M1_F64_CPU - 1.0),
+        vs_cuda_backend=_binwise_gap(f, cuda_flux, 1e-3 * cuda_flux.max()),
+    )
+    _say("ctf_xla", **res)
+    if not (res["finite"] and abs(res["flux_sum"] - 1.0) <= 1e-4 and res["vs_cuda_backend"]["median_rel"] <= 2e-2):
+        raise AssertionError(f"the xla transfer-function line profile: {res}")
+    if full and not res["m1_drift_vs_f64_cpu"] <= 1e-3:
+        raise AssertionError(f"the xla transfer-function line profile's m1: {res}")
+    return res
+
+
+THICK_GOLDEN_JAX = 14.714802  # tests/test_transfer.py:281
+THICK_GOLDEN_GRADUS = 14.64279128586961  # Gradus.jl test-thick-disc.jl
+# the golden's samples from the JAX package and the port, f64 on the CPU
+# (scripts/torch_thick_golden_fma.py --samples)
+THICK_GOLDEN_SAMPLES = Path(__file__).resolve().parent / "tests" / "data" / "thick_golden_samples.json"
+
+
+def _sum_f_split(ok, f, gstar):
+    """Σf over the valid samples, the interior ones (0.01 < g✶ < 0.99) and
+    the rest, with the counts."""
+    valid = ok & np.isfinite(f)
+    interior = valid & (gstar > 0.01) & (gstar < 0.99)
+    return dict(
+        valid=int(ok.sum()), interior=int(interior.sum()), sum_f=float(f[valid].sum()),
+        sum_f_interior=float(f[interior].sum()), sum_f_rest=float(f[valid & ~interior].sum()),
+    )  # fmt: skip
+
+
+# the interior samples' bounds against the CPU runs: ~10× the JAX package's
+# gap to the port's on the CPU (θ 0, g✶ 1.2e-7, t 4.4e-11, f 4.2e-6; f
+# carries |∂(α,β)/∂(ρ,g)| from forward-mode traces 10⁴ long)
+THICK_GOLDEN_RTOL = dict(theta=1e-9, gstar=1e-6, t=1e-9, f=5e-5)
+
+
+def phase_thick_disc_golden(dev):
+    """tests/test_transfer.py::test_thick_disc_ctf_golden through the
+    ``xla`` backend, f64 (Kerr a = 0.998, r = 10⁴, i = 75°,
+    `ShakuraSunyaev.from_metric`, rₑ = 3, β₀ = 2), held where it is well
+    conditioned: the same valid samples as the JAX package's and the port's
+    f64 CPU runs (`THICK_GOLDEN_SAMPLES`), the interior samples' (0.01 < g✶
+    < 0.99) θ, g✶, t and f within `THICK_GOLDEN_RTOL` of both, and Σf
+    within 7e-3 of Gradus.jl's 14.64279 (the JAX test's bound against
+    Gradus.jl). Σf's gap to the JAX package's 14.714802 is recorded, not
+    held: 40% of Σf comes from the 43 samples with g✶ within 0.01 of the
+    extremes, where f is a 0·∞ product that the traces' last bits move
+    (the JAX package's own Σf moves by 4.5e-3 with XLA's fused
+    multiply-adds off, all of it there). Σf split into the interior
+    samples and the rest, on the card and in both CPU runs, shows where a
+    gap lies."""
+    m = KerrMetric(1.0, 0.998, device=dev)
+    x = torch.tensor([0.0, 1e4, math.radians(75.0), 0.0], dtype=torch.float64, device=dev)
+    disc = ShakuraSunyaev.from_metric(m)
+    radii = torch.tensor([3.0], dtype=torch.float64, device=dev)
+    with _NoKernelRoute(), _Lockstep() as steps:
+        (_, samples), golden_s = _trace_seconds(
+            lambda: cunningham_transfer_function(m, x, disc, radii, beta0=2.0, return_samples=True)
+        )
+    _require_captured("thick_disc_golden", steps)
+    card = {k: samples[k][0].cpu().numpy() for k in ("theta", "gstar", "f", "t", "ok")}
+    cpu = {
+        run: {k: np.asarray(v, dtype=bool if k == "ok" else np.float64) for k, v in s.items()}
+        for run, s in json.loads(THICK_GOLDEN_SAMPLES.read_text()).items()
+    }
+    res = dict(card=_sum_f_split(card["ok"], card["f"], card["gstar"]))
+    res.update(
+        {f"{run}_cpu": _sum_f_split(c["ok"], c["f"], c["gstar"]) for run, c in cpu.items()},
+        seconds=golden_s, traces=steps.calls, jvp_traces=steps.tangent_calls, iterations=steps.iters,
+        ms_per_iteration=golden_s * 1e3 / max(steps.iters, 1), graph=steps.graph,
+    )  # fmt: skip
+    total = res["card"]["sum_f"]
+    res.update(vs_jax_rel=total / THICK_GOLDEN_JAX - 1.0, vs_gradus_rel=total / THICK_GOLDEN_GRADUS - 1.0)
+    same_ok, interior_rel = {}, {}
+    for run, c in cpu.items():
+        same_ok[run] = bool(c["ok"].shape == card["ok"].shape and np.array_equal(c["ok"], card["ok"]))
+        if not same_ok[run]:
+            continue
+        interior = c["ok"] & (c["gstar"] > 0.01) & (c["gstar"] < 0.99)
+        interior_rel[run] = {
+            k: float(np.max(np.abs(card[k][interior] / c[k][interior] - 1.0))) for k in THICK_GOLDEN_RTOL
+        }
+    res.update(same_ok_as_cpu=same_ok, interior_max_rel=interior_rel)
+    _say("thick_disc_golden", **res)
+    held = (
+        all(same_ok.values())
+        and res["card"]["interior"] >= 30
+        and all(r[k] <= THICK_GOLDEN_RTOL[k] for r in interior_rel.values() for k in r)
+        and abs(res["vs_gradus_rel"]) <= 7e-3
+    )
+    if not held:
+        raise AssertionError(f"thick-disc golden: {res}")
+    return res
+
+
+def phase_thick_disc(dev, num_re=100, N_extrema=15, N=80, binned_plane=None):
+    """The thick-disc line profile through the ``xla`` transfer functions
+    at full size, f32, at `bench_ctf`'s camera (a = 0.998, i = 60°,
+    r = 1000) for `ShakuraSunyaev.from_metric(m)`: `transferfunctions` at
+    its defaults (100 radii × 80 angles), finite, Σ = 1 ± 1e-4; and against
+    `lineprofile(method=BinningMethod())` on the same disc: at full size,
+    a median gap of at most 5% over the bins holding ≥ 1e-3 of the flux.
+    ``num_re``, ``N_extrema`` and ``N`` cut the line profile's transfer
+    functions, ``binned_plane`` (a `PolarPlane`) the binned profile's rays."""
+    dtype = torch.float32
+    m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
+    x = torch.tensor(CTF_X_OBS, dtype=dtype, device=dev)
+    disc = ShakuraSunyaev.from_metric(m, dtype=dtype)
+    bins = torch.linspace(*CTF_BINS, dtype=dtype, device=dev)
+    with _NoKernelRoute(), _Lockstep() as steps:
+        (_, flux), seconds = _trace_seconds(
+            lambda: lineprofile(m, x, disc, bins=bins, num_re=num_re, N_extrema=N_extrema, N=N)
+        )
+    _require_captured("thick_disc", steps)
+    with _NoKernelRoute(), _Lockstep() as bsteps:
+        (_, binned), binned_s = _trace_seconds(
+            lambda: lineprofile(m, x, disc, bins=bins, method=BinningMethod(), plane=binned_plane)
+        )
+    f, fb = flux.double().cpu().numpy(), binned.double().cpu().numpy()
+    res = dict(
+        num_re=num_re, angles=N, N_extrema=N_extrema, full_size=num_re == 100 and N_extrema == 15 and N == 80,
+        seconds_per_profile=seconds, seconds_per_radius=seconds / num_re,
+        traces=steps.calls, jvp_traces=steps.tangent_calls, iterations=steps.iters,
+        ms_per_iteration=seconds * 1e3 / max(steps.iters, 1), graph=steps.graph,
+        finite=bool(np.isfinite(f).all()), flux_sum=float(f.sum()), m1=_m1(f, bins.double().cpu().numpy()),
+        binned_seconds=binned_s, binned_iterations=bsteps.iters, binned_graph=bsteps.graph,
+        binned_flux_sum=float(fb.sum()), binned_m1=_m1(fb, bins.double().cpu().numpy()),
+        vs_binning_method=_binwise_gap(f, fb, 1e-3),
+    )
+    _say("thick_disc", **res)
+    if not (res["finite"] and abs(res["flux_sum"] - 1.0) <= 1e-4 and abs(res["binned_flux_sum"] - 1.0) <= 1e-4):
+        raise AssertionError(f"thick-disc line profile: {res}")
+    if res["full_size"] and not res["vs_binning_method"]["median_rel"] <= 5e-2:
+        raise AssertionError(f"thick-disc line profile against the binned one: {res}")
     return res
 
 
@@ -1814,6 +2101,7 @@ def phase_emissivity(dev, n_sweep=1000, n_mc=2000):
     res = {}
     with _NoKernelRoute(), _Lockstep(window=64, start=128) as steps:
         prof, seconds = _trace_seconds(lambda: emissivity_profile(m, d, model, n_samples=n_sweep))
+    _require_captured("emissivity sweep", steps)
     n = int(prof.n)
     radii = torch.tensor([10.0, 20.0, 40.0], dtype=torch.float64, device=dev)
     t = prof.coordtime_at(radii).cpu().numpy()
@@ -1841,14 +2129,15 @@ def phase_emissivity(dev, n_sweep=1000, n_mc=2000):
 
 def _tfs_with_kernel(m, x, d, **kw):
     """`transferfunctions(..., backend="cuda")` once timed, with B1's
-    launches, then once more under the profiler for the kernel's time."""
+    launches, then once more under the profiler for the kernel's time and
+    bound (`_kernel_counted`)."""
     before = cuda_solver.KERNEL_LAUNCHES
     tfs, seconds = _trace_seconds(lambda: transferfunctions(m, x, d, backend="cuda", **kw))
     launches = cuda_solver.KERNEL_LAUNCHES - before
     if launches == 0:
         raise AssertionError("the transfer functions did not go through the kernel")
-    busy_ms, kernel_ms, _ = _device_busy_ms(lambda: transferfunctions(m, x, d, backend="cuda", **kw))
-    return tfs, dict(seconds=seconds, launches=launches, kernel_ms=kernel_ms, busy_ms=busy_ms)
+    k = _kernel_counted(lambda: transferfunctions(m, x, d, backend="cuda", **kw), x.dtype, x.device)
+    return tfs, dict(seconds=seconds, launches=launches, **k)
 
 
 def phase_reverberation_golden(dev):
@@ -1870,6 +2159,8 @@ def phase_reverberation_golden(dev):
     prof_iters = steps.iters
     with _NoKernelRoute(), _Lockstep() as steps:
         t0, t0_s = _trace_seconds(lambda: continuum_time(m, x, model))
+    _require_captured("continuum_time", steps)
+    t0_graph = steps.graph
     bins = torch.linspace(0.0, 1.5, 100, dtype=torch.float64, device=dev)
     tbins = torch.linspace(0.0, 100.0, 100, dtype=torch.float64, device=dev)
     flux, integ_s = _trace_seconds(lambda: integrate_lagtransfer(prof, tfs, bins, tbins, t0=t0, n_radii=100))
@@ -1878,7 +2169,7 @@ def phase_reverberation_golden(dev):
     tau131 = float(tau[131])
     res = dict(
         t0=float(t0), t0_seconds=t0_s, t0_newton_iterations=steps.calls - 1, t0_lockstep_iterations=steps.iters,
-        t0_ms_per_iteration=t0_s * 1e3 / max(steps.iters, 1),
+        t0_ms_per_iteration=t0_s * 1e3 / max(steps.iters, 1), t0_graph=t0_graph,
         emissivity_seconds=prof_s, emissivity_iterations=prof_iters, integration_seconds=integ_s,
         transfer_functions=ctf, flux_sum=float(torch.nansum(flux)), freq_sum=float(freq.sum()), tau_131=tau131,
         tau_131_vs_gradus_rel=tau131 / GRADUS_TAU_131 - 1.0, tau_131_vs_jax_rel=tau131 / JAX_TAU_131 - 1.0,
@@ -1921,6 +2212,12 @@ def phase_lag_frequency_full(dev):
         low_frequency_mean_tau=float(low.mean()),
     )
     res["continuum_newton_iterations"] = res["split"]["continuum_time"]["traces"] - 1
+    # the spectrum's transfer functions once more (its default radii), for
+    # B1's time and bound
+    radii = LinearGrid()(float(m.isco()) + 1e-2, 300.0, 100, dtype=torch.float64, device=dev)
+    res["transfer_functions_kernel"] = _kernel_counted(
+        lambda: transferfunctions(m, x, d, radii=radii, backend="cuda"), torch.float64, dev
+    )
     if not (
         launches > 0
         and bool(torch.isfinite(flux[ok]).all())
@@ -2039,10 +2336,15 @@ def phase_profiled_lineprofile(dev, prof):
             lambda: lineprofile(m, x, d, bins=bins, profile=prof, method=TransferFunctionMethod(), backend="cuda")[1]
         )
         launches = cuda_solver.KERNEL_LAUNCHES - before
+        kernel = _kernel_counted(
+            lambda: lineprofile(m, x, d, bins=bins, profile=prof, method=TransferFunctionMethod(), backend="cuda"),
+            dtype, dev,
+        )  # fmt: skip
         fb, ft = fb.double().cpu().numpy(), ft.double().cpu().numpy()
         top = ft > 1e-3 * ft.max()
         r = dict(
             binned_seconds=binned_s, binned_iterations=steps.iters, ctf_seconds=ctf_s, ctf_launches=launches,
+            ctf_kernel=kernel,
             binned_sum=float(fb.sum()), ctf_sum=float(ft.sum()), bins_compared=int(top.sum()),
             median_rel=float(np.median(np.abs(fb[top] - ft[top]) / ft[top])),
         )
@@ -2058,11 +2360,18 @@ def phase_profiled_lineprofile(dev, prof):
 # each lockstep iteration is host dispatch (the card is busy a third of it),
 # and the machine has cores to spare. Each worker runs its phases in order
 # and writes their results to a JSON file.
+#
+# The ``xla`` transfer functions at `bench_ctf`'s full size (~200 captured
+# forward-mode traces a profile, ~20 ms an iteration) take a worker each.
 WORKERS = {
-    "lags_golden": ("reverberation_golden",),
-    "lags_full": ("lag_frequency_full",),
-    "binflux": ("binflux_golden", "lagtransfer_semianalytic", "trace_api"),
-    "corona": ("emissivity", "profiled_lineprofile"),
+    "lags_golden": (("reverberation_golden", {}),),
+    "lags_full": (("lag_frequency_full", {}),),
+    "binflux": (("binflux_golden", {}), ("lagtransfer_semianalytic", {}), ("trace_api", {})),
+    "corona": (("emissivity", {}), ("profiled_lineprofile", {})),
+    "graph": (("lockstep_graph", {}),),
+    "xla_thin": (("ctf_xla", {}),),
+    "xla_thick": (("thick_disc", {}),),
+    "thick_golden": (("thick_disc_golden", {}),),
 }
 _WORKER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_workers"
 
@@ -2074,14 +2383,14 @@ def _worker(name, out_path):
     torch.cuda.set_device(dev)
     _build.load_library()
     results, seconds, prof = {}, {}, None
-    for phase in WORKERS[name]:
+    for phase, kw in WORKERS[name]:
         t0 = time.perf_counter()
         if phase == "emissivity":
             results[phase], prof = phase_emissivity(dev)
         elif phase == "profiled_lineprofile":
             results[phase] = phase_profiled_lineprofile(dev, prof)
         else:
-            results[phase] = globals()[f"phase_{phase}"](dev)
+            results[phase] = globals()[f"phase_{phase}"](dev, **kw)
         seconds[phase] = time.perf_counter() - t0
     Path(out_path).write_text(json.dumps(dict(results=results, seconds=seconds)))
 
@@ -2170,7 +2479,7 @@ def main():
         seconds=seconds,
         total_seconds=time.perf_counter() - t_start,
         concurrent_from_second=t_workers - t_start,
-        workers={name: list(phases) for name, phases in WORKERS.items()},
+        workers={name: [phase for phase, _ in phases] for name, phases in WORKERS.items()},
     )
     # the lockstep solver under trace_geodesics is plain torch, not a kernel
     print(
@@ -2180,12 +2489,26 @@ def main():
                     "source": "gradus_tpu_torch/integrate/solver.py",
                     "reference": "gradus_tpu/integrate/solver.py:417",
                     "kernel_launches": 0,
-                    "trace_f64": {k: trace_api["f64"][k] for k in ("rays", "iterations", "seconds", "ms_per_iteration")},
-                    "trace_f32": {k: trace_api["f32"][k] for k in ("rays", "iterations", "seconds", "ms_per_iteration")},
+                    "cuda_graphs": "one loop body captured a call, replayed an iteration",
+                    "graph_vs_uncaptured": lags["lockstep_graph"],
+                    "trace_f64": {
+                        k: trace_api["f64"][k] for k in ("rays", "iterations", "seconds", "ms_per_iteration", "graph")
+                    },
+                    "trace_f32": {
+                        k: trace_api["f32"][k] for k in ("rays", "iterations", "seconds", "ms_per_iteration", "graph")
+                    },
                     "jvp": trace_api["jvp"],
                     "render": {
                         k: render_api[k]
-                        for k in ("pixels", "seconds_per_render", "iterations", "ms_per_iteration", "busy_share")
+                        for k in (
+                            "pixels",
+                            "seconds_per_render",
+                            "iterations",
+                            "ms_per_iteration",
+                            "busy_share",
+                            "graph",
+                            "peak_allocated_bytes",
+                        )
                     },
                     "binned_profile": {
                         k: binning_api[k] for k in ("rays", "seconds_per_profile", "iterations", "ms_per_iteration")
@@ -2199,8 +2522,12 @@ def main():
                             "t0_newton_iterations",
                             "t0_lockstep_iterations",
                             "t0_ms_per_iteration",
+                            "t0_graph",
                         )
                     },
+                    "ctf_xla": lags["ctf_xla"],
+                    "thick_disc": lags["thick_disc"],
+                    "thick_disc_golden": lags["thick_disc_golden"],
                     "lag_frequency_full": lags["lag_frequency_full"]["split"],
                     "lagtransfer_defaults": lags["binflux_golden"]["defaults"]["traces"],
                     "profiled_binned_profile": {
@@ -2322,8 +2649,13 @@ def main():
                         },
                         "lag_transfer_functions": {
                             "reverberation_golden": lags["reverberation_golden"]["transfer_functions"],
-                            "lag_frequency_full": lags["lag_frequency_full"]["split"]["transferfunctions"],
+                            "lag_frequency_full": {
+                                **lags["lag_frequency_full"]["split"]["transferfunctions"],
+                                **lags["lag_frequency_full"]["transfer_functions_kernel"],
+                            },
                             "lagtransfer_semianalytic": lags["lagtransfer_semianalytic"]["transfer_functions"],
+                            "profiled_lineprofile_f32": lags["profiled_lineprofile"]["f32"]["ctf_kernel"],
+                            "profiled_lineprofile_f64": lags["profiled_lineprofile"]["f64"]["ctf_kernel"],
                         },
                         "ctf_launches_per_profile": ctf["launches_per_profile"],
                         "ctf_device_events_per_launch": ctf["device_events_per_launch"],

@@ -14,8 +14,12 @@ Module paths and public names mirror `gradus_tpu`. This package imports
   (Cunningham transfer functions from a finite-difference Newton solve over
   a `DatumPlane`, then Gauss-Legendre integration), and `binned_flux` over a
   `PolarPlane` traced by `CudaTracer`;
+- the default `xla` transfer functions (the jvp Newton of
+  `transfer/solvers.py` through the lockstep solver), for every disc of
+  `geometry/discs.py`, thick ones through one datum plane per radius;
 - the reference's front door over its lockstep solver, as plain torch on
-  the inputs' device (no kernel; differentiable with `torch.func.jvp`):
+  the inputs' device (no kernel; on the card the loop replays a CUDA graph;
+  forward mode by `torch.func.jvp` on the CPU, by ``v_dot=`` anywhere):
   `integrate_rays`, `trace_geodesics`, `tracegeodesics`,
   `domain_upper_hemisphere`, `rendergeodesics`, `prerendergeodesics`,
   `EndpointRenderCache`, `apply`, and `lineprofile(...,
@@ -63,7 +67,18 @@ from gradus_tpu_torch.corona import (
     tracecorona,
 )
 from gradus_tpu_torch.geodesics import metric_jacobian
-from gradus_tpu_torch.geometry import AbstractAccretionGeometry, DatumPlane, ThinDisc
+from gradus_tpu_torch.geometry import (
+    AbstractAccretionGeometry,
+    CompositeGeometry,
+    DatumPlane,
+    EllipticalDisc,
+    PolishDoughnut,
+    PrecessingDisc,
+    ShakuraSunyaev,
+    ThickDisc,
+    ThinDisc,
+    WarpedThinDisc,
+)
 from gradus_tpu_torch.integrate import (
     CudaTracer,
     GeodesicPoint,
@@ -72,6 +87,7 @@ from gradus_tpu_torch.integrate import (
     domain_upper_hemisphere,
     integrate_rays,
     integrate_rays_plain,
+    cuda_graphs,
     trace_geodesics,
     tracegeodesics,
 )

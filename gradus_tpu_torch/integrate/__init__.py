@@ -4,7 +4,7 @@ from gradus_tpu_torch.integrate.cuda_solver import (
     integrate_rays_plain,
 )
 from gradus_tpu_torch.integrate.points import GeodesicPoint, unpack_solution
-from gradus_tpu_torch.integrate.solver import IntegrationResult, integrate_rays
+from gradus_tpu_torch.integrate.solver import IntegrationResult, cuda_graphs, integrate_rays
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import (
     TraceGeodesic,

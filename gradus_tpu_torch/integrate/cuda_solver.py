@@ -439,12 +439,14 @@ def _check_kernel_config(m, geometry, dtype):
     if geometry is not None and type(geometry) not in (ThinDisc, DatumPlane):
         raise NotImplementedError(
             f"the CUDA integrator takes no geometry, ThinDisc or DatumPlane, not "
-            f"{type(geometry).__name__} (the other geometries are in ROADMAP queue B)"
+            f"{type(geometry).__name__}: the other geometries' component forms are a design "
+            "question in ROADMAP queue B; trace_geodesics takes every geometry"
         )
     if type(geometry) is DatumPlane and geometry.height.dim() != 0:
         raise NotImplementedError(
             "the CUDA integrator takes a DatumPlane of one height; per-ray heights "
-            "(thick-disc transfer functions) are not ported yet (ROADMAP A2)"
+            "(the thick-disc transfer functions) run on the lockstep solver, through "
+            "cunningham_transfer_function(backend='xla'); their kernel form is in ROADMAP queue B"
         )
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"the CUDA integrator takes f32 or f64, not {dtype}")

@@ -18,10 +18,27 @@ run on the card: this is plain torch, not the CUDA integrator kernel
   at step end.
 
 Forward-mode differentiation by `torch.func.jvp` flows through the whole
-loop: nothing in it writes in place, and the only value read on the host is
-the tangent-free ``alive`` mask. (`torch.autograd.forward_ad` does not: the
-loop nests `torch.func.jvp` of the crossing indicator, and torch refuses
-nested forward-mode levels.)
+loop on a CPU tensor: nothing in it writes in place, and the only value read
+on the host is the tangent-free ``alive`` mask. (`torch.autograd.forward_ad`
+does not: the loop nests `torch.func.jvp` of the crossing indicator, and
+torch refuses nested forward-mode levels.) ``y0_dot`` carries the tangent
+explicitly instead: the carry holds plain primal and tangent tensors, and
+each iteration is the lifted jvp (`utils/jvp.py`) of one loop body, which
+gives the same bits as a jvp around the whole loop.
+
+On a CUDA tensor the loop is replayed as a CUDA graph: one loop body
+(primal, or with the explicit tangent) is captured once per call, with the
+carry in static buffers that the body writes back, and each block of
+``_ALIVE_CHECK_EVERY`` iterations is that many replays, until no ray is
+alive or ``max_steps`` is reached; ``alive.any()`` is read on the host
+between blocks, as in the uncaptured loop, so the iteration count and every
+output are the same. (A graph of a whole block of 16 bodies runs the same
+kernels, but its capture costs 16 bodies of Python: ~2 s for a
+forward-mode body, which a Newton of short traces pays once a trace.)
+`cuda_graphs(False)` runs the uncaptured loop
+on the card, the bit-for-bit reference. A capture that fails raises, and a
+carry under a `torch.func` transform on the card raises rather than run
+uncaptured: pass the tangent as ``y0_dot`` (`trace_geodesics(..., v_dot=...)`).
 
 Also here: the PI controller constants, the result record, and the Newton
 polish of the integrator kernel's hits in its output layout (`_polish_hits`).
@@ -29,7 +46,9 @@ polish of the integrator kernel's hits in its output layout (`_polish_hits`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -38,8 +57,9 @@ import torch
 from gradus_tpu_torch.integrate.events import cubic_first_crossing
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tsit5 import hermite_interp, initial_dt, tsit5_step
+from gradus_tpu_torch.utils.jvp import jvp
 
-__all__ = ["integrate_rays", "IntegrationResult"]
+__all__ = ["integrate_rays", "IntegrationResult", "cuda_graphs", "observe_loops"]
 
 # PI step-size controller constants (standard Gustafsson / OrdinaryDiffEq-style)
 _GAMMA = 0.9
@@ -53,6 +73,48 @@ _QOLD_INIT = 1e-4
 # sync). An iteration after the last ray died changes only ``dt``, which is
 # not an output, so every output is the same whatever this is.
 _ALIVE_CHECK_EVERY = 16
+
+# Whether the loop on a CUDA tensor replays a captured body: set by `cuda_graphs`.
+_CUDA_GRAPHS = True
+# The observers of the lockstep loops: set by `observe_loops`.
+_OBSERVERS = ()
+
+
+@contextlib.contextmanager
+def cuda_graphs(enabled: bool = True):
+    """Within the block, the lockstep loop on a CUDA tensor replays a CUDA
+    graph (``enabled``) or runs uncaptured."""
+    global _CUDA_GRAPHS
+    before, _CUDA_GRAPHS = _CUDA_GRAPHS, bool(enabled)
+    try:
+        yield
+    finally:
+        _CUDA_GRAPHS = before
+
+
+@contextlib.contextmanager
+def observe_loops(observer: Callable):
+    """Within the block, every lockstep loop reports to ``observer(event,
+    **info)``: ``"loop"`` as it starts (``tangent``: whether it carries a
+    tangent, ``graphed``: whether it replays a CUDA graph), ``"block"``
+    before each block of iterations and ``"end"`` after the last
+    (``iterations``: those the loop has run so far), and ``"capture"`` once
+    its graph is captured (``seconds`` of host time for the warm-up, the
+    capture and the instantiation; ``reserved_bytes``, the card memory the
+    capture reserved). Instrumentation for measurements: nothing the loop
+    computes depends on it. Observers nest."""
+    global _OBSERVERS
+    before = _OBSERVERS
+    _OBSERVERS = before + (observer,)
+    try:
+        yield observer
+    finally:
+        _OBSERVERS = before
+
+
+def _tell(event: str, **info):
+    for observer in _OBSERVERS:
+        observer(event, **info)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,6 +415,96 @@ def _polish_carry_hits(p: _Problem, cf: dict, y_f, lam_f):
     )
 
 
+_is_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+_DOT = "dot_"  # key prefix of a tangent in the explicit-tangent carry
+
+
+def _tangent_step(body, float_keys):
+    """One iteration of the explicit-tangent loop: the lifted jvp of
+    ``body`` over a carry holding each float entry ``k`` and its tangent
+    ``dot_k``; the integer and boolean entries ride along."""
+
+    def step(c):
+        rest = {k: v for k, v in c.items() if k not in float_keys and not k.startswith(_DOT)}
+
+        def f(primal):
+            out = body({**primal, **rest})
+            return {k: out[k] for k in float_keys}, {k: out[k] for k in rest}
+
+        # a dual may not be a broadcast view
+        primals = {k: c[k].contiguous() for k in float_keys}
+        tangents = {k: c[_DOT + k].contiguous() for k in float_keys}
+        out, out_dot, aux = jvp(f, (primals,), (tangents,), has_aux=True)
+        return {**out, **{_DOT + k: v for k, v in out_dot.items()}, **aux}
+
+    return step
+
+
+def _capture(step, static: dict):
+    """A CUDA graph of one iteration of ``step`` from the carry ``static``,
+    ending with the new carry copied into ``static``."""
+    t0 = time.perf_counter()
+    reserved0 = torch.cuda.memory_reserved(static["alive"].device)
+    # warm-up on a side stream (lazy initialisation stays out of the
+    # capture); the body is out of place, so no buffer changes
+    side = torch.cuda.Stream(static["alive"].device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = step(static)
+        for k, buf in static.items():
+            buf.copy_(c[k])
+    del c
+    _tell(
+        "capture",
+        seconds=time.perf_counter() - t0,
+        reserved_bytes=torch.cuda.memory_reserved(static["alive"].device) - reserved0,
+    )
+    return graph
+
+
+def _graphed(cf: dict) -> bool:
+    """Whether the loop over carry ``cf`` replays a CUDA graph."""
+    return cf["alive"].device.type == "cuda" and _CUDA_GRAPHS
+
+
+def _run_loop(step, cf: dict, max_steps: int):
+    """The reference's ``while any(alive) & iters < max_steps``, with the
+    any() read every _ALIVE_CHECK_EVERY iterations; on a CUDA tensor, unless
+    within `cuda_graphs(False)`, each iteration is a replay of the captured
+    body."""
+    graphed = _graphed(cf)
+    if graphed and any(_is_wrapped(v) for v in cf.values()):
+        raise RuntimeError(
+            "the lockstep loop on a CUDA tensor replays a CUDA graph, which cannot be captured "
+            "under a torch.func transform: pass the tangent explicitly (integrate_rays(..., "
+            "y0_dot=...), trace_geodesics(..., v_dot=...)), or run uncaptured within cuda_graphs(False)"
+        )
+    if graphed:
+        # static buffers: the graph reads the carry from them and writes it back
+        cf = {k: v.clone(memory_format=torch.contiguous_format) for k, v in cf.items()}
+    _tell("loop", tangent=any(k.startswith(_DOT) for k in cf), graphed=graphed)
+    graph = None
+    iters = 0
+    while iters < max_steps and bool(cf["alive"].any()):
+        _tell("block", iterations=iters)
+        block = min(_ALIVE_CHECK_EVERY, max_steps - iters)
+        if graphed:
+            if graph is None:
+                graph = _capture(step, cf)
+            for _ in range(block):
+                graph.replay()
+        else:
+            for _ in range(block):
+                cf = step(cf)
+        iters += block
+    _tell("end", iterations=iters)
+    return cf
+
+
 def integrate_rays(
     f: Callable,
     y0,
@@ -374,7 +526,8 @@ def integrate_rays(
     terminate_on_hit: bool = True,
     n_save: int = 0,
     event_method: str = "cubic",
-) -> IntegrationResult:
+    y0_dot=None,
+):
     """Integrate a batch of rays dy/dλ = f(y) from λ0 to λ1 with events, on
     the device of ``y0``.
 
@@ -402,6 +555,14 @@ def integrate_rays(
     n_save : with n_save > 0, the result's ``traj``/``traj_lam`` hold the
         initial state and the first n_save − 1 accepted steps' states (a ray
         of more steps overwrites the last slot).
+    y0_dot : optional (N, S) tangent of ``y0``. Then the result is a pair
+        (`IntegrationResult`, its tangent along ``y0_dot``: an
+        `IntegrationResult` whose ``y``, ``lam``, ``y0`` and ``lam0`` are
+        tangents and whose integer fields are the primal's), computed with
+        the tangent carried through the loop explicitly; ``n_save`` is not
+        taken then.
+
+    Returns an `IntegrationResult` (a pair with ``y0_dot``).
     """
     if getattr(r_inner, "rs", None) is not None:
         raise NotImplementedError(
@@ -426,20 +587,15 @@ def integrate_rays(
         n_save=n_save,
         event_method=event_method,
     )
-    cf, lam0 = _init_carry(p, y0, lam_span)
     body = _make_body(p, y0.dtype, y0.device)
-
-    # the reference's `while any(alive) & iters < max_steps`, with the
-    # any() read every _ALIVE_CHECK_EVERY iterations
-    iters = 0
-    while iters < p.max_steps and bool(cf["alive"].any()):
-        block = min(_ALIVE_CHECK_EVERY, p.max_steps - iters)
-        for _ in range(block):
-            cf = body(cf)
-        iters += block
+    polish = crossing_fn is not None and terminate_on_hit
+    if y0_dot is not None:
+        return _integrate_with_tangent(p, body, y0, y0_dot, lam_span, polish)
+    cf, lam0 = _init_carry(p, y0, lam_span)
+    cf = _run_loop(body, cf, p.max_steps)
 
     y_f, lam_f = cf["y"], cf["lam"]
-    if crossing_fn is not None and terminate_on_hit:
+    if polish:
         y_f, lam_f = _polish_carry_hits(p, cf, y_f, lam_f)
 
     return IntegrationResult(
@@ -452,4 +608,37 @@ def integrate_rays(
         failed=cf["failed"],
         traj=cf.get("traj"),
         traj_lam=cf.get("traj_lam"),
+    )
+
+
+def _integrate_with_tangent(p: _Problem, body, y0, y0_dot, lam_span, polish: bool):
+    """`integrate_rays` with the tangent of ``y0`` carried explicitly: the
+    lifted jvp of the initial carry, of each loop body and of the polish."""
+    if p.n_save > 0:
+        raise NotImplementedError("integrate_rays(..., y0_dot=...) does not take n_save")
+
+    def init(y):
+        cf, lam0 = _init_carry(p, y, lam_span)
+        floats = {k: v for k, v in cf.items() if v.is_floating_point()}
+        return floats, ({k: v for k, v in cf.items() if k not in floats}, lam0)
+
+    # a dual may not be a broadcast view
+    fl, fl_dot, (rest, lam0) = jvp(init, (y0.contiguous(),), (y0_dot.contiguous(),), has_aux=True)
+    keys = list(fl)
+    cf = {**fl, **{_DOT + k: v for k, v in fl_dot.items()}, **rest}
+    cf = _run_loop(_tangent_step(body, keys), cf, p.max_steps)
+    fl = {k: cf[k].contiguous() for k in keys}
+    fl_dot = {k: cf[_DOT + k].contiguous() for k in keys}
+    rest = {k: v for k, v in cf.items() if k not in fl and not k.startswith(_DOT)}
+    if polish:
+        (y_f, lam_f), (y_dot, lam_dot) = jvp(
+            lambda c: _polish_carry_hits(p, {**c, **rest}, c["y"], c["lam"]), (fl,), (fl_dot,)
+        )
+    else:
+        y_f, lam_f, y_dot, lam_dot = fl["y"], fl["lam"], fl_dot["y"], fl_dot["lam"]
+
+    ints = dict(status=rest["status"], steps=rest["steps"], failed=rest["failed"])
+    return (
+        IntegrationResult(y=y_f, lam=lam_f, y0=y0, lam0=lam0, **ints),
+        IntegrationResult(y=y_dot, lam=lam_dot, y0=y0_dot, lam0=torch.zeros_like(lam0), **ints),
     )

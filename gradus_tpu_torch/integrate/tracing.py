@@ -24,6 +24,7 @@ from gradus_tpu_torch.integrate.points import GeodesicPoint, unpack_solution
 from gradus_tpu_torch.integrate.solver import integrate_rays
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
+from gradus_tpu_torch.utils.jvp import jvp
 
 __all__ = [
     "TraceGeodesic",
@@ -116,6 +117,7 @@ def trace_geodesics(
     checkpointed: bool = False,
     n_segments: int = 64,
     seg_steps: int = 32,
+    v_dot=None,
 ) -> GeodesicPoint:
     """Trace a batch (or a single) geodesic; returns endpoint `GeodesicPoint`s.
 
@@ -123,8 +125,14 @@ def trace_geodesics(
     component of ``v`` is solved from the norm constraint unless
     ``constrain=False``. The trace runs `integrate_rays` on the device of
     ``x``; a metric, geometry or ``v`` on another device raises
-    `ValueError`. It is differentiable in forward mode (`torch.func.jvp`)
-    with respect to the inputs and the metric's parameters.
+    `ValueError`. On a CPU tensor it is differentiable in forward mode
+    (`torch.func.jvp`) with respect to the inputs and the metric's
+    parameters. With ``v_dot``, a tangent of ``v`` (``x`` and the metric
+    held fixed), it returns the pair of the trace and its tangent (the
+    float fields tangents, ``status`` the trace's), the tangent carried
+    through the lockstep loop explicitly (`integrate_rays(..., y0_dot=...)`):
+    the bits of `torch.func.jvp` around the trace, and on a CUDA tensor the
+    derivative whose loop replays a CUDA graph.
 
     ``checkpointed=True`` (the reverse-differentiable segment ladder) is not
     ported yet; ``n_segments`` and ``seg_steps`` belong to it.
@@ -141,8 +149,10 @@ def trace_geodesics(
     single = x.dim() == 1 and v.dim() == 1
     x, v = torch.broadcast_tensors(torch.atleast_2d(x), torch.atleast_2d(v))
 
-    if constrain:
-        v = constrain_all(m, x, v, mu=trace.mu)
+    def start(v):
+        if constrain:
+            v = constrain_all(m, x, v, mu=trace.mu)
+        return torch.cat([x, v], dim=-1)
 
     a_tol, r_tol = _config.default_tols(x.dtype)
     abstol = a_tol if abstol is None else abstol
@@ -166,12 +176,7 @@ def trace_geodesics(
             def hit_fn(y):
                 return geometry.is_hit(y[..., 0:4], gtol=gtol)
 
-    f = make_geodesic_rhs(m, trace)
-    y0 = torch.cat([x, v], dim=-1)
-    result = integrate_rays(
-        f,
-        y0,
-        lam_span,
+    kw = dict(
         abstol=abstol,
         reltol=reltol,
         r_inner=chart_inner,
@@ -183,8 +188,14 @@ def trace_geodesics(
         max_steps=max_steps,
         n_interp=n_interp,
     )
-    gp = unpack_solution(result)
-    return gp[0] if single else gp
+    f = make_geodesic_rhs(m, trace)
+    if v_dot is None:
+        gp = unpack_solution(integrate_rays(f, start(v), lam_span, **kw))
+        return gp[0] if single else gp
+    y0, y0_dot = jvp(start, (v,), (torch.broadcast_to(_as_observer(v_dot, m), v.shape),))
+    res, res_dot = integrate_rays(f, y0, lam_span, y0_dot=y0_dot, **kw)
+    gp, gp_dot = unpack_solution(res), unpack_solution(res_dot)
+    return (gp[0], gp_dot[0]) if single else (gp, gp_dot)
 
 
 def tracegeodesics(m, x, v=None, lam_span=(0.0, 2000.0), **kwargs):

@@ -16,7 +16,18 @@ from gradus_tpu_torch.camera.render import EndpointRenderCache
 from gradus_tpu_torch.config import default_device
 from gradus_tpu_torch.corona.models import BeamedPointSource, DiscCorona, LampPostModel, RingCorona
 from gradus_tpu_torch.corona.profiles import RadialDiscProfile
-from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
+from gradus_tpu_torch.geometry.discs import (
+    CompositeGeometry,
+    DatumPlane,
+    EllipticalDisc,
+    PolishDoughnut,
+    PolishDoughnutFW,
+    PrecessingDisc,
+    ShakuraSunyaev,
+    ThickDisc,
+    ThinDisc,
+    WarpedThinDisc,
+)
 from gradus_tpu_torch.integrate.points import GeodesicPoint
 from gradus_tpu_torch.metrics import (
     BumblebeeMetric,
@@ -38,6 +49,7 @@ from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid
 __all__ = [
     "corona_model_from_numpy",
     "from_numpy",
+    "geometry_from_numpy",
     "geodesic_points_from_numpy",
     "radial_profile_from_numpy",
     "render_cache_from_numpy",
@@ -67,12 +79,25 @@ _KINDS = {
     "KerrSpacetimeFirstOrder": (KerrSpacetimeFirstOrder, ("M", "a")),
     "ThinDisc": (ThinDisc, ("inner_r", "outer_r")),
     "DatumPlane": (DatumPlane, ("height",)),
+    "ShakuraSunyaev": (ShakuraSunyaev, ("mdot_over_edd", "inv_eta", "inner_r")),
+    "EllipticalDisc": (EllipticalDisc, ("inner_r", "semi_major", "semi_minor")),
+    "PolishDoughnutFW": (PolishDoughnutFW, ("rs", "zs", "r_k", "n")),
+}
+
+# the geometries that hold another object: a callable cross-section, an inner
+# disc, a tuple of geometries, or a metric (`geometry_from_numpy`)
+_NESTED_GEOMETRIES = {
+    "WarpedThinDisc": (WarpedThinDisc, ("inner_r", "outer_r")),
+    "ThickDisc": (ThickDisc, ("inner_r", "outer_r")),
+    "PrecessingDisc": (PrecessingDisc, ("beta", "gamma")),
+    "PolishDoughnut": (PolishDoughnut, ("M", "ell", "r_cusp", "inner_r", "outer_r", "z_max")),
+    "CompositeGeometry": (CompositeGeometry, ()),
 }
 
 
 def from_numpy(kind: str, params: dict, *, dtype=torch.float64, device=None):
-    """Build the port's ``kind`` object (a metric, "ThinDisc" or
-    "DatumPlane"; the keys of ``_KINDS``) from a dict of numpy parameters
+    """Build the port's ``kind`` object (a metric, or a geometry that holds
+    numbers only; the keys of ``_KINDS``) from a dict of numpy parameters
     named as the JAX dataclass's fields (a DatumPlane's height may be 0-d or
     (N,)), in ``dtype`` on ``device`` (the card when None)."""
     if kind not in _KINDS:
@@ -82,6 +107,37 @@ def from_numpy(kind: str, params: dict, *, dtype=torch.float64, device=None):
     if missing:
         raise ValueError(f"{kind} needs parameters {sorted(missing)}")
     return cls(*(np.asarray(params[k], np.float64) for k in names), dtype=dtype, device=device)
+
+
+def geometry_from_numpy(kind: str, params: dict, *, dtype=torch.float64, device=None):
+    """Build the port's geometry ``kind`` (a class name of
+    `gradus_tpu_torch.geometry.discs`) from a dict of numpy parameters named
+    as the JAX dataclass's fields, in ``dtype`` on ``device`` (the card when
+    None). What a field holds besides numbers comes as: ``f``, the
+    cross-section of a `ThickDisc` or `WarpedThinDisc`, a callable of torch
+    tensors; ``disc``, the inner disc of a `PrecessingDisc`, and
+    ``metric``, a `PolishDoughnut`'s (or None), each a ``(kind, params)``
+    pair; ``geometries``, a `CompositeGeometry`'s, a sequence of such
+    pairs."""
+    kw = dict(dtype=dtype, device=device)
+    if kind in _KINDS:
+        return from_numpy(kind, params, **kw)
+    if kind not in _NESTED_GEOMETRIES:
+        raise ValueError(f"unknown geometry {kind!r}; expected one of {sorted(set(_KINDS) | set(_NESTED_GEOMETRIES))}")
+    cls, names = _NESTED_GEOMETRIES[kind]
+    missing = set(names) - set(params)
+    if missing:
+        raise ValueError(f"{kind} needs parameters {sorted(missing)}")
+    numbers = {k: np.asarray(params[k], np.float64) for k in names}
+    if kind in ("WarpedThinDisc", "ThickDisc"):
+        return cls(params["f"], **numbers, **kw)
+    if kind == "PrecessingDisc":
+        return cls(geometry_from_numpy(*params["disc"], **kw), **numbers, **kw)
+    if kind == "CompositeGeometry":
+        return cls([geometry_from_numpy(*g, **kw) for g in params["geometries"]])
+    metric = params.get("metric")
+    metric = None if metric is None else from_numpy(*metric, **kw)
+    return cls(**numbers, metric=metric, **kw)
 
 
 def geodesic_points_from_numpy(d: dict, *, device=None) -> GeodesicPoint:

@@ -3,8 +3,10 @@
 Reference: `src/line-profiles.jl`. Two methods:
 - `TransferFunctionMethod` (default): Cunningham transfer functions +
   `integrate_lineprofile` (defaults: bins 0.1:1.5 ×180, minrₑ = isco+1e-2,
-  maxrₑ = 50, numrₑ = 100, h = 2e-8). Pass ``backend="cuda"``: on CUDA
-  tensors its offset solves run the hand-written CUDA integrator.
+  maxrₑ = 50, numrₑ = 100, h = 2e-8). The default ``backend="xla"`` is the
+  jvp Newton through the lockstep solver, which takes every disc, thick
+  ones too; ``backend="cuda"`` (thin discs) runs the offset solves on the
+  hand-written CUDA integrator, minutes faster a profile on the card.
 - `BinningMethod`: trace a polar image plane with `trace_geodesics` (the
   lockstep solver, on the observer position's device) and its
   `domain_upper_hemisphere` terminator, filter disc hits in [minrₑ, maxrₑ],
@@ -68,7 +70,7 @@ def lineprofile(
 ):
     """Returns (bins, flux). Emissivity defaults to ε(r) = r⁻³. With the
     default `TransferFunctionMethod`, ``kwargs`` go to
-    `cunningham_transfer_function` (``backend="cuda"``, ``N``, ...); with
+    `cunningham_transfer_function` (``backend``, ``N``, ...); with
     `BinningMethod`, to `trace_geodesics`, and ``lam_max`` (default 2·r_obs),
     ``plane`` (default a 450×1300 geometric `PolarPlane` to 5·max_re),
     ``redshift_pf`` (default `redshift_pointfunction`) and ``min_re``

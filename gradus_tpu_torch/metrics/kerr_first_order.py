@@ -3,7 +3,7 @@ Carter constants (counterpart of `gradus_tpu/metrics/kerr_first_order.py`'s
 `KerrSpacetimeFirstOrder` and `carter_constants`; reference
 `src/metrics/kerr-metric-first-order.jl`). Its Mino-time tracer,
 `trace_geodesics_first_order`, runs on the plain solver and is not ported
-yet (ROADMAP A2/A10).
+yet (ROADMAP A10).
 """
 
 from __future__ import annotations

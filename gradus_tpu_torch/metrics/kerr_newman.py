@@ -4,8 +4,8 @@ Faraday tensor (counterpart of `gradus_tpu/metrics/kerr_newman.py`; reference
 
 The CUDA integrator takes the metric through its dual numbers
 (`csrc/metrics.cuh`) for uncharged rays, as the JAX kernel does. The
-charged right-hand side that reads `faraday_tensor` runs on the plain solver
-(ROADMAP A2).
+charged right-hand side that reads `faraday_tensor`, for the lockstep
+solver, is not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
 from gradus_tpu_torch.transfer.solvers import (
     find_offset_for_radius,
     impact_parameters_for_radius,
+    offset_jacobian_at,
+    offset_probe,
+    offset_workhorse,
     rtheta_to_alphabeta,
 )
 from gradus_tpu_torch.transfer.cunningham import (

@@ -10,16 +10,20 @@ gmin/gmax, rescales the Jacobian to ∂g✶ and forms
 
 then splits the samples into upper/lower branches and interpolates over g✶.
 
-All radii process all angles at once through the offset solver of
-`transfer/cuda_ctf.py` (the hand-written CUDA integrator on CUDA tensors, its
-plain version on CPU tensors); the golden-section extremal search advances
-every radius in lockstep, and the branches are resampled onto a fixed g✶ grid
-as a dense `TransferBranchGrid` — the reference's `CunninghamTransferGrid`
-(types.jl:14-40).
+All radii process all angles at once through an offset solver; the
+golden-section extremal search advances every radius in lockstep, and the
+branches are resampled onto a fixed g✶ grid as a dense `TransferBranchGrid` —
+the reference's `CunninghamTransferGrid` (types.jl:14-40). Two backends, as
+in the JAX package:
 
-Only ``backend="cuda"`` is ported. The JAX package's default ``"xla"``
-backend differentiates through the plain lockstep solver, which is not
-ported yet (ROADMAP queue A, item 2); it raises `NotImplementedError`.
+- ``"xla"``, the default: the jvp Newton of `transfer/solvers.py` through the
+  lockstep solver (plain torch on the observer's device; on the card its
+  loop replays CUDA graphs). It takes thin discs, any other geometry, and
+  thick discs through one datum plane per radius, with the visibility
+  re-trace against the real disc.
+- ``"cuda"`` (the JAX package's ``"pallas"``): the finite-difference Newton
+  of `transfer/cuda_ctf.py` on the hand-written CUDA integrator (its plain
+  version on CPU tensors). Thin discs only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
+from gradus_tpu_torch.geometry.discs import AbstractThickAccretionDisc, DatumPlane, ThinDisc, datumplane
 from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
+from gradus_tpu_torch.transfer.solvers import offset_jacobian_at, offset_probe, offset_workhorse
 
 __all__ = [
     "TransferBranchGrid",
@@ -41,6 +46,7 @@ __all__ = [
     "interpolated_transfer_branches",
     "g_to_gstar",
     "gstar_to_g",
+    "disc_solver_tile",
 ]
 
 _GR = 0.6180339887498949
@@ -164,10 +170,10 @@ def _golden_scan(radii, theta_offset, warm0, *, N_extrema, probe_fn, warm_start=
     warm-started from the previous probe's offset.
 
     ``probe_fn(r_targets, θ, warm) → (r_off, g, t, ok)`` is the solver's
-    probe (`CudaCTFSolver.probe_fn`); the JAX package's default, the jvp
-    `offset_probe`, waits for the plain solver (ROADMAP queue A, item 2).
-    Returns (θ, r_off, g, t, ok) stacked (N_extrema+2, 2, nr) — the probe
-    trajectory of the reference's sequential Optim.jl GoldenSection
+    probe (`offset_probe` for the ``xla`` backend, `CudaCTFSolver.probe_fn`
+    for ``cuda``); a NaN warm start is a cold one. Returns (θ, r_off, g, t,
+    ok) stacked (N_extrema+2, 2, nr) — the probe trajectory of the
+    reference's sequential Optim.jl GoldenSection
     (`_search_extremal!`, cunningham-transfer-functions.jl:391-430)."""
     nr = radii.shape[0]
     kw = dict(dtype=radii.dtype, device=radii.device)
@@ -209,6 +215,59 @@ def _golden_scan(radii, theta_offset, warm0, *, N_extrema, probe_fn, warm_start=
     return tuple(torch.stack(col) for col in zip(*probes))
 
 
+class _XlaSolver:
+    """The ``xla`` backend's offset solver, in the three operations the
+    assembly takes (`CudaCTFSolver`'s interface): the jvp Newton of
+    `transfer/solvers.py` over ``disc`` (one height, or one per radius of a
+    thick disc, which `disc_solver_tile` and `_tile` lay out for a batch)."""
+
+    def __init__(self, m, x, disc, jacobian_disc, verify_disc, *, lam_max, zero_atol, newton_iters, alpha0, beta0):
+        self.m, self.x, self.disc = m, x, disc
+        self.common = dict(lam_max=lam_max, alpha0=alpha0, beta0=beta0)
+        self.jac = dict(jacobian_disc=jacobian_disc, verify_disc=verify_disc)
+        self.newton = dict(zero_atol=zero_atol, max_iter=newton_iters)
+
+    def workhorse(self, r_targets, thetas, r_init=None):
+        per_radius = r_targets.shape[0] // _n_heights(self.disc)
+        return offset_workhorse(
+            self.m, self.x, disc_solver_tile(self.disc, per_radius), r_targets, thetas,
+            r_init=r_init, return_r_off=True, **self.common, **self.jac, **self.newton,
+        )  # fmt: skip
+
+    def probe_fn(self, r_targets, thetas, warm):
+        return offset_probe(
+            self.m, self.x, _tile(self.disc, 2), r_targets, thetas, r_init=warm, **self.common, **self.newton
+        )
+
+    def jacobian_at(self, r_targets, thetas, r_off):
+        per_radius = r_targets.shape[0] // _n_heights(self.disc)
+        return offset_jacobian_at(
+            self.m, self.x, disc_solver_tile(self.disc, per_radius), r_targets, thetas, r_off,
+            **self.common, **self.jac,
+        )  # fmt: skip
+
+
+def _n_heights(disc):
+    return disc.height.shape[0] if isinstance(disc, DatumPlane) and disc.height.dim() == 1 else 1
+
+
+def _tile(disc, k):
+    """A disc whose per-ray heights match a (k·nr,) flat [k, nr] batch
+    (the reference's ``_tiled_disc``)."""
+    if isinstance(disc, DatumPlane) and disc.height.dim() == 1:
+        return DatumPlane(disc.height.repeat(k), dtype=disc.height.dtype, device=disc.height.device)
+    return disc
+
+
+def disc_solver_tile(disc, N):
+    """Per-radius datum planes repeated across the angle axis: the heights of
+    an (nr·N,) flat [nr, N] batch."""
+    if isinstance(disc, DatumPlane) and disc.height.dim() == 1:
+        h = disc.height.repeat_interleave(N)
+        return DatumPlane(h, dtype=h.dtype, device=h.device)
+    return disc
+
+
 def cunningham_transfer_function(
     m: AbstractMetric,
     x,
@@ -223,6 +282,7 @@ def cunningham_transfer_function(
     h_reg: float = 1e-4,
     h_resample: float = 1e-3,
     zero_atol: float = 1e-7,
+    newton_iters: int | None = None,
     lam_max=None,
     alpha0: float = 0.0,
     beta0: float = 0.0,
@@ -233,17 +293,18 @@ def cunningham_transfer_function(
 ) -> TransferBranchGrid:
     """Compute transfer functions for an array of emission radii at once.
 
-    ``backend="cuda"`` (the JAX package's ``"pallas"``) solves the offsets
-    through `CudaCTFSolver`; ``cuda_opts`` are its keyword arguments. Thin
-    discs are promoted to an equatorial `DatumPlane` for the offset solve
-    (reference `_promote_disc_for_transfer_functions`, :1-5); a `DatumPlane`
-    of one height is taken as it is."""
-    if backend != "cuda":
-        raise NotImplementedError(
-            f"backend={backend!r}: only backend='cuda' is ported; the 'xla' backend, "
-            "a jvp Newton through the lockstep solver, is not ported yet (ROADMAP "
-            "queue A, item 2.1)"
-        )
+    ``backend="xla"`` (the default) solves the offsets by the jvp Newton of
+    `transfer/solvers.py` (``newton_iters`` iterations at most, 30 when
+    None); ``backend="cuda"`` (the JAX package's ``"pallas"``) through
+    `CudaCTFSolver`, whose keyword arguments are ``cuda_opts`` (its Newton
+    bound is ``cuda_opts["max_iter"]``: ``newton_iters`` raises there rather
+    than be ignored). Thin discs are
+    promoted to an equatorial `DatumPlane` for the offset solve (reference
+    `_promote_disc_for_transfer_functions`, :1-5); a thick disc is solved
+    against one datum plane per radius at its cross-section height, then
+    re-traced against the disc itself for visibility (``"xla"`` only)."""
+    if backend not in ("xla", "cuda"):
+        raise ValueError(f"backend must be 'xla' or 'cuda', not {backend!r}")
     x = _as_observer(x, m)
     kw = dict(dtype=x.dtype, device=x.device)
     radii = torch.atleast_1d(torch.as_tensor(radii, **kw))
@@ -251,17 +312,16 @@ def cunningham_transfer_function(
     if lam_max is None:
         lam_max = 2.0 * x[1]
 
+    thick = isinstance(d, AbstractThickAccretionDisc)
     if isinstance(d, ThinDisc):
-        disc = DatumPlane(0.0, **kw)
-    elif isinstance(d, DatumPlane) and d.height.dim() == 0:
-        disc = d
+        disc_solver = DatumPlane(0.0, **kw)
+        jacobian_disc, verify_disc = disc_solver, None
+    elif thick:
+        # one datum plane per radius, at the disc's height there
+        disc_solver = datumplane(d, radii)
+        jacobian_disc, verify_disc = d, d
     else:
-        raise NotImplementedError(
-            "backend='cuda' supports thin discs (a DatumPlane of one height) "
-            f"only, not {type(d).__name__}"
-            + (" with per-ray heights" if isinstance(d, DatumPlane) else "")
-            + "; thick discs need the 'xla' backend (ROADMAP queue A, item 2)"
-        )
+        disc_solver, jacobian_disc, verify_disc = d, d, None
 
     thetas0 = _theta_samples(N, theta_offset, **kw)
 
@@ -270,8 +330,10 @@ def cunningham_transfer_function(
     RE = radii[:, None].expand(nr, N)
     # Warm start of the lockstep Newton: the flat-space image of the emission
     # ring, the ellipse r(θ) = rₑ·cos i / √(cos²i·cos²θ + sin²θ), plus an O(M)
-    # light-bending lift that peaks on the far side (θ ≈ π/2). The JAX
-    # package's "pallas" branch passes it in f32 and f64 alike (:385-389).
+    # light-bending lift that peaks on the far side (θ ≈ π/2). The ``cuda``
+    # backend takes it in f32 and f64 alike, as the JAX package's "pallas"
+    # branch does (:385-389); the ``xla`` backend in f32 only: in f64 the
+    # cold reference start is kept, as in the JAX package (:338-356).
     inc = x[2]
     cos_i = torch.cos(inc)
     sin2 = torch.sin(TH) ** 2
@@ -279,20 +341,45 @@ def cunningham_transfer_function(
     bend = 1.0 + torch.sin(inc) * torch.clamp(torch.sin(TH), min=0.0)
     r_init = (ellipse + bend).reshape(-1)
 
-    from gradus_tpu_torch.transfer.cuda_ctf import get_cuda_ctf_solver
+    if backend == "cuda":
+        if newton_iters is not None:
+            raise TypeError("newton_iters bounds the 'xla' backend's Newton; backend='cuda' takes cuda_opts['max_iter']")
+        if not (isinstance(disc_solver, DatumPlane) and disc_solver.height.dim() == 0):
+            raise NotImplementedError(
+                "backend='cuda' supports thin discs (a DatumPlane of one height) "
+                f"only, not {type(d).__name__}"
+                + (" with per-ray heights" if isinstance(d, DatumPlane) else "")
+                + "; thick discs use the default 'xla' backend"
+            )
+        from gradus_tpu_torch.transfer.cuda_ctf import get_cuda_ctf_solver
 
-    solver = get_cuda_ctf_solver(
-        m,
-        x,
-        disc,
-        lam_max=float(lam_max),
-        alpha0=float(alpha0),
-        beta0=float(beta0),
-        zero_atol=float(zero_atol),
-        dtype=x.dtype,
-        device=x.device,
-        **(cuda_opts or {}),
-    )
+        solver = get_cuda_ctf_solver(
+            m,
+            x,
+            disc_solver,
+            lam_max=float(lam_max),
+            alpha0=float(alpha0),
+            beta0=float(beta0),
+            zero_atol=float(zero_atol),
+            dtype=x.dtype,
+            device=x.device,
+            **(cuda_opts or {}),
+        )
+    else:
+        solver = _XlaSolver(
+            m,
+            x,
+            disc_solver,
+            jacobian_disc,
+            verify_disc,
+            lam_max=lam_max,
+            zero_atol=zero_atol,
+            newton_iters=30 if newton_iters is None else newton_iters,
+            alpha0=alpha0,
+            beta0=beta0,
+        )
+        if x.dtype != torch.float32:
+            r_init = None
     g_s, J_s, t_s, ok_s, roff_s, cond_s = (
         v.reshape(nr, N)
         for v in solver.workhorse(RE.reshape(-1), _avoid_poles(TH.reshape(-1)), r_init=r_init)

@@ -111,7 +111,8 @@ def make_transfer_function_table(
     """Precompute grids over the (a, θ_obs[deg]) lattice (reference
     `make_transfer_function_table`). The metrics and observers are made in
     ``dtype`` on ``device`` (the card when None); ``kwargs`` go to `cunningham_transfer_function`
-    (``backend="cuda"`` is the ported backend)."""
+    (``backend="cuda"``, the finite-difference Newton on the CUDA
+    integrator, is the faster of the two backends on the card)."""
     from gradus_tpu_torch.camera.grids import InverseGrid
     from gradus_tpu_torch.orbits.special_radii import isco as _isco
 

@@ -1,6 +1,8 @@
 """Time `continuum_time` on the card with the offset solver's derivative
 taken by plain `torch.func.jvp` and by the lifted jvp of
-`gradus_tpu_torch/utils/jvp.py`, in one process, one after the other.
+`gradus_tpu_torch/utils/jvp.py`, in one process, one after the other, with
+the lockstep loop uncaptured (`cuda_graphs(False)`: the two differ in host
+time, which a CUDA graph does not spend).
 
 Configuration: Gradus.jl's reverberation smoke test (Kerr a = 0.998,
 observer at r = 10⁴ and i = 45°, `LampPostModel()`), f64. Prints the card's
@@ -34,26 +36,6 @@ from gradus_tpu_torch.utils import jvp as lifted  # noqa: E402
 VARIANTS = {"plain": torch.func.jvp, "lifted": lifted.jvp}
 
 
-def _counted():
-    """Patches the lockstep solver to count its loop bodies (traces) and
-    their iterations; returns the counts and the patch's undo."""
-    counts = dict(traces=0, iterations=0)
-    make = solver._make_body
-
-    def counting(*args):
-        body = make(*args)
-        counts["traces"] += 1
-
-        def step(c):
-            counts["iterations"] += 1
-            return body(c)
-
-        return step
-
-    solver._make_body = counting
-    return counts, lambda: setattr(solver, "_make_body", make)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--r", type=float, default=1e4)
@@ -74,17 +56,22 @@ def main():
     m = KerrMetric(1.0, 0.998, device=dev)
     x = torch.tensor([0.0, args.r, math.radians(45.0), 0.0], dtype=torch.float64, device=dev)
     for name in args.order.split(","):
-        solvers.jvp = VARIANTS[name]
-        counts, undo = _counted()
+        solvers.jvp = solver.jvp = VARIANTS[name]
+        ends = []  # the iterations of each lockstep loop
+
+        def observe(event, **info):
+            if event == "end":
+                ends.append(info["iterations"])
+
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            t = float(continuum_time(m, x, LampPostModel()))
+            with solver.cuda_graphs(False), solver.observe_loops(observe):
+                t = float(continuum_time(m, x, LampPostModel()))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         finally:
-            undo()
-            solvers.jvp = lifted.jvp
+            solvers.jvp = solver.jvp = lifted.jvp
         print(
             json.dumps(
                 dict(
@@ -92,9 +79,9 @@ def main():
                     r_obs=args.r,
                     t0=repr(t),
                     seconds=seconds,
-                    newton_iterations=counts["traces"] - 1,
-                    lockstep_iterations=counts["iterations"],
-                    ms_per_iteration=seconds * 1e3 / max(counts["iterations"], 1),
+                    newton_iterations=len(ends) - 1,
+                    lockstep_iterations=sum(ends),
+                    ms_per_iteration=seconds * 1e3 / max(sum(ends), 1),
                 )
             ),
             flush=True,

@@ -32,7 +32,7 @@ from gradus_tpu.integrate.pallas_solver import PallasTracer, pallas_integrate_ra
 from gradus_tpu.metrics import KerrMetric as JaxKerr  # noqa: E402
 from gradus_tpu.transfer.pallas_ctf import PallasCTFSolver  # noqa: E402
 
-from gradus_tpu_torch.geometry import DatumPlane, ThinDisc  # noqa: E402
+from gradus_tpu_torch.geometry import DatumPlane, ShakuraSunyaev, ThinDisc  # noqa: E402
 from gradus_tpu_torch.integrate.cuda_solver import (  # noqa: E402
     CudaTracer,
     _check_kernel_config,
@@ -172,7 +172,9 @@ def test_cuda_path_refuses_what_it_does_not_take(case):
     radii = torch.tensor([5.0], dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         if case == "xla_backend":
-            cunningham_transfer_function(m, x, ThinDisc(0.0, math.inf, device="cpu"), radii, N=5, backend="xla")
+            # a thick disc, which only the 'xla' backend takes
+            disc = ShakuraSunyaev.from_metric(m)
+            cunningham_transfer_function(m, x, disc, radii, N=5, backend="cuda")
         elif case == "per_ray_heights_ctf":
             cunningham_transfer_function(m, x, DatumPlane([0.1, 0.2], device="cpu"), radii, N=5, backend="cuda")
         else:
@@ -199,8 +201,9 @@ def test_solver_cache_keys_dtype_and_device():
 
 @pytest.mark.parametrize("option", ["tile_rows", "interpret", "newton_iters"])
 def test_options_the_port_does_not_read_are_refused(option):
-    """The TPU kernel's tile options and the 'xla' backend's Newton bound are
-    no keyword of the port: passing one fails instead of being ignored."""
+    """The TPU kernel's tile options are no keyword of the port, and the
+    'xla' backend's Newton bound is none of backend='cuda': passing one
+    fails instead of being ignored."""
     m = KerrMetric(1.0, A_SPIN, device="cpu")
     x = torch.as_tensor(X_OBS)
     with pytest.raises(TypeError):

@@ -430,8 +430,11 @@ def test_lag_frequency_on_the_card_matches_the_cpu(dev):
 def test_lifted_jvp_matches_torch_func_jvp_on_the_card(dev):
     """`utils/jvp.py::jvp` against `torch.func.jvp` through `trace_geodesics`
     on the card: 16 rays from r = 50 at i = 75° (a = 0.998, ThinDisc(0, 50),
-    λ ≤ 120), differentiated by β; outputs and tangents equal bit for bit."""
-    from gradus_tpu_torch.integrate import trace_geodesics
+    λ ≤ 120), differentiated by β; outputs and tangents equal bit for bit.
+    Both transforms wrap the whole loop, so it runs uncaptured
+    (`cuda_graphs(False)`): a CUDA graph cannot be captured under a
+    `torch.func` transform."""
+    from gradus_tpu_torch.integrate import cuda_graphs, trace_geodesics
     from gradus_tpu_torch.utils.jvp import jvp
 
     m = KerrMetric(1.0, 0.998, device=dev)
@@ -447,7 +450,8 @@ def test_lifted_jvp_matches_torch_func_jvp_on_the_card(dev):
         return gp.x, gp.v
 
     B = rho * torch.sin(phi)
-    a = torch.func.jvp(trace, (B,), (torch.ones_like(B),))
-    b = jvp(trace, (B,), (torch.ones_like(B),))
+    with cuda_graphs(False):
+        a = torch.func.jvp(trace, (B,), (torch.ones_like(B),))
+        b = jvp(trace, (B,), (torch.ones_like(B),))
     for u, w in zip(a[0] + a[1], b[0] + b[1]):
         assert torch.equal(u.isnan(), w.isnan()) and torch.equal(u.nan_to_num(), w.nan_to_num())

@@ -32,7 +32,7 @@ from gradus_tpu.geometry import ThinDisc as JaxThinDisc  # noqa: E402
 from gradus_tpu.metrics import KerrMetric as JaxKerr  # noqa: E402
 
 import gradus_tpu_torch.corona as tc  # noqa: E402
-from gradus_tpu_torch.geometry import ThinDisc  # noqa: E402
+from gradus_tpu_torch.geometry import ShakuraSunyaev, ThinDisc  # noqa: E402
 from gradus_tpu_torch.integrate import cuda_solver  # noqa: E402
 from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
 
@@ -137,8 +137,9 @@ def test_lag_frequency_matches_jax(runs):
 
 
 def test_unported_lag_paths_raise():
-    """Time-dependent profiles (A9, second half) and the `xla` transfer
-    functions (A2) raise before any trace."""
+    """Time-dependent profiles (A9, second half) and the `cuda` transfer
+    functions of a thick disc (whose kernel form is in ROADMAP queue B)
+    raise before any trace."""
     m = KerrMetric(1.0, A_SPIN, device="cpu")
     x = torch.tensor(X_OBS, dtype=torch.float64)
 
@@ -153,5 +154,7 @@ def test_unported_lag_paths_raise():
             port_rev.lag_frequency(m, x, ThinDisc(0.0, math.inf, device="cpu"), tc.LampPostModel())
     finally:
         port_rev.emissivity_profile = orig
-    with pytest.raises(NotImplementedError, match="A2|item 2"):
-        port_rev.transferfunctions(m, x, ThinDisc(0.0, math.inf, device="cpu"), radii=torch.tensor([4.0, 8.0], dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="thick discs"):
+        port_rev.transferfunctions(
+            m, x, ShakuraSunyaev.from_metric(m), radii=torch.tensor([4.0, 8.0], dtype=torch.float64), backend="cuda"
+        )

@@ -37,7 +37,7 @@ import gradus_tpu_torch.camera.grids as grids  # noqa: E402
 from gradus_tpu_torch.corona import DiscCorona, RingCorona, emissivity_profile  # noqa: E402
 from gradus_tpu_torch.camera.planes import CartesianPlane, PolarPlane  # noqa: E402
 from gradus_tpu_torch.geodesics.equation import metric_jacobian  # noqa: E402
-from gradus_tpu_torch.geometry import DatumPlane  # noqa: E402
+from gradus_tpu_torch.geometry import DatumPlane, ShakuraSunyaev  # noqa: E402
 from gradus_tpu_torch.integrate.points import GeodesicPoint  # noqa: E402
 from gradus_tpu_torch.lineprofile import BinningMethod, binned_flux, lineprofile  # noqa: E402
 from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
@@ -331,7 +331,8 @@ def test_unported_line_profile_paths_raise(case):
         elif case == "axis_name":
             binned_flux(m, None, None, None, None, min_re=1, max_re=2, lam_max=1, redshift_pf=None, axis_name="i")
         else:
-            lineprofile(m, x, d)  # the JAX package's default backend is "xla"
+            # a thick disc's transfer functions, on the backend that refuses it
+            lineprofile(m, x, ShakuraSunyaev.from_metric(m), backend="cuda")
 
 
 def test_transfer_grid_interop_round_trip():

@@ -1,0 +1,267 @@
+"""The lockstep solver's loop with the tangent carried explicitly, and
+replayed as a CUDA graph.
+
+On the CPU, in f64: `trace_geodesics(..., v_dot=...)` (the tangent carried through the
+loop, one lifted jvp of the loop body an iteration) against
+`torch.func.jvp` around the whole uncaptured `trace_geodesics`, bit for
+bit, on 64 flagship rays; and the replay bookkeeping of `_run_loop` (static
+buffers, one replay an iteration in blocks of 16, a shorter last block, the
+alive check, the events it reports to an observer), with a stand-in for the
+captured graph that runs the body it was given.
+
+Marked `cuda` (they skip without a card): the captured loop against the
+uncaptured one (`cuda_graphs(False)`), bit for bit, for a primal and a jvp
+trace, every metric class and every geometry of the port; and a
+`torch.func` transform around a captured loop raises.
+
+    python -m pytest --noconftest -m cuda tests/test_torch_lockstep_graph.py
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import gradus_tpu_torch.geometry.discs as td  # noqa: E402
+import gradus_tpu_torch.integrate.solver as solver  # noqa: E402
+from gradus_tpu_torch import metrics  # noqa: E402
+from gradus_tpu_torch.camera import map_impact_parameters  # noqa: E402
+from gradus_tpu_torch.integrate import StatusCodes, cuda_graphs, trace_geodesics  # noqa: E402
+from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
+from gradus_tpu_torch.utils.jvp import jvp  # noqa: E402
+
+SPAN = (0.0, 2200.0)
+X_FLAGSHIP = [0.0, 1000.0, math.radians(75.0), 0.0]
+
+
+def _flagship(dev, dtype, n, seed=3):
+    """``n`` flagship rays (Kerr a = 0.998, r = 1000, i = 75°) at impact
+    parameters through ThinDisc(0, 50)'s image, and that disc."""
+    rng = np.random.default_rng(seed)
+    m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
+    x = torch.tensor(X_FLAGSHIP, dtype=dtype, device=dev)
+    A = torch.as_tensor(rng.uniform(-25.0, 25.0, n), dtype=dtype, device=dev)
+    B = torch.as_tensor(rng.uniform(-15.0, 15.0, n), dtype=dtype, device=dev)
+    return m, x, A, B, td.ThinDisc(0.0, 50.0, dtype=dtype, device=dev)
+
+
+def _hit_x(m, x, A, d):
+    def of(b):
+        v = map_impact_parameters(m, x, A, b)
+        return trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d).x
+
+    return of
+
+
+def test_explicit_tangent_loop_matches_jvp_of_the_whole_loop():
+    """64 flagship rays, f64: the endpoints and their tangents ∂x/∂β from
+    `trace_geodesics(..., v_dot=...)` equal those of `torch.func.jvp` (lifted) around
+    the whole uncaptured trace, bit for bit; the endpoints also equal the
+    primal trace's."""
+    m, x, A, B, d = _flagship("cpu", torch.float64, 64)
+    ones = torch.ones_like(B)
+    x_whole, dx_whole = jvp(_hit_x(m, x, A, d), (B,), (ones,))
+    v, v_dot = jvp(lambda b: map_impact_parameters(m, x, A, b), (B,), (ones,))
+    gp, gp_dot = trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d, v_dot=v_dot)
+    assert torch.equal(gp.x, x_whole)
+    assert torch.equal(gp_dot.x, dx_whole)
+    assert torch.equal(gp.x, _hit_x(m, x, A, d)(B))
+    assert torch.isfinite(dx_whole).all() and (gp.status == StatusCodes.IntersectedWithGeometry).sum() > 20
+
+
+class _Events(list):
+    """An observer of the lockstep loops that keeps every event."""
+
+    def __call__(self, event, **info):
+        self.append((event, info))
+
+
+class _Replayed:
+    """A stand-in for a captured body on the CPU: replay runs the body and
+    writes the carry back; ``replays`` counts the replays of all of them."""
+
+    replays = 0
+
+    def __init__(self, step, static):
+        self.step, self.static = step, static
+
+    def replay(self):
+        _Replayed.replays += 1
+        c = self.step(self.static)
+        for k, buf in self.static.items():
+            buf.copy_(c[k])
+
+
+@pytest.mark.parametrize("max_steps", [40000, 70, 16])
+def test_replay_bookkeeping_matches_the_uncaptured_loop(monkeypatch, max_steps):
+    """`_run_loop`'s replay path (static buffers, blocks of 16 replays, a
+    shorter last block when ``max_steps`` is not a multiple of 16) gives
+    the uncaptured loop's outputs bit for bit, and counts its replays."""
+    m, x, A, B, d = _flagship("cpu", torch.float64, 32, seed=4)
+    v = map_impact_parameters(m, x, A, B)
+    kw = dict(geometry=d, max_steps=max_steps)
+    want = trace_geodesics(m, x.expand_as(v), v, SPAN, **kw)
+    monkeypatch.setattr(solver, "_graphed", lambda cf: True)
+    monkeypatch.setattr(solver, "_capture", _Replayed)
+    monkeypatch.setattr(_Replayed, "replays", 0)
+    events = _Events()
+    with solver.observe_loops(events):
+        got = trace_geodesics(m, x.expand_as(v), v, SPAN, **kw)
+    for f in ("status", "x", "v", "lam_max"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert [e for e, _ in events if e == "loop"] == ["loop"]
+    assert events[0] == ("loop", dict(tangent=False, graphed=True))
+    starts = [i["iterations"] for e, i in events if e == "block"]
+    (end,) = [i["iterations"] for e, i in events if e == "end"]
+    assert starts == list(range(0, end, 16)) and end <= max_steps
+    assert _Replayed.replays == end
+    if max_steps == 70:
+        assert end == 70
+
+
+def test_graph_switch_scopes():
+    assert solver._CUDA_GRAPHS
+    with cuda_graphs(False):
+        assert not solver._CUDA_GRAPHS
+        with cuda_graphs(True):
+            assert solver._CUDA_GRAPHS
+        assert not solver._CUDA_GRAPHS
+    assert solver._CUDA_GRAPHS
+
+
+# --- on the card -----------------------------------------------------------------
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _trace_both(fn):
+    """fn() with the loop captured, then uncaptured; the counts of the
+    captured run's graph events."""
+    events = _Events()
+    with solver.observe_loops(events):
+        captured = fn()
+    stats = dict(
+        captures=sum(e == "capture" for e, _ in events),
+        replays=sum(i["iterations"] for e, i in events if e == "end"),
+    )
+    with cuda_graphs(False):
+        plain = fn()
+    return captured, plain, stats
+
+
+def _equal(a, b):
+    for f in ("status", "x", "v", "lam_max"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_captured_primal_trace_matches_uncaptured(dev, dtype):
+    m, x, A, B, d = _flagship(dev, dtype, 1024)
+    v = map_impact_parameters(m, x, A, B)
+    got, want, stats = _trace_both(lambda: trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d))
+    _equal(got, want)
+    assert stats["captures"] == 1 and stats["replays"] > 10
+
+
+@pytest.mark.cuda
+def test_captured_jvp_trace_matches_uncaptured(dev):
+    m, x, A, B, d = _flagship(dev, torch.float64, 64)
+    v, v_dot = jvp(lambda b: map_impact_parameters(m, x, A, b), (B,), (torch.ones_like(B),))
+    (got, got_dot), (want, want_dot), stats = _trace_both(
+        lambda: trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d, v_dot=v_dot)
+    )
+    _equal(got, want)
+    _equal(got_dot, want_dot)
+    assert stats["captures"] == 1
+
+
+def _metric_cases():
+    kw = dict(dtype=torch.float64)
+    return {
+        "KerrMetric": lambda dev: metrics.KerrMetric(1.0, 0.998, device=dev, **kw),
+        "KerrSpacetimeFirstOrder": lambda dev: metrics.KerrSpacetimeFirstOrder(1.0, 0.5, device=dev, **kw),
+        "JohannsenMetric": lambda dev: metrics.JohannsenMetric(1.0, 0.6, 0.2, 0.1, 0.0, 0.5, device=dev, **kw),
+        "JohannsenPsaltisMetric": lambda dev: metrics.JohannsenPsaltisMetric(1.0, 0.6, 2.0, device=dev, **kw),
+        "NoZMetric": lambda dev: metrics.NoZMetric(1.0, 0.5, 0.3, device=dev, **kw),
+        "BumblebeeMetric": lambda dev: metrics.BumblebeeMetric(1.0, 0.2, 0.1, device=dev, **kw),
+        "DilatonAxion": lambda dev: metrics.DilatonAxion(1.0, 0.5, 0.2, 1.0, device=dev, **kw),
+        "KerrNewmanMetric": lambda dev: metrics.KerrNewmanMetric(1.0, 0.5, 0.3, device=dev, **kw),
+        "MorrisThorneWormhole": lambda dev: metrics.MorrisThorneWormhole(1.0, device=dev, **kw),
+        "KerrRefractive": lambda dev: metrics.KerrRefractive(1.0, 0.9, 1.1, 20.0, device=dev, **kw),
+        "KerrDarkMatter": lambda dev: metrics.KerrDarkMatter(1.0, 0.9, 0.1, 10.0, 20.0, device=dev, **kw),
+        "SphericalMetric": lambda dev: metrics.SphericalMetric(device=dev, **kw),
+        "CartesianMetric": lambda dev: metrics.CartesianMetric(device=dev, **kw),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_metric_cases()))
+def test_every_metric_captures(dev, name):
+    """Each metric class's right-hand side in a captured loop (no host read
+    in it), bit for bit against the uncaptured loop, on 64 rays at r = 100."""
+    m = _metric_cases()[name](dev)
+    rng = np.random.default_rng(9)
+    x = torch.tensor([0.0, 100.0, math.radians(75.0), 0.0], dtype=torch.float64, device=dev)
+    A = torch.as_tensor(rng.uniform(-12.0, 12.0, 64), device=dev)
+    B = torch.as_tensor(rng.uniform(-8.0, 8.0, 64), device=dev)
+    disc = None if name == "CartesianMetric" else td.ThinDisc(0.0, 40.0, device=dev)
+    kw = dict(geometry=disc, chart_inner=2.02 if name == "BumblebeeMetric" else None, max_steps=2000)
+    if name == "CartesianMetric":
+        xs = torch.stack([torch.zeros_like(A), A, B, torch.full_like(A, -100.0)], dim=-1)
+        vs = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64, device=dev).expand_as(xs)
+    else:
+        vs = map_impact_parameters(m, x, A, B)
+        xs = x.expand_as(vs)
+    got, want, stats = _trace_both(lambda: trace_geodesics(m, xs, vs, (0.0, 300.0), **kw))
+    _equal(got, want)
+    assert stats["captures"] == 1
+
+
+def _geometry_cases(dev):
+    m = KerrMetric(1.0, 0.998, device=dev)
+    thin = td.ThinDisc(0.0, 50.0, device=dev)
+    ell = td.EllipticalDisc(3.0, 30.0, 5.0, device=dev)
+    return {
+        "ThinDisc": thin,
+        "WarpedThinDisc": td.WarpedThinDisc(lambda rho: 0.05 * rho * torch.sin(rho / 5.0), 3.0, 45.0, device=dev),
+        "DatumPlane": td.DatumPlane(1.5, device=dev),
+        "DatumPlane_per_ray": td.DatumPlane(torch.linspace(0.0, 2.0, 256, dtype=torch.float64), device=dev),
+        "ThickDisc": td.ThickDisc(lambda rho: 0.2 * rho - 1.0, device=dev),
+        "ShakuraSunyaev": td.ShakuraSunyaev.from_metric(m),
+        "EllipticalDisc": ell,
+        "PrecessingDisc": td.PrecessingDisc(td.ThinDisc(0.0, 50.0, device=dev), 0.3, 0.5, device=dev),
+        "PolishDoughnut": td.PolishDoughnut(device=dev),
+        "PolishDoughnut_metric": td.PolishDoughnut(ell=4.0, r_cusp=6.0, metric=KerrMetric(1.0, 0.5, device=dev)),
+        "PolishDoughnutFW": td.polish_doughnut_fw(m, dt=0.1, newton_iters=10),
+        "CompositeGeometry": td.CompositeGeometry([td.ThinDisc(0.0, 20.0, device=dev), ell]),
+    }
+
+
+@pytest.mark.cuda
+def test_every_geometry_captures(dev):
+    """Each geometry's indicator and hit test in a captured loop, bit for
+    bit against the uncaptured loop, on 256 flagship rays."""
+    m, x, A, B, _ = _flagship(dev, torch.float64, 256, seed=8)
+    v = map_impact_parameters(m, x, A * 0.6, B * 0.3)
+    for name, d in _geometry_cases(dev).items():
+        got, want, stats = _trace_both(lambda: trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d))
+        _equal(got, want)
+        assert stats["captures"] == 1, name
+
+
+@pytest.mark.cuda
+def test_transform_around_a_captured_loop_raises(dev):
+    m, x, A, B, d = _flagship(dev, torch.float64, 8)
+    with pytest.raises(RuntimeError, match="torch.func transform"):
+        torch.func.jvp(_hit_x(m, x, A, d), (B,), (torch.ones_like(B),))
+    with cuda_graphs(False):
+        torch.func.jvp(_hit_x(m, x, A, d), (B,), (torch.ones_like(B),))
