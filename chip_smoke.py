@@ -46,11 +46,24 @@ through their entry points, none of which may call the plain-torch polish:
   captured, and fails if a loop did not): `lockstep_graph` holds the
   captured loop against the uncaptured one (`cuda_graphs(False)`) bit for
   bit on 8,192 flagship rays in f64 and f32 and on the one-ray
-  forward-mode trace of `continuum_time` at r = 10⁴;
+  forward-mode trace of `continuum_time` at r = 10⁴, and on the dense trace
+  and its tangent of the ring's target polish;
+- the extended coronae, f64: `ring_corona` (`lag_frequency` of a
+  RingCorona(r=3, h=4) at its defaults with `backend="cuda"`: the
+  near-field hybrid profile, the continuum time by the target search, the
+  transfer functions on the kernel, the time-dependent integration; timed
+  by part, the kernel counted in that run, the integration held to the
+  same one on the CPU) and `disc_corona` (a DiscCorona(r=10, h=4)'s default
+  profile, 51,200 rays in one trace, and the reference's disc lag
+  physics), their profiles and t₀ held to the JAX package's CPU values
+  (tests/data/extended_corona_reference.json), and the JAX package's sky
+  cells traced on the card against the port's values from them on the CPU
+  (tests/data/extended_corona_sky_cells.npz);
 - the `xla` transfer functions (the jvp Newton through the lockstep
   solver, the default backend) at full size: `ctf_xla` (`bench_ctf`'s thin
   disc: m1, and against the `cuda` backend) and `thick_disc` (a
-  `ShakuraSunyaev` disc, against `lineprofile(method=BinningMethod())`),
+  `ShakuraSunyaev` disc at 10 golden-section steps, not 15, against
+  `lineprofile(method=BinningMethod())`),
   and `thick_disc_golden` (tests/test_transfer.py's thick-disc golden in
   f64, its samples against the JAX package's and the port's CPU runs).
 They and `trace_api` run in worker processes (`WORKERS`) beside the main
@@ -71,6 +84,7 @@ Needs one CUDA device and the CUDA toolkit (nvcc). Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
@@ -81,6 +95,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -118,10 +133,25 @@ from gradus_tpu_torch.metrics import (
     KerrMetric,
     KerrNewmanMetric,
 )
-from gradus_tpu_torch.corona import BothHemispheres, EvenSampler, LampPostModel, emissivity_profile
+from gradus_tpu_torch.corona import (
+    BothHemispheres,
+    DiscCorona,
+    EvenSampler,
+    LampPostModel,
+    NearFieldBlendedProfile,
+    PowerLawSpectrum,
+    RingCorona,
+    emissivity_profile,
+)
+from gradus_tpu_torch.interop import near_field_profile_from_numpy, transfer_grid_from_numpy
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.reverberation import binflux, continuum_time, lag_frequency, lagtransfer
-from gradus_tpu_torch.transfer import cunningham_transfer_function, integrate_lagtransfer, transferfunctions
+from gradus_tpu_torch.transfer import (
+    cunningham_transfer_function,
+    integrate_lagtransfer,
+    integrate_lagtransfer_timedep,
+    transferfunctions,
+)
 from gradus_tpu_torch.transfer.solvers import _make_trace_to_disc
 from gradus_tpu_torch.utils import equatorial_project
 
@@ -129,6 +159,9 @@ from gradus_tpu_torch.utils import equatorial_project
 lineprofile_module = importlib.import_module("gradus_tpu_torch.lineprofile")
 emissivity = importlib.import_module("gradus_tpu_torch.corona.emissivity")
 reverberation = importlib.import_module("gradus_tpu_torch.reverberation")
+extended_module = importlib.import_module("gradus_tpu_torch.corona.extended")
+adaptive_module = importlib.import_module("gradus_tpu_torch.corona.adaptive")
+targets_module = importlib.import_module("gradus_tpu_torch.transfer.targets")
 
 SPAN = (0.0, 2200.0)
 X_OBS = [0.0, 1000.0, math.radians(75.0), 0.0]
@@ -1227,6 +1260,29 @@ def _kernel_counted(fn, dtype, dev):
     )
 
 
+class _KernelCountedCalls:
+    """While entered, each call of ``module.name`` runs under
+    `_kernel_counted`: its B1 launches, counts, kernel time and bound, from
+    that call itself, go to ``kernel`` (one dict a call)."""
+
+    def __init__(self, module, name, dtype, dev):
+        self.module, self.name, self.dtype, self.dev, self.kernel = module, name, dtype, dev, []
+
+    def __enter__(self):
+        self._fn = fn = getattr(self.module, self.name)
+
+        def counted(*args, **kw):
+            out = []
+            self.kernel.append(_kernel_counted(lambda: out.append(fn(*args, **kw)), self.dtype, self.dev))
+            return out[0]
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._fn)
+
+
 def phase_ctf_golden(dev):
     """Gradus.jl's test-cunningham.jl edges through the kernel, f64
     (tests/test_transfer.py:32-84): i=60°, ThinDisc(0, 250), bins
@@ -1456,7 +1512,9 @@ def phase_binning_lineprofile(dev, ctf_flux, side=1000):
 class _Lockstep:
     """Observes the lockstep loops that `integrate_rays` runs while it is
     entered (`solver.observe_loops`): loops (``calls``), those carrying a
-    tangent (``tangent_calls``), iterations (``iters``), and what their CUDA
+    tangent (``tangent_calls``), iterations (``iters``), each loop's
+    iterations and host seconds from its start to its last alive check,
+    which waits for the card (``loops``), and what their CUDA
     graphs did (``graph``: captures, replays (one an iteration), the
     captures' host seconds and reserved bytes); with ``window``,
     profiles the card over that many iterations from iteration ``start`` of
@@ -1468,6 +1526,7 @@ class _Lockstep:
 
     def __enter__(self):
         self.calls = self.tangent_calls = self.iters = 0
+        self.loops = []
         self.graph = dict(captures=0, replays=0, capture_seconds=0.0, capture_reserved_bytes=0)
         self.busy_ms = self.wall_ms = 0.0
         self.device_events = 0
@@ -1481,12 +1540,14 @@ class _Lockstep:
             self.calls += 1
             self.tangent_calls += info["tangent"]
             self._graphed = info["graphed"]
+            self._loop_t0 = time.perf_counter()
         elif event == "capture":
             self.graph["captures"] += 1
             self.graph["capture_seconds"] += info["seconds"]
             self.graph["capture_reserved_bytes"] += info["reserved_bytes"]
         elif event == "end":
             self.iters += info["iterations"]
+            self.loops.append(dict(iterations=info["iterations"], seconds=time.perf_counter() - self._loop_t0))
             if self._graphed:
                 self.graph["replays"] += info["iterations"]
         if self.window and event in ("block", "end"):
@@ -1837,8 +1898,10 @@ def phase_lockstep_graph(dev, n=8192):
     i = 75°, ThinDisc(0, 50), λ ≤ 2200) in f64 and f32, and the first
     forward-mode trace of `continuum_time`'s Newton at r = 10⁴ (one ray,
     f64: the lamp post's height plane, from the cold start), its tangent
-    too. Seconds, iterations and ms an iteration both ways; the captures'
-    host seconds and reserved bytes."""
+    too; and the dense trace (256 saved states) and its tangent of
+    `refine_for_target`'s Gauss-Newton step for the ring corona's source at
+    r = 10⁴. Seconds, iterations and ms an iteration both ways; the
+    captures' host seconds and reserved bytes."""
     res = {}
     for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         m, d, x = _flagship(dtype, dev)
@@ -1858,6 +1921,19 @@ def phase_lockstep_graph(dev, n=8192):
     r0 = torch.clamp(rho_src, min=20.0)
     (gp, gd), (gp2, gd2), rec = _graph_ab(lambda: trace(r0, torch.ones_like(r0)))
     res["continuum_jvp_trace"] = dict(rays=1, bit_equal=_same_points(gp, gp2) and _same_points(gd, gd2), **rec)
+    # the dense trace and its tangent of `refine_for_target`'s Gauss-Newton
+    # step for the ring corona's source (r = 3, h = 4), from the JAX
+    # package's pattern-search seed: the ray twice, each with one column
+    ab = torch.tensor(_extended_reference()["ring"]["jax"]["ring_ab"], dtype=torch.float64, device=dev)
+    eye = torch.eye(2, dtype=torch.float64, device=dev)
+    lam = 2.0 * float(x[1])
+    (p1, d1), (p2, d2), rec = _graph_ab(
+        lambda: targets_module._dense(m, x, ab[0].repeat(2), ab[1].repeat(2), lam, 256, 0.0, lam, (eye[0], eye[1]))
+    )
+    same = all(torch.equal(a, b) for a, b in zip(p1[1:] + d1[1:3], p2[1:] + d2[1:3]))
+    res["refine_dense_tangent"] = dict(
+        rays=2, saved=int(p1[3].max()), bit_equal=same and _same_points(p1[0], p2[0]) and _same_points(d1[0], d2[0]), **rec
+    )
     _say("lockstep_graph", **res)
     bad = {k: r["bit_equal"] for k, r in res.items() if not r["bit_equal"] or r["with_graph"]["graph"]["captures"] != 1}
     if bad:
@@ -1999,10 +2075,12 @@ def phase_thick_disc(dev, num_re=100, N_extrema=15, N=80, binned_plane=None):
     at full size, f32, at `bench_ctf`'s camera (a = 0.998, i = 60°,
     r = 1000) for `ShakuraSunyaev.from_metric(m)`: `transferfunctions` at
     its defaults (100 radii × 80 angles), finite, Σ = 1 ± 1e-4; and against
-    `lineprofile(method=BinningMethod())` on the same disc: at full size,
-    a median gap of at most 5% over the bins holding ≥ 1e-3 of the flux.
-    ``num_re``, ``N_extrema`` and ``N`` cut the line profile's transfer
-    functions, ``binned_plane`` (a `PolarPlane`) the binned profile's rays."""
+    `lineprofile(method=BinningMethod())` on the same disc: at 100 radii ×
+    80 angles, a median gap of at most 5% over the bins holding ≥ 1e-3 of
+    the flux. ``num_re``, ``N_extrema`` and ``N`` cut the line profile's
+    transfer functions (the script's run takes 10 golden-section steps, not
+    15, to end inside its time limit), ``binned_plane`` (a `PolarPlane`) the
+    binned profile's rays."""
     dtype = torch.float32
     m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
     x = torch.tensor(CTF_X_OBS, dtype=dtype, device=dev)
@@ -2031,7 +2109,7 @@ def phase_thick_disc(dev, num_re=100, N_extrema=15, N=80, binned_plane=None):
     _say("thick_disc", **res)
     if not (res["finite"] and abs(res["flux_sum"] - 1.0) <= 1e-4 and abs(res["binned_flux_sum"] - 1.0) <= 1e-4):
         raise AssertionError(f"thick-disc line profile: {res}")
-    if res["full_size"] and not res["vs_binning_method"]["median_rel"] <= 5e-2:
+    if num_re == 100 and N == 80 and not res["vs_binning_method"]["median_rel"] <= 5e-2:
         raise AssertionError(f"thick-disc line profile against the binned one: {res}")
     return res
 
@@ -2054,19 +2132,25 @@ JAX_VALUE_RTOL = 1e-5
 class _CallTimes:
     """Seconds (up to a synchronize) and lockstep iterations of each call of
     the functions ``names`` of ``module`` while it is entered, keyed by
-    name: lists of ``{"seconds", "iterations"}``."""
+    name: lists of ``{"seconds", "iterations"}``; their results in
+    ``outputs`` and their arguments ``(args, kwargs)`` in ``inputs``, keyed
+    likewise."""
 
     def __init__(self, module, *names):
         self.module, self.names, self.calls = module, names, {n: [] for n in names}
+        self.outputs = {n: [] for n in names}
+        self.inputs = {n: [] for n in names}
 
     def __enter__(self):
         self._fns = {n: getattr(self.module, n) for n in self.names}
         for name, fn in self._fns.items():
 
             def timed(*args, _fn=fn, _name=name, **kw):
+                self.inputs[_name].append((args, kw))
                 with _Lockstep() as steps:
                     out, seconds = _trace_seconds(lambda: _fn(*args, **kw))
                 self.calls[_name].append(dict(seconds=seconds, iterations=steps.iters, traces=steps.calls))
+                self.outputs[_name].append(out)
                 return out
 
             setattr(self.module, name, timed)
@@ -2194,11 +2278,15 @@ def phase_lag_frequency_full(dev):
     and model, then the FFT dispatch on its flux. Checks: the flux finite
     where it is not NaN (zero), Σ = 1 at 1e-8; τ finite past the first bin;
     the mean τ over the 50 lowest frequencies > 0. Seconds split into
-    emissivity, continuum time, transfer functions and integration."""
+    emissivity, continuum time, transfer functions (under the profiler: B1's
+    launches, counts, time and bound come from this run) and integration."""
     m, x = _lag_setup(dev, LAG_X_OBS)
     d = ThinDisc(0.0, math.inf, device=dev)
     before = cuda_solver.KERNEL_LAUNCHES
-    with _CallTimes(reverberation, "emissivity_profile", "continuum_time", "transferfunctions", "integrate_lagtransfer") as parts:
+    with (
+        _KernelCountedCalls(reverberation, "transferfunctions", torch.float64, dev) as tfs,
+        _CallTimes(reverberation, "emissivity_profile", "continuum_time", "transferfunctions", "integrate_lagtransfer") as parts,
+    ):
         (tbins, bins, flux), seconds = _trace_seconds(lambda: lag_frequency(m, x, d, LampPostModel(), backend="cuda"))
     launches = cuda_solver.KERNEL_LAUNCHES - before
     freq, tau = lag_frequency(tbins, flux)
@@ -2212,14 +2300,10 @@ def phase_lag_frequency_full(dev):
         low_frequency_mean_tau=float(low.mean()),
     )
     res["continuum_newton_iterations"] = res["split"]["continuum_time"]["traces"] - 1
-    # the spectrum's transfer functions once more (its default radii), for
-    # B1's time and bound
-    radii = LinearGrid()(float(m.isco()) + 1e-2, 300.0, 100, dtype=torch.float64, device=dev)
-    res["transfer_functions_kernel"] = _kernel_counted(
-        lambda: transferfunctions(m, x, d, radii=radii, backend="cuda"), torch.float64, dev
-    )
+    (res["transfer_functions_kernel"],) = tfs.kernel
     if not (
         launches > 0
+        and res["transfer_functions_kernel"]["counted_launches"] == launches
         and bool(torch.isfinite(flux[ok]).all())
         and abs(res["flux_sum"] - 1.0) <= 1e-8
         and res["tau_finite_past_first"]
@@ -2355,6 +2439,339 @@ def phase_profiled_lineprofile(dev, prof):
     return res
 
 
+# --- the extended coronae: ring and disc -------------------------------------
+
+EXTENDED_REFERENCE = Path(__file__).resolve().parent / "tests" / "data" / "extended_corona_reference.json"
+
+
+def _extended_reference():
+    """The JAX package's CPU values at the phases' configurations, and the
+    tolerances (scripts/torch_extended_corona_reference.py)."""
+    return json.loads(EXTENDED_REFERENCE.read_text())
+
+
+def _held(got, want, rtol):
+    """The largest relative gap of ``got`` to ``want``, and whether it is
+    within ``rtol``."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    gap = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-300)))
+    return dict(gap=gap, rtol=rtol, ok=bool(gap <= rtol))
+
+
+def _cell_set(depth, cx, cy):
+    """The adaptive sky's cells as (depth, cosθ, φ) of their centres: the
+    grid's numpy arithmetic is the same in both packages and on every
+    platform, so a cell two runs both made is the same floats."""
+    return set(zip(np.asarray(depth).tolist(), np.asarray(cx).tolist(), np.asarray(cy).tolist()))
+
+
+def _numpy_fields(obj):
+    """A (nested) dataclass of tensors as the dict of numpy arrays that
+    `interop`'s `*_from_numpy` functions take."""
+    return {
+        f.name: _numpy_fields(v) if dataclasses.is_dataclass(v) else v.cpu().numpy()
+        for f in dataclasses.fields(obj)
+        for v in (getattr(obj, f.name),)
+    }
+
+
+# the card's time-dependent flux against the same integration on the CPU, as
+# a share of the flux's largest bin (`index_add_` on the card accumulates in
+# no fixed order)
+FLUX_CPU_RTOL = 1e-12
+def _timedep_flux_on_the_cpu(parts):
+    """`integrate_lagtransfer_timedep` of the spectrum's own call rerun on
+    the CPU, on its profile (a `NearFieldBlendedProfile`, through `interop`)
+    and transfer functions moved there; the largest gap to the card's flux
+    over the largest bin, and whether the two have the same empty bins."""
+    (((prof, tfs, bins, tbins), kw),) = parts.inputs["integrate_lagtransfer_timedep"]
+    (flux,) = parts.outputs["integrate_lagtransfer_timedep"]
+    if not isinstance(prof, NearFieldBlendedProfile):
+        raise AssertionError(f"the ring's default profile is a {type(prof).__name__}")
+    cpu = dict(dtype=torch.float64, device="cpu")
+    kw = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+    ref, seconds = _trace_seconds(
+        lambda: integrate_lagtransfer_timedep(
+            near_field_profile_from_numpy(_numpy_fields(prof), **cpu),
+            transfer_grid_from_numpy(_numpy_fields(tfs), **cpu),
+            bins.cpu(), tbins.cpu(), **kw,
+        )
+    )
+    flux = flux.cpu()
+    gap = float((flux - ref).abs().max() / ref.abs().max())
+    return dict(
+        gap_over_max=gap, rtol=FLUX_CPU_RTOL, same_empty_bins=bool(torch.equal(flux == 0, ref == 0)),
+        cpu_seconds=seconds, ok=bool(gap <= FLUX_CPU_RTOL and torch.equal(flux == 0, ref == 0)),
+    )
+
+
+def _sky_nodes_on_reference_cells(m, d, ref):
+    """The JAX package's final sky cells (`tests/data/extended_corona_sky_cells.npz`)
+    traced on the card by `CoronaSkyTracer` in one trace of 2N rays, against
+    the port's values from the same cells on the CPU (in the same file): no
+    refinement decision lies between them. A ray that grazes the horizon
+    meets the disc and the hemisphere's edge at once, and ends as either by
+    the last bits (the two packages' CPU rays end otherwise in
+    `status_differing_from_jax` cells): the cells whose rays end otherwise
+    are counted and held to ten times that; where they end alike, each
+    value and the near-field nodes binned from either side's values (as
+    the hybrid bins its own sky) are held at the reference's tolerances
+    (`sky_values`, `sky_nodes_same_fate`: ten times the two packages' CPU
+    gaps on these cells, at least 1e-9); the nodes of all the cells,
+    against the JAX package's own, at `sky_nodes`."""
+    cells = np.load(EXTENDED_REFERENCE.parent / ref["sky_cells"])
+    grid = SimpleNamespace(**{k: cells[f"jax_{k}"] for k in ("cx", "cy", "w", "h", "depth")})
+    cpu = {k.removeprefix("port_sky_"): cells[k] for k in cells.files if k.startswith("port_sky_")}
+    fields = [k for k in cpu if k != "status"]
+    cfg, sky = ref["config"], ref["ring"]["port_cpu_sky"]
+    tracer = adaptive_module.CoronaSkyTracer(m, d, RingCorona(**cfg["ring"]))
+    with _Lockstep() as steps:
+        vals, seconds = _trace_seconds(lambda: tracer(grid.cx, grid.cy))
+    _require_captured("the sky's reference cells", steps)
+
+    def nodes(g, v):
+        return extended_module._near_field_nodes(
+            m, cfg["ring"]["r"], g, v, PowerLawSpectrum(2.0), cfg["near_outer"], cfg["n_r_nodes"]
+        )[1:]
+
+    same = vals["status"] == cpu["status"]
+    sub = SimpleNamespace(**{k: v[same] for k, v in vars(grid).items()})
+    hit = same & np.isfinite(cpu["r"])
+    value_gaps = {
+        k: float(np.nanmax(np.abs(vals[k][hit] - cpu[k][hit]) / np.maximum(np.abs(cpu[k][hit]), 1e-300)))
+        for k in fields
+    }
+    nan_alike = all(bool(np.array_equal(np.isnan(vals[k][same]), np.isnan(cpu[k][same]))) for k in fields)
+    eps, covered = nodes(grid, vals)
+    on = np.asarray(sky["covered"])
+    eps_same = nodes(sub, {k: v[same] for k, v in vals.items()})[0]
+    eps_same_cpu = nodes(sub, {k: v[same] for k, v in cpu.items()})[0]
+    flips = int((~same).sum())
+    flip_limit = max(10 * sky["status_differing_from_jax"], 1)
+    rtol = ref["ring"]["rtol"]
+    return dict(
+        cells=int(grid.cx.shape[0]), rays=2 * int(grid.cx.shape[0]), seconds=seconds, iterations=steps.iters,
+        graph=steps.graph, status_differing_from_port_cpu=flips, status_limit=flip_limit,
+        value_gaps_where_alike=value_gaps, nan_where_alike_as_on_cpu=nan_alike, covered_as_on_cpu=covered.tolist() == sky["covered"],
+        value_rtol=rtol["sky_values"],
+        nodes_where_alike_vs_port_cpu=_held(eps_same[on], eps_same_cpu[on], rtol["sky_nodes_same_fate"]),
+        nodes_vs_port_cpu_gap=_held(eps[on], np.asarray(sky["eps_nodes"])[on], math.inf)["gap"],
+        nodes_vs_jax=_held(eps[on], np.asarray(ref["ring"]["jax"]["near_field"]["eps_nodes"])[on], rtol["sky_nodes"]),
+        ok=bool(
+            flips <= flip_limit
+            and nan_alike
+            and max(value_gaps.values()) <= rtol["sky_values"]
+            and covered.tolist() == sky["covered"]
+        ),
+    )
+
+
+def _profile_at(prof, ref, part, dev):
+    """ε at the reference's radii and `time_limits_at` at its three."""
+    eps = prof.emissivity_at(torch.tensor(ref["eps_radii"][part], dtype=torch.float64, device=dev)).cpu().numpy()
+    limits = [
+        [float(v) for v in prof.time_limits_at(torch.tensor(r, dtype=torch.float64, device=dev))]
+        for r in ref["limit_radii"]
+    ]
+    return eps, limits
+
+
+def _against_reference(eps, limits, ref, part, near_field=None):
+    """ε and the time limits against the JAX package's CPU values, at the
+    reference's tolerances; with ``near_field`` the radii up to it are held
+    at ``near_field``'s own tolerance."""
+    r = ref[part]
+    radii = np.asarray(ref["eps_radii"][part])
+    out = dict(time_limits_vs_jax=_held(limits, r["jax"]["time_limits"], r["rtol"]["time_limits"]))
+    far = radii > (near_field or (0.0, 0.0))[0]
+    out["eps_far_vs_jax"] = _held(eps[far], np.asarray(r["jax"]["eps"])[far], r["rtol"].get("eps_far", r["rtol"]["eps"]))
+    if near_field is not None:
+        out["eps_near_vs_jax"] = _held(eps[~far], np.asarray(r["jax"]["eps"])[~far], near_field[1])
+    return out
+
+
+def phase_ring_corona(dev):
+    """`lag_frequency(m, x, d, RingCorona(r=3, h=4), backend="cuda")` at its
+    defaults for `_lag_setup`'s Kerr a = 0.998, `LAG_X_OBS` and ThinDisc(0,
+    ∞), f64: the hybrid profile (20 slices × 256 angles and 16 + 2
+    golden-section probe traces of 40 rays; the adaptive sky at n0 = 24, 5
+    rounds of at most 256 splits, each round one trace of 2N rays with
+    their tangents), the continuum time (8 dense traces of 81 rays, then 2
+    forward-mode traces of 2 rays and one of 1), 100 transfer-function radii
+    on B1 (under the profiler: B1's launches, counts, time and bound come
+    from this run), and the time-dependent integration at 400 radii (the
+    clamp), 500 g and 2,000 t bins. Timed by part, every lockstep loop
+    captured; then `torch.func.jvp` of `refine_for_target`'s arrival time
+    along the source's r, its loops captured within the transform. Checks:
+    Σflux = 1 at 1e-8, the flux finite where not NaN, τ finite past the first
+    bin and its mean over the 50 lowest frequencies > 0; the integration's
+    flux against the same integration on the CPU (`_timedep_flux_on_the_cpu`);
+    the profile the call built (ε at 12 radii, its time limits at 3) and t₀
+    against the JAX package's CPU values (`EXTENDED_REFERENCE`), the near
+    field (the adaptive sky's radial nodes) at its own tolerance, with the
+    number of the sky's cells that differ from each package's on the CPU;
+    and the near-field nodes of the JAX package's own cells
+    (`_sky_nodes_on_reference_cells`)."""
+    ref = _extended_reference()
+    m, x = _lag_setup(dev, LAG_X_OBS)
+    d = ThinDisc(0.0, math.inf, device=dev)
+    before = cuda_solver.KERNEL_LAUNCHES
+    names = ("emissivity_profile", "continuum_time", "transferfunctions", "integrate_lagtransfer_timedep")
+    with (
+        _KernelCountedCalls(reverberation, "transferfunctions", torch.float64, dev) as tfs,
+        _CallTimes(reverberation, *names) as parts,
+        _CallTimes(extended_module, "ring_corona_profile") as fan,
+        _CallTimes(adaptive_module, "corona_adaptive_sky") as sky,
+        _CallTimes(adaptive_module.CoronaSkyTracer, "__call__") as rounds,
+        _Lockstep() as steps,
+    ):
+        (tbins, bins, flux), seconds = _trace_seconds(
+            lambda: lag_frequency(m, x, d, RingCorona(r=3.0, h=4.0), backend="cuda")
+        )
+    _require_captured("ring_corona", steps)
+    launches = cuda_solver.KERNEL_LAUNCHES - before
+    prof, t0 = parts.outputs["emissivity_profile"][0], float(parts.outputs["continuum_time"][0])
+    freq, tau = lag_frequency(tbins, flux)
+    ok = ~torch.isnan(flux)
+    grid = sky.outputs["corona_adaptive_sky"][0][0]
+    cells = _cell_set(grid.depth, grid.cx, grid.cy)
+    npz = np.load(EXTENDED_REFERENCE.parent / ref["sky_cells"])
+    eps, limits = _profile_at(prof, ref, "ring", dev)
+    near_rtol = ref["ring"]["rtol"]["eps_near"]
+    branch_n = [prof.fan.left.n.tolist(), prof.fan.right.n.tolist()]
+    (tfs_kernel,) = tfs.kernel
+    res = dict(
+        seconds=seconds, launches=launches, iterations=steps.iters, loops=steps.calls,
+        forward_mode_loops=steps.tangent_calls, graph=steps.graph,
+        split={k: v[0] for k, v in parts.calls.items()},
+        fan=fan.calls["ring_corona_profile"][0],
+        adaptive_sky=dict(
+            **sky.calls["corona_adaptive_sky"][0], cells=len(cells),
+            rays_per_round=[2 * int(v["r"].shape[0]) for v in rounds.outputs["__call__"]],
+            round_seconds=[c["seconds"] for c in rounds.calls["__call__"]],
+            **{
+                f"cells_differing_from_{pkg}_cpu": len(cells ^ _cell_set(npz[f"{pkg}_depth"], npz[f"{pkg}_cx"], npz[f"{pkg}_cy"]))
+                for pkg in ("jax", "port")
+            },
+        ),
+        fan_branch_counts_equal_jax_cpu=branch_n == ref["ring"]["jax"]["branch_n"],
+        fan_branch_counts_equal_port_cpu=branch_n == ref["ring"]["port_cpu"]["branch_n"],
+        shape=list(flux.shape), nonzero_bins=int(ok.sum()), flux_sum=float(torch.nansum(flux)),
+        tau_finite_past_first=bool(torch.isfinite(tau[1:]).all()), low_frequency_mean_tau=float(tau[1:50].mean()),
+        flux_vs_cpu=_timedep_flux_on_the_cpu(parts),
+        eps=eps.tolist(), time_limits=limits, t0=t0,
+        eps_vs_port_cpu_gap=_held(eps, ref["ring"]["port_cpu"]["eps"], math.inf)["gap"],
+        t0_vs_jax=_held([t0], [ref["ring"]["jax"]["continuum_time"]], ref["ring"]["rtol"]["continuum_time"]),
+        **_against_reference(eps, limits, ref, "ring", near_field=(ref["config"]["ring_near_field"], near_rtol)),
+        transfer_functions_kernel=tfs_kernel,
+    )
+    res["continuum_newton_traces"] = res["split"]["continuum_time"]["traces"]
+    res["sky_nodes_on_jax_cells"] = _sky_nodes_on_reference_cells(m, d, ref)
+    # ∂t₀/∂r of the source by `torch.func.jvp` around `refine_for_target`:
+    # the traces run inside its autograd.Function's forward, on plain
+    # tensors, so they replay captured graphs within the transform
+    src = RingCorona(r=3.0, h=4.0).sample_position_velocity(m)[0][1:4]
+    ab0 = torch.tensor(ref["ring"]["jax"]["ring_ab"], dtype=torch.float64, device=dev)
+    with _Lockstep() as steps:
+        (t_ref, dt_dr), jvp_s = _trace_seconds(
+            lambda: torch.func.jvp(
+                lambda p: targets_module.refine_for_target(p, m, x, ab0, iters=2)[1], (src,), (torch.eye(3, dtype=torch.float64, device=dev)[0],)
+            )
+        )
+    _require_captured("torch.func.jvp of refine_for_target", steps)
+    res["t0_jvp"] = dict(dt0_dr=float(dt_dr), t0=float(t_ref), seconds=jvp_s, loops=steps.calls, graph=steps.graph)
+    _say("ring_corona", **res)
+    checks = ("t0_vs_jax", "time_limits_vs_jax", "eps_far_vs_jax", "eps_near_vs_jax", "flux_vs_cpu")
+    nodes = res["sky_nodes_on_jax_cells"]
+    if not (
+        launches > 0
+        and tfs_kernel["counted_launches"] == launches
+        and bool(torch.isfinite(flux[ok]).all())
+        and abs(res["flux_sum"] - 1.0) <= 1e-8
+        and res["tau_finite_past_first"]
+        and res["low_frequency_mean_tau"] > 0
+        and all(res[k]["ok"] for k in checks)
+        and nodes["ok"] and nodes["nodes_where_alike_vs_port_cpu"]["ok"] and nodes["nodes_vs_jax"]["ok"]
+        and math.isfinite(res["t0_jvp"]["dt0_dr"])
+    ):
+        raise AssertionError(f"ring corona lag spectrum: {res}")
+    return res
+
+
+def _disc_lags_grow_with_radius(dev):
+    """tests/test_extended_corona.py:196-236 at that test's size (Kerr a =
+    0.5, r = 1000, i = 45°, ThinDisc(0, 100); 5 transfer-function radii on
+    B1; disc coronae of 3 rings × 4 slices × 64 angles, delays 2r; 40 g and
+    128 t bins): Σflux = 1 at 1e-6 for each, and the mean echo lag and the
+    low-frequency lag grow from r = 2 to r = 10."""
+    m = KerrMetric(1.0, 0.5, dtype=torch.float64, device=dev)
+    x = torch.tensor([0.0, 1000.0, math.radians(45.0), 0.0], dtype=torch.float64, device=dev)
+    d = ThinDisc(0.0, 100.0, device=dev)
+    radii = LinearGrid()(float(m.isco()) + 1e-2, 30.0, 5, dtype=torch.float64, device=dev)
+    tfs = transferfunctions(m, x, d, radii=radii, N=12, N_extrema=5, Ng=24, backend="cuda")
+    bins = torch.linspace(0.0, 1.5, 40, dtype=torch.float64, device=dev)
+    tbins = torch.linspace(0.0, 200.0, 128, dtype=torch.float64, device=dev)
+    res = {}
+    for rc in (2.0, 10.0):
+        prof = emissivity_profile(m, d, DiscCorona(r=rc, h=4.0), n_rings=3, n_beta=4, n_angles=64)
+        prof = prof.with_propagation_velocity(lambda r: 2.0 * r)
+        flux = integrate_lagtransfer_timedep(prof, tfs, bins, tbins, t0=1000.0, n_radii=60, n_time=24)
+        psi = torch.nansum(flux, dim=0)
+        freq, tau = lag_frequency(tbins, flux)
+        low = (freq > 0) & (freq < 2e-3)
+        res[str(rc)] = dict(
+            flux_sum=float(torch.nansum(flux)), mean_lag=float((tbins * psi).sum() / psi.sum()),
+            low_frequency_tau=float(torch.nanmean(tau[low])),
+        )
+    a, b = res["2.0"], res["10.0"]
+    res["ok"] = bool(
+        all(abs(r["flux_sum"] - 1.0) <= 1e-6 for r in (a, b))
+        and b["mean_lag"] > a["mean_lag"] + 1.0
+        and b["low_frequency_tau"] > a["low_frequency_tau"] > 0
+    )
+    return res
+
+
+def phase_disc_corona(dev):
+    """`emissivity_profile(m, d, DiscCorona(r=10, h=4))` at its defaults for
+    `_lag_setup`'s Kerr a = 0.998 and ThinDisc(0, ∞), f64: 10 rings × 20
+    slices × 256 angles, 51,200 rays in one trace, then 16 + 2
+    golden-section probe traces of the rings' 400 rays; every loop
+    captured; ε at 12 radii and the time limits at 3 against the JAX
+    package's CPU values; each loop's iterations and seconds. Then the
+    reference's physics check at its own size (`_disc_lags_grow_with_radius`)."""
+    ref = _extended_reference()
+    m, _ = _lag_setup(dev, LAG_X_OBS)
+    d = ThinDisc(0.0, math.inf, device=dev)
+    with _Lockstep() as steps:
+        prof, seconds = _trace_seconds(lambda: emissivity_profile(m, d, DiscCorona(r=10.0, h=4.0)))
+    _require_captured("disc_corona", steps)
+    eps, limits = _profile_at(prof, ref, "disc", dev)
+    branch_n = [prof.rings.left.n.tolist(), prof.rings.right.n.tolist()]
+    fan_loop, probes = steps.loops[0], steps.loops[1:]
+    res = dict(
+        seconds=seconds, rays=10 * 20 * 256, iterations=steps.iters, loops=steps.calls, graph=steps.graph,
+        fan=dict(**fan_loop, ms_per_iteration=fan_loop["seconds"] * 1e3 / max(fan_loop["iterations"], 1)),
+        probes=dict(
+            traces=len(probes), rays=10 * 2 * 20, iterations=sum(p["iterations"] for p in probes),
+            seconds=sum(p["seconds"] for p in probes),
+        ),
+        eps=eps.tolist(), time_limits=limits, **_against_reference(eps, limits, ref, "disc"),
+        eps_vs_port_cpu_gap=_held(eps, ref["disc"]["port_cpu"]["eps"], math.inf)["gap"],
+        # the arms split on near-equal radii: the branch counts of the two
+        # packages differ on the CPU already
+        branch_counts_equal=dict(
+            jax_cpu=branch_n == ref["disc"]["jax"]["branch_n"], port_cpu=branch_n == ref["disc"]["port_cpu"]["branch_n"]
+        ),
+    )
+    res["probes"]["ms_per_iteration"] = res["probes"]["seconds"] * 1e3 / max(res["probes"]["iterations"], 1)
+    res["lags_grow_with_radius"], res["lags_seconds"] = _trace_seconds(lambda: _disc_lags_grow_with_radius(dev))
+    _say("disc_corona", **res)
+    if not (res["time_limits_vs_jax"]["ok"] and res["eps_far_vs_jax"]["ok"] and res["lags_grow_with_radius"]["ok"]):
+        raise AssertionError(f"disc corona: {res}")
+    return res
+
+
 # Most host-bound phases run in worker processes beside the main one, after
 # the kernel-timed phases, so that the script ends inside its time limit:
 # each lockstep iteration is host dispatch (the card is busy a third of it),
@@ -2370,8 +2787,10 @@ WORKERS = {
     "corona": (("emissivity", {}), ("profiled_lineprofile", {})),
     "graph": (("lockstep_graph", {}),),
     "xla_thin": (("ctf_xla", {}),),
-    "xla_thick": (("thick_disc", {}),),
+    "xla_thick": (("thick_disc", {"N_extrema": 10}),),
     "thick_golden": (("thick_disc_golden", {}),),
+    "ring_corona": (("ring_corona", {}),),
+    "disc_corona": (("disc_corona", {}),),
 }
 _WORKER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_workers"
 
@@ -2529,6 +2948,11 @@ def main():
                     "thick_disc": lags["thick_disc"],
                     "thick_disc_golden": lags["thick_disc_golden"],
                     "lag_frequency_full": lags["lag_frequency_full"]["split"],
+                    "ring_corona": {
+                        k: lags["ring_corona"][k]
+                        for k in ("seconds", "iterations", "loops", "forward_mode_loops", "split", "fan", "adaptive_sky")
+                    },
+                    "disc_corona": {k: lags["disc_corona"][k] for k in ("seconds", "rays", "iterations", "fan", "probes")},
                     "lagtransfer_defaults": lags["binflux_golden"]["defaults"]["traces"],
                     "profiled_binned_profile": {
                         name: {k: r[k] for k in ("binned_seconds", "binned_iterations")}
@@ -2641,6 +3065,7 @@ def main():
                             "binning_lineprofile": binned["launches"],
                             "reverberation_golden": lags["reverberation_golden"]["transfer_functions"]["launches"],
                             "lag_frequency_full": lags["lag_frequency_full"]["launches"],
+                            "ring_corona": lags["ring_corona"]["launches"],
                             "lagtransfer_semianalytic": lags["lagtransfer_semianalytic"]["transfer_functions"][
                                 "launches"
                             ],
@@ -2654,6 +3079,10 @@ def main():
                                 **lags["lag_frequency_full"]["transfer_functions_kernel"],
                             },
                             "lagtransfer_semianalytic": lags["lagtransfer_semianalytic"]["transfer_functions"],
+                            "ring_corona": {
+                                **lags["ring_corona"]["split"]["transferfunctions"],
+                                **lags["ring_corona"]["transfer_functions_kernel"],
+                            },
                             "profiled_lineprofile_f32": lags["profiled_lineprofile"]["f32"]["ctf_kernel"],
                             "profiled_lineprofile_f64": lags["profiled_lineprofile"]["f64"]["ctf_kernel"],
                         },

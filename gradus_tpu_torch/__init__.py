@@ -24,12 +24,16 @@ Module paths and public names mirror `gradus_tpu`. This package imports
   `domain_upper_hemisphere`, `rendergeodesics`, `prerendergeodesics`,
   `EndpointRenderCache`, `apply`, and `lineprofile(...,
   method=BinningMethod())`;
-- the lamp-post corona and the reverberation lags, as plain torch on the
-  metric's device, with their transfer functions on the CUDA integrator:
-  the coronal models and sky samplers, `emissivity_profile`,
-  `lineprofile(profile=...)`, `tracegeodesics(m, model, ...)`,
-  `find_offset_for_radius`, `continuum_time`, `integrate_lagtransfer`,
-  `lag_frequency`, `lagtransfer` and `binflux`.
+- the coronae and the reverberation lags, as plain torch on the metric's
+  device, with their transfer functions on the CUDA integrator: the
+  coronal models and sky samplers, `emissivity_profile` (the lamp post's
+  sweep, the ring and disc coronae's β-slice fans and the adaptive sky's
+  near field), `lineprofile(profile=...)`, `tracegeodesics(m, model,
+  ...)`, `find_offset_for_radius`, the target search
+  (`optimize_for_target`, `refine_for_target`, `is_visible`),
+  `continuum_time`, `integrate_lagtransfer` and its time-dependent form,
+  `lag_frequency`, `lagtransfer` and `binflux`; the host-driven adaptive
+  grids of `camera/adaptive.py`.
 """
 
 from gradus_tpu_torch.camera import (
@@ -46,7 +50,11 @@ from gradus_tpu_torch.camera import (
     PointFunction,
     PolarPlane,
     SinGrid,
+    AdaptiveGrid2D,
+    adaptive_render,
+    adaptive_sky,
     apply,
+    fill_sky_values,
     map_impact_parameters,
     prerendergeodesics,
     rendergeodesics,
@@ -56,14 +64,20 @@ from gradus_tpu_torch.corona import (
     BeamedPointSource,
     BothHemispheres,
     DiscCorona,
+    DiscCoronaProfile,
     EvenSampler,
     LampPostModel,
     LowerHemisphere,
     PowerLawSpectrum,
     RadialDiscProfile,
     RingCorona,
+    RingCoronaProfile,
+    TimeDependentRadialDiscProfile,
     WeierstrassSampler,
+    disc_corona_profile,
     emissivity_profile,
+    ring_corona_profile,
+    ring_corona_profile_hybrid,
     tracecorona,
 )
 from gradus_tpu_torch.geodesics import metric_jacobian
@@ -106,11 +120,16 @@ from gradus_tpu_torch.transfer import (
     CunninghamTransferTable,
     LineProfileModel,
     TransferBranchGrid,
+    closest_approach,
     cunningham_transfer_function,
     find_offset_for_radius,
     impact_parameters_for_radius,
+    impact_parameters_for_target,
     integrate_lagtransfer,
+    integrate_lagtransfer_timedep,
     integrate_lineprofile,
+    is_visible,
+    optimize_for_target,
     interpolated_transfer_branches,
     make_transfer_function_table,
     transferfunctions,

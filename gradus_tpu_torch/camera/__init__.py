@@ -24,3 +24,9 @@ from gradus_tpu_torch.camera.render import (
     prerendergeodesics,
     rendergeodesics,
 )
+from gradus_tpu_torch.camera.adaptive import (
+    AdaptiveGrid2D,
+    adaptive_render,
+    adaptive_sky,
+    fill_sky_values,
+)

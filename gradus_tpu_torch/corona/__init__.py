@@ -22,3 +22,15 @@ from gradus_tpu_torch.corona.emissivity import (
     tracecorona,
     point_source_emissivity_profile,
 )
+from gradus_tpu_torch.corona.extended import (
+    TimeDependentRadialDiscProfile,
+    RingCoronaProfile,
+    DiscCoronaProfile,
+    ring_corona_profile,
+    ring_corona_profile_hybrid,
+    NearFieldBlendedProfile,
+    disc_corona_profile,
+    co_rotating_velocity,
+    stationary_velocity,
+    default_beta_angles,
+)

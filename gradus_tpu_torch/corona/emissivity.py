@@ -7,9 +7,9 @@ Reference: `src/corona/emissivity.jl`, `src/corona/models/lamp-post.jl:77-154`
 `trace_geodesics` (the lockstep solver, plain torch on the metric's device);
 the radial binning is a fixed-size `index_add_`.
 
-Not ported yet, and raising `NotImplementedError`: the ring and disc coronae's
-β-slice profiles without a sampler (`corona/extended.py`, ROADMAP queue A,
-item 9, second half) and `bin_corona_hits(axis_name=...)` (item 12).
+Ring and disc coronae without a sampler dispatch to the β-slice profiles of
+`corona/extended.py`. Not ported yet, and raising `NotImplementedError`:
+`bin_corona_hits(axis_name=...)` (ROADMAP queue A, item 12).
 """
 
 from __future__ import annotations
@@ -247,19 +247,34 @@ def emissivity_profile(
     **kwargs,
 ) -> RadialDiscProfile:
     """Dispatch: the 1D sweep for on-axis point sources when no sampler is
-    given, else Monte-Carlo (reference `emissivity_profile`,
-    emissivity.jl:133-168). The β-slice profiles of ring and disc coronae
-    without a sampler are not ported yet.
+    given; the β-slice arm tracing for ring and disc coronae; else
+    Monte-Carlo (reference `emissivity_profile`, emissivity.jl:133-168 +
+    extended.jl:133-143,186-200).
 
+    A ring defaults to ``near_field="hybrid"`` (the β-slice fan with the
+    adaptive sky's near field, `ring_corona_profile_hybrid`), ``"fan"``
+    opting out; a disc to ``"fan"`` (the ring-stack fan,
+    `disc_corona_profile`), ``"hybrid"`` running one adaptive sky a ring.
     As in the JAX package, ``near_field`` is taken out of ``kwargs`` only on
-    the ring and disc branches without a sampler: on every other branch it
-    reaches the profile function, which refuses it."""
+    these branches: on every other branch it reaches the profile function,
+    which refuses it."""
     if sampler is None and isinstance(model, (LampPostModel, BeamedPointSource)):
         return point_source_emissivity_profile(m, d, model, spectrum, n_samples=n_samples, **kwargs)
-    if sampler is None and isinstance(model, (RingCorona, DiscCorona)):
-        raise NotImplementedError(
-            f"the β-slice emissivity profile of a {type(model).__name__} (corona/extended.py) "
-            "is not ported yet (ROADMAP queue A, item 9, second half); pass a sampler for "
-            "the Monte-Carlo profile"
-        )
+    if sampler is None and isinstance(model, RingCorona):
+        from gradus_tpu_torch.corona.extended import ring_corona_profile, ring_corona_profile_hybrid
+
+        # the plain β-slice fan estimates ε through fold caustics with an
+        # O(√Δβ) error that wobbles ±25% at |r − r_ring| ≲ 1 r_g; the hybrid
+        # serves that band from the slice-free adaptive sky
+        if kwargs.pop("near_field", "hybrid") == "hybrid":
+            return ring_corona_profile_hybrid(m, d, model, spectrum, **kwargs)
+        return ring_corona_profile(m, d, model, spectrum, **kwargs)
+    if sampler is None and isinstance(model, DiscCorona):
+        from gradus_tpu_torch.corona.extended import disc_corona_profile, disc_corona_profile_hybrid
+
+        # each ring's near-field wobble is diluted by the flux-weighted
+        # stack average; a per-ring hybrid runs n_rings adaptive skies
+        if kwargs.pop("near_field", "fan") == "hybrid":
+            return disc_corona_profile_hybrid(m, d, model, spectrum, **kwargs)
+        return disc_corona_profile(m, d, model, spectrum, **kwargs)
     return tracecorona_profile(m, d, model, spectrum, sampler=sampler, n_samples=n_samples, **kwargs)

@@ -557,10 +557,10 @@ def integrate_rays(
         of more steps overwrites the last slot).
     y0_dot : optional (N, S) tangent of ``y0``. Then the result is a pair
         (`IntegrationResult`, its tangent along ``y0_dot``: an
-        `IntegrationResult` whose ``y``, ``lam``, ``y0`` and ``lam0`` are
-        tangents and whose integer fields are the primal's), computed with
-        the tangent carried through the loop explicitly; ``n_save`` is not
-        taken then.
+        `IntegrationResult` whose ``y``, ``lam``, ``y0``, ``lam0``,
+        ``traj`` and ``traj_lam`` are tangents and whose integer fields are
+        the primal's), computed with the tangent carried through the loop
+        explicitly.
 
     Returns an `IntegrationResult` (a pair with ``y0_dot``).
     """
@@ -613,9 +613,9 @@ def integrate_rays(
 
 def _integrate_with_tangent(p: _Problem, body, y0, y0_dot, lam_span, polish: bool):
     """`integrate_rays` with the tangent of ``y0`` carried explicitly: the
-    lifted jvp of the initial carry, of each loop body and of the polish."""
-    if p.n_save > 0:
-        raise NotImplementedError("integrate_rays(..., y0_dot=...) does not take n_save")
+    lifted jvp of the initial carry, of each loop body and of the polish.
+    The trajectory buffers of ``n_save`` are float entries of the carry, so
+    their tangents ride along, scattered at the primal's slots."""
 
     def init(y):
         cf, lam0 = _init_carry(p, y, lam_span)
@@ -639,6 +639,16 @@ def _integrate_with_tangent(p: _Problem, body, y0, y0_dot, lam_span, polish: boo
 
     ints = dict(status=rest["status"], steps=rest["steps"], failed=rest["failed"])
     return (
-        IntegrationResult(y=y_f, lam=lam_f, y0=y0, lam0=lam0, **ints),
-        IntegrationResult(y=y_dot, lam=lam_dot, y0=y0_dot, lam0=torch.zeros_like(lam0), **ints),
+        IntegrationResult(
+            y=y_f, lam=lam_f, y0=y0, lam0=lam0, traj=fl.get("traj"), traj_lam=fl.get("traj_lam"), **ints
+        ),
+        IntegrationResult(
+            y=y_dot,
+            lam=lam_dot,
+            y0=y0_dot,
+            lam0=torch.zeros_like(lam0),
+            traj=fl_dot.get("traj"),
+            traj_lam=fl_dot.get("traj_lam"),
+            **ints,
+        ),
     )

@@ -5,10 +5,12 @@ lockstep solver `integrate_rays`, and `tracegeodesics`.
 The 8-component state is u = (x, v); the RHS is
 ``du/dλ = (v, geodesic_equation(m, x, v))``.
 
+`trace_geodesics_dense` also records each ray's accepted steps.
+
 Not ported yet, and raising `NotImplementedError`: charged traces (the
 Kerr-Newman Lorentz force, ROADMAP queue A, item 10) and
 ``checkpointed=True`` (item 11). `Tracer`, which wraps the reference's
-`CompactedIntegrator`, is not here (item 2).
+`CompactedIntegrator`, is not here (item 13).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ __all__ = [
     "make_geodesic_rhs",
     "domain_upper_hemisphere",
     "trace_geodesics",
+    "trace_geodesics_dense",
     "tracegeodesics",
 ]
 
@@ -144,6 +147,21 @@ def trace_geodesics(
         )
     if trace is None:
         trace = TraceGeodesic(mu=mu, q=q)
+    if chart_inner is None:
+        chart_inner = m.inner_radius() * closest_approach
+    kw = dict(r_inner=chart_inner, r_outer=chart_outer, terminate_fns=terminate_fns, max_steps=max_steps, n_interp=n_interp)
+    single, res, res_dot = _integrate(m, x, v, lam_span, trace, geometry, gtol, constrain, abstol, reltol, v_dot, kw)
+    out = tuple(unpack_solution(r) for r in ((res,) if res_dot is None else (res, res_dot)))
+    if single:
+        out = tuple(gp[0] for gp in out)
+    return out[0] if res_dot is None else out
+
+
+def _integrate(m, x, v, lam_span, trace, geometry, gtol, constrain, abstol, reltol, v_dot, kw):
+    """`integrate_rays` of the geodesics from (``x``, ``v``) on the device of
+    ``x``, with ``geometry``'s events and the dtype's tolerances unless
+    given; ``kw`` its other keywords. Returns ``(single, result, tangent
+    result or None)``, ``single`` when ``x`` and ``v`` are one ray."""
     x, v = _as_observer(x, m), _as_observer(v, m)
     _check_devices(m, geometry, x, v)
     single = x.dim() == 1 and v.dim() == 1
@@ -155,47 +173,71 @@ def trace_geodesics(
         return torch.cat([x, v], dim=-1)
 
     a_tol, r_tol = _config.default_tols(x.dtype)
-    abstol = a_tol if abstol is None else abstol
-    reltol = r_tol if reltol is None else reltol
+    kw = dict(kw, abstol=a_tol if abstol is None else abstol, reltol=r_tol if reltol is None else reltol)
+    if geometry is not None and getattr(geometry, "segment_based", False):
 
-    if chart_inner is None:
-        chart_inner = m.inner_radius() * closest_approach
+        def segment_fn(xa, xb):
+            return geometry.segment_hit(xa, xb)
 
-    crossing_fn = hit_fn = segment_fn = None
-    if geometry is not None:
-        if getattr(geometry, "segment_based", False):
+        kw["segment_fn"] = segment_fn
+    elif geometry is not None:
 
-            def segment_fn(xa, xb):
-                return geometry.segment_hit(xa, xb)
+        def crossing_fn(y):
+            return geometry.crossing_indicator(y[..., 0:4])
 
-        else:
+        def hit_fn(y):
+            return geometry.is_hit(y[..., 0:4], gtol=gtol)
 
-            def crossing_fn(y):
-                return geometry.crossing_indicator(y[..., 0:4])
-
-            def hit_fn(y):
-                return geometry.is_hit(y[..., 0:4], gtol=gtol)
-
-    kw = dict(
-        abstol=abstol,
-        reltol=reltol,
-        r_inner=chart_inner,
-        r_outer=chart_outer,
-        crossing_fn=crossing_fn,
-        hit_fn=hit_fn,
-        segment_fn=segment_fn,
-        terminate_fns=terminate_fns,
-        max_steps=max_steps,
-        n_interp=n_interp,
-    )
+        kw.update(crossing_fn=crossing_fn, hit_fn=hit_fn)
     f = make_geodesic_rhs(m, trace)
     if v_dot is None:
-        gp = unpack_solution(integrate_rays(f, start(v), lam_span, **kw))
-        return gp[0] if single else gp
+        return single, integrate_rays(f, start(v), lam_span, **kw), None
     y0, y0_dot = jvp(start, (v,), (torch.broadcast_to(_as_observer(v_dot, m), v.shape),))
     res, res_dot = integrate_rays(f, y0, lam_span, y0_dot=y0_dot, **kw)
-    gp, gp_dot = unpack_solution(res), unpack_solution(res_dot)
-    return (gp[0], gp_dot[0]) if single else (gp, gp_dot)
+    return single, res, res_dot
+
+
+def trace_geodesics_dense(
+    m: AbstractMetric,
+    x,
+    v,
+    lam_span=(0.0, 2000.0),
+    *,
+    mu: float = 0.0,
+    q: float = 0.0,
+    geometry=None,
+    gtol: float = 1e-2,
+    chart_outer: float = 12000.0,
+    abstol: float | None = None,
+    reltol: float | None = None,
+    max_steps: int = 40000,
+    constrain: bool = True,
+    n_save: int = 512,
+    v_dot=None,
+):
+    """Like `trace_geodesics`, and also records each ray's trajectory at its
+    accepted steps (reference ``save_on=true`` solutions). Returns
+    ``(gp, traj (N, n_save, 8), traj_lam (N, n_save), n_steps)``, where
+    ``n_steps`` counts the saved states (the initial one and the accepted
+    steps, at most ``n_save``; a ray of more steps overwrites the last
+    slot).
+
+    With ``v_dot``, a tangent of ``v`` (``x`` and the metric held fixed),
+    it returns the pair of that tuple and its tangent ``(gp_dot, traj_dot,
+    traj_lam_dot, n_steps)``, the tangent carried through the lockstep loop
+    as `trace_geodesics(..., v_dot=...)` carries it: on a CUDA tensor the
+    loop still replays a CUDA graph."""
+    kw = dict(r_inner=m.inner_radius() * 1.01, r_outer=chart_outer, max_steps=max_steps, n_save=n_save)
+    single, res, res_dot = _integrate(
+        m, x, v, lam_span, TraceGeodesic(mu=mu, q=q), geometry, gtol, constrain, abstol, reltol, v_dot, kw
+    )
+    nsteps = torch.clamp(res.steps + 1, max=n_save)
+
+    def unpack(r):
+        out = (unpack_solution(r), r.traj, r.traj_lam, nsteps)
+        return tuple(o[0] for o in out) if single else out
+
+    return unpack(res) if res_dot is None else (unpack(res), unpack(res_dot))
 
 
 def tracegeodesics(m, x, v=None, lam_span=(0.0, 2000.0), **kwargs):

@@ -15,6 +15,12 @@ import torch
 from gradus_tpu_torch.camera.render import EndpointRenderCache
 from gradus_tpu_torch.config import default_device
 from gradus_tpu_torch.corona.models import BeamedPointSource, DiscCorona, LampPostModel, RingCorona
+from gradus_tpu_torch.corona.extended import (
+    DiscCoronaProfile,
+    NearFieldBlendedProfile,
+    RingCoronaProfile,
+    TimeDependentRadialDiscProfile,
+)
 from gradus_tpu_torch.corona.profiles import RadialDiscProfile
 from gradus_tpu_torch.geometry.discs import (
     CompositeGeometry,
@@ -48,11 +54,15 @@ from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid
 
 __all__ = [
     "corona_model_from_numpy",
+    "disc_corona_profile_from_numpy",
     "from_numpy",
     "geometry_from_numpy",
     "geodesic_points_from_numpy",
+    "near_field_profile_from_numpy",
     "radial_profile_from_numpy",
     "render_cache_from_numpy",
+    "ring_corona_profile_from_numpy",
+    "time_dependent_profile_from_numpy",
     "transfer_grid_from_numpy",
 ]
 
@@ -203,4 +213,50 @@ def radial_profile_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> R
     return RadialDiscProfile(
         **{k: torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=device) for k in ("radii", "eps", "t")},
         n=torch.as_tensor(int(np.asarray(d["n"])), device=device),
+    )
+
+
+def time_dependent_profile_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> TimeDependentRadialDiscProfile:
+    """A `TimeDependentRadialDiscProfile` from a dict of numpy arrays keyed by
+    its field names (``radii``, ``t``, ``eps`` and the valid counts ``n``,
+    with or without a leading ring axis), on ``device`` (the card when
+    None)."""
+    device = default_device(device)
+    return TimeDependentRadialDiscProfile(
+        **{k: torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=device) for k in ("radii", "t", "eps")},
+        n=torch.as_tensor(np.asarray(d["n"]).astype(np.int64), device=device),
+    )
+
+
+def ring_corona_profile_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> RingCoronaProfile:
+    """A `RingCoronaProfile` from ``{"left": ..., "right": ...}``, each the
+    dict `time_dependent_profile_from_numpy` takes."""
+    return RingCoronaProfile(
+        **{arm: time_dependent_profile_from_numpy(d[arm], dtype=dtype, device=device) for arm in ("left", "right")}
+    )
+
+
+def disc_corona_profile_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> DiscCoronaProfile:
+    """A `DiscCoronaProfile` from ``radii``, ``delays`` (numpy arrays) and
+    ``rings`` (the dict `ring_corona_profile_from_numpy` takes, its arrays
+    with a leading ring axis)."""
+    device = default_device(device)
+    return DiscCoronaProfile(
+        radii=torch.as_tensor(np.asarray(d["radii"]), dtype=dtype, device=device),
+        rings=ring_corona_profile_from_numpy(d["rings"], dtype=dtype, device=device),
+        delays=torch.as_tensor(np.asarray(d["delays"]), dtype=dtype, device=device),
+    )
+
+
+def near_field_profile_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> NearFieldBlendedProfile:
+    """A `NearFieldBlendedProfile` from ``fan`` (the dict
+    `ring_corona_profile_from_numpy` takes) and the numpy arrays
+    ``r_nodes``, ``eps_nodes``, ``lo0``, ``lo1``, ``hi0`` and ``hi1``."""
+    device = default_device(device)
+    return NearFieldBlendedProfile(
+        fan=ring_corona_profile_from_numpy(d["fan"], dtype=dtype, device=device),
+        **{
+            k: torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=device)
+            for k in ("r_nodes", "eps_nodes", "lo0", "lo1", "hi0", "hi1")
+        },
     )

@@ -5,16 +5,14 @@ Reference: `src/reverberation.jl`. The impulse response ψ(t) = Σ_g flux(g, t)
 is zero-padded to 1/flo, Fourier transformed, and the lag is
 τ(f) = -atan(Im𝔉ψ/(1+Re𝔉ψ))/(2πf) (reverberation.jl:17-45).
 
-Not ported yet, and raising `NotImplementedError`: the continuum time of
-ring and disc coronae (`transfer/targets.py`, `trace_geodesics_dense`,
-ROADMAP queue A, item 11), time-dependent emissivity profiles in
-`lag_frequency` (`integrate_lagtransfer_timedep`, item 9, second half) and
-`binflux(axis_name=...)` (item 12).
+Not ported yet, and raising `NotImplementedError`: `binflux(axis_name=...)`
+(ROADMAP queue A, item 12).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -34,8 +32,9 @@ from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
 from gradus_tpu_torch.orbits.special_radii import isco as _isco
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.transfer.cunningham import transferfunctions
-from gradus_tpu_torch.transfer.integration import integrate_lagtransfer
+from gradus_tpu_torch.transfer.integration import integrate_lagtransfer, integrate_lagtransfer_timedep
 from gradus_tpu_torch.transfer.solvers import find_offset_for_radius
+from gradus_tpu_torch.transfer.targets import optimize_for_target, refine_for_target
 from gradus_tpu_torch.utils.interp import masked_sorted_interp
 from gradus_tpu_torch.utils.linalg import equatorial_project
 
@@ -50,15 +49,17 @@ def continuum_time(m: AbstractMetric, x, model, rho_factor: float = 1e-3):
     on-axis source this is equivalent to root-finding the ray that crosses the
     source's height plane at the source's cylindrical radius, which is
     `find_offset_for_radius` on one ray (a jvp Newton through the lockstep
-    solver)."""
-    if isinstance(model, (RingCorona, DiscCorona)):
-        raise NotImplementedError(
-            f"the continuum time of a {type(model).__name__} needs transfer/targets.py "
-            "and trace_geodesics_dense, which are not ported yet (ROADMAP queue A, item 11)"
-        )
+    solver). Off-axis sources (ring and disc coronae) go through the
+    batched pattern search `optimize_for_target`, then two Gauss-Newton
+    steps of `refine_for_target`, whose arrival time is differentiable with
+    respect to the source's position."""
     x = _as_observer(x, m)
     x_src, _ = model.sample_position_velocity(m)
     x_src = x_src.to(x.dtype)
+    if isinstance(model, (RingCorona, DiscCorona)):
+        al, be, _, _ = optimize_for_target(x_src[1:4], m, x)
+        _, t_star, _ = refine_for_target(x_src[1:4], m, x, torch.stack([al, be]), iters=2)
+        return t_star
     z_src = x_src[1] * torch.cos(x_src[2])
     rho_src = torch.maximum(x_src[1] * torch.sin(x_src[2]), rho_factor * x_src[1])
     plane = DatumPlane(z_src, dtype=x.dtype, device=x.device)
@@ -132,8 +133,9 @@ def _lag_frequency_model(
 ):
     """Emissivity profile, continuum time, transfer functions
     (``kwargs`` go to `transferfunctions`: pass ``backend="cuda"``) and
-    `integrate_lagtransfer`; returns (tbins, bins, flux) with zero flux as
-    NaN."""
+    `integrate_lagtransfer`, or for a time-dependent profile (ring and disc
+    coronae) `integrate_lagtransfer_timedep`, with ``n_radii`` clamped to
+    400, loudly; returns (tbins, bins, flux) with zero flux as NaN."""
     x = _as_observer(x, m)
     if bins is None:
         bins = LinearGrid()(0.0, 1.5, 500, dtype=x.dtype, device=x.device)
@@ -143,14 +145,22 @@ def _lag_frequency_model(
         radii = LinearGrid()(_isco(m) + 1e-2, 300.0, 100, dtype=x.dtype, device=x.device)
 
     prof = emissivity_profile(m, d, model, spectrum, n_samples=n_samples, **(profile_kwargs or {}))
-    if hasattr(prof, "time_emissivity_curve"):
-        raise NotImplementedError(
-            "lag_frequency with a time-dependent emissivity profile needs "
-            "integrate_lagtransfer_timedep, which is not ported yet (ROADMAP queue A, item 9, second half)"
-        )
     t0 = continuum_time(m, x, model)
     tfs = transferfunctions(m, x, d, radii=radii, **kwargs)
-    flux = integrate_lagtransfer(prof, tfs, bins, tbins, t0=t0, n_radii=n_radii)
+    if hasattr(prof, "time_emissivity_curve"):
+        # ring / disc corona: the flux spread over the ε(t | rₑ) light curve.
+        # The time-dependent integrator materialises an (n_radii × n_tbins ×
+        # n_bins) tensor, so large n_radii requests are clamped, loudly.
+        if n_radii > 400:
+            warnings.warn(
+                f"integrate_lagtransfer_timedep: clamping n_radii {n_radii} → 400 "
+                "(the time-dependent path materialises an n_radii × n_tbins × "
+                "n_bins tensor); pass n_radii <= 400 to silence",
+                stacklevel=2,
+            )
+        flux = integrate_lagtransfer_timedep(prof, tfs, bins, tbins, t0=t0, n_radii=min(n_radii, 400))
+    else:
+        flux = integrate_lagtransfer(prof, tfs, bins, tbins, t0=t0, n_radii=n_radii)
     flux = torch.where(flux == 0, math.nan, flux)
     return tbins, bins, flux
 

@@ -1,7 +1,5 @@
 """Line-profile and lag-transfer integration over transfer-function
-branches (counterpart of `gradus_tpu/transfer/integration.py`;
-`integrate_lagtransfer_timedep`, which needs the extended coronae's
-light curves, waits for ROADMAP queue A, item 9, second half).
+branches (counterpart of `gradus_tpu/transfer/integration.py`).
 
 Reference: `src/transfer-functions/integration.jl`. The flux in energy bin
 [g_lo, g_hi] from an annulus at rₑ is
@@ -21,11 +19,11 @@ import math
 
 import torch
 
-from gradus_tpu_torch.camera.grids import GeometricGrid, InverseGrid
+from gradus_tpu_torch.camera.grids import GeometricGrid, InverseGrid, LinearGrid
 from gradus_tpu_torch.transfer.cunningham import TransferBranchGrid, _interval_index
 from gradus_tpu_torch.utils.quadrature import gauss_legendre
 
-__all__ = ["integrate_lineprofile", "integrate_lagtransfer"]
+__all__ = ["integrate_lineprofile", "integrate_lagtransfer", "integrate_lagtransfer_timedep"]
 
 
 def _branch_value(grid_rows, gstar_axis, gstar_q):
@@ -157,6 +155,48 @@ def integrate_lineprofile(
     return torch.cat([flux_bins, flux_bins.new_zeros(1)])
 
 
+def _branch_fluxes_and_times(br, gstar_axis, g_grid, g_scale, gmin, gmax, h, quadrature_points):
+    """Each branch's bin integrals (nf, nb) and its arrival time per (radius,
+    bin), the branch time averaged over the bin's edges (reference
+    `_time_bins`, integration.jl:103-112): (k_lower, k_upper, t_lower,
+    t_upper)."""
+    quad = gauss_legendre(quadrature_points)
+
+    def branch_S(which):
+        def S(gvals):
+            gstar = (gvals - gmin[:, None]) / (gmax - gmin)[:, None]
+            gstar_c = torch.clamp(gstar, 1e-12, 1.0 - 1e-12)
+            f = _branch_value(br[which], gstar_axis, gstar_c)
+            return gvals**3 * torch.nan_to_num(f) / torch.sqrt(gstar_c * (1.0 - gstar_c))
+
+        return S
+
+    k_lower = _integrate_bins(branch_S("lower_f"), g_grid / g_scale, gmin, gmax, h, quad)
+    k_upper = _integrate_bins(branch_S("upper_f"), g_grid / g_scale, gmin, gmax, h, quad)
+    span_ = (gmax - gmin)[:, None]
+    gstar_e0 = torch.clamp((g_grid[None, :-1] / g_scale - gmin[:, None]) / span_, 1e-6, 1 - 1e-6)
+    gstar_e1 = torch.clamp((g_grid[None, 1:] / g_scale - gmin[:, None]) / span_, 1e-6, 1 - 1e-6)
+
+    def branch_t(which):
+        return 0.5 * (_branch_value(br[which], gstar_axis, gstar_e0) + _branch_value(br[which], gstar_axis, gstar_e1))
+
+    return k_lower, k_upper, branch_t("lower_t"), branch_t("upper_t")
+
+
+def _normalize_lag_flux(out, g_grid):
+    """The reference's matrix `_normalize!` (utils.jl:134-147): each row over
+    its bin's g sum, then total = 1. (The reference's final `flux = flux ./
+    maximum(sum(flux, dims=2))` rebinds a local instead of mutating, so it
+    never reaches the returned array; kept as the JAX package keeps it, the
+    reverberation goldens depending on it.) Padded with a zero row to
+    len(g_grid) rows, the reference's output layout."""
+    gbar = (g_grid[:-1] + g_grid[1:])[:, None]
+    out = out / gbar
+    total = out.sum()
+    out = torch.where(total > 0, out / total, out)
+    return torch.cat([out, out.new_zeros(1, out.shape[1])], dim=0)
+
+
 def integrate_lagtransfer(
     profile,
     tfs: TransferBranchGrid,
@@ -193,30 +233,9 @@ def integrate_lagtransfer(
     t_source_disc = profile.coordtime_at(r_fine) - t0
     weight = dr * r_fine * eps * math.pi / (gmax - gmin)
 
-    quad = gauss_legendre(quadrature_points)
-
-    def branch_S(which):
-        def S(gvals):
-            gstar = (gvals - gmin[:, None]) / (gmax - gmin)[:, None]
-            gstar_c = torch.clamp(gstar, 1e-12, 1.0 - 1e-12)
-            f = _branch_value(br[which], tfs.gstar, gstar_c)
-            return gvals**3 * torch.nan_to_num(f) / torch.sqrt(gstar_c * (1.0 - gstar_c))
-
-        return S
-
-    k_lower = _integrate_bins(branch_S("lower_f"), g_grid / g_scale, gmin, gmax, h, quad)
-    k_upper = _integrate_bins(branch_S("upper_f"), g_grid / g_scale, gmin, gmax, h, quad)
-
-    # arrival time per (radius, bin): branch time averaged over the bin edges
-    # (reference `_time_bins`, integration.jl:103-112)
-    span_ = (gmax - gmin)[:, None]
-    gstar_e0 = torch.clamp((g_grid[None, :-1] / g_scale - gmin[:, None]) / span_, 1e-6, 1 - 1e-6)
-    gstar_e1 = torch.clamp((g_grid[None, 1:] / g_scale - gmin[:, None]) / span_, 1e-6, 1 - 1e-6)
-
-    def branch_t(which):
-        t_e0 = _branch_value(br[which], tfs.gstar, gstar_e0)
-        t_e1 = _branch_value(br[which], tfs.gstar, gstar_e1)
-        return 0.5 * (t_e0 + t_e1) + t_source_disc[:, None]
+    k_lower, k_upper, t_lower, t_upper = _branch_fluxes_and_times(br, tfs.gstar, g_grid, g_scale, gmin, gmax, h, quadrature_points)
+    t_lower = t_lower + t_source_disc[:, None]
+    t_upper = t_upper + t_source_disc[:, None]
 
     nb = g_grid.shape[0] - 1
     nt = t_grid.shape[0]
@@ -230,15 +249,72 @@ def integrate_lagtransfer(
         flat_idx = (torch.arange(nb, device=device)[None, :] * nt + ti).reshape(-1)
         return k.new_zeros(nb * nt).index_add_(0, flat_idx, contrib.reshape(-1)).reshape(nb, nt)
 
-    out = scatter(k_lower, branch_t("lower_t")) + scatter(k_upper, branch_t("upper_t"))
+    out = scatter(k_lower, t_lower) + scatter(k_upper, t_upper)
+    return _normalize_lag_flux(out, g_grid)
 
-    # normalise (reference matrix `_normalize!`, utils.jl:134-147). The
-    # reference's final `flux = flux ./ maximum(sum(flux, dims=2))` rebinds
-    # a local instead of mutating, so it never reaches the returned array:
-    # the effective normalisation is total = 1 only, kept as the JAX
-    # package keeps it (the reverberation goldens depend on it).
-    gbar = (g_grid[:-1] + g_grid[1:])[:, None]
-    out = out / gbar
-    total = out.sum()
-    out = torch.where(total > 0, out / total, out)
-    return torch.cat([out, out.new_zeros(1, nt)], dim=0)
+
+def integrate_lagtransfer_timedep(
+    profile,
+    tfs: TransferBranchGrid,
+    g_grid,
+    t_grid,
+    *,
+    h: float = 2e-8,
+    n_radii: int = 400,
+    n_time: int = 100,
+    quadrature_points: int = 7,
+    rmin=None,
+    rmax=None,
+    g_scale: float = 1.0,
+    t0=0.0,
+):
+    """2D (g, t) flux for a time-dependent emissivity profile (ring or disc
+    corona): per annulus the branch flux is spread over the source-to-disc
+    light curve ε(t | rₑ) instead of a single delay (reference
+    `_integrate_transfer_problem!` for RingCoronaProfile/DiscCoronaProfile,
+    ring.jl:857-950, N_t_steps=100).
+
+    ``profile`` must provide `time_limits_at(r)` and
+    `time_emissivity_curve(r, tq)` for a vector of radii (a
+    `TimeDependentRadialDiscProfile`, `RingCoronaProfile`,
+    `DiscCoronaProfile` or `NearFieldBlendedProfile`). The light curve's
+    ``n_time`` samples are a loop of `index_add_` into the (n_bins·n_t)
+    accumulator, one (n_radii, n_bins) panel a branch and sample. The
+    accumulation order of `index_add_` on a CUDA tensor is not fixed, so
+    the flux may differ in its last bits between runs there."""
+    device, dtype = tfs.radii.device, tfs.radii.dtype
+    g_grid = torch.as_tensor(g_grid, dtype=dtype, device=device)
+    t_grid = torch.as_tensor(t_grid, dtype=dtype, device=device)
+    rmin = tfs.inner_radius() if rmin is None else rmin
+    rmax = tfs.outer_radius() if rmax is None else rmax
+
+    r_fine = GeometricGrid()(rmin, rmax, n_radii, dtype=dtype, device=device)
+    rmin = torch.as_tensor(rmin, dtype=dtype, device=device)
+    dr = torch.diff(r_fine, prepend=(rmin - (r_fine[1] - rmin)).reshape(1))
+    br = tfs.at_radius(r_fine)
+    gmin, gmax = br["gmin"], br["gmax"]
+    weight = dr * r_fine * math.pi / (gmax - gmin)
+
+    k_lower, k_upper, t_lower, t_upper = _branch_fluxes_and_times(br, tfs.gstar, g_grid, g_scale, gmin, gmax, h, quadrature_points)
+
+    # the light curve ε(t | rₑ) sampled on n_time points an annulus
+    tmin, tmax = profile.time_limits_at(r_fine)  # (nf,)
+    frac = LinearGrid()(0.0, 1.0, n_time, dtype=dtype, device=device)
+    tq = tmin[:, None] + frac[None, :] * (tmax - tmin)[:, None]  # (nf, n_time)
+    em = profile.time_emissivity_curve(r_fine, tq)  # (nf, n_time)
+    dt_src = (tmax - tmin) / n_time  # (nf,)
+
+    nb = g_grid.shape[0] - 1
+    nt = t_grid.shape[0]
+    bin_base = torch.arange(nb, device=device)[None, :] * nt
+    out = k_lower.new_zeros(nb * nt)
+    for k in range(n_time):
+        amp = (weight * em[:, k] * dt_src)[:, None]  # (nf, 1)
+        for k_br, t_br in ((k_lower, t_lower), (k_upper, t_upper)):
+            t_arr = t_br + tq[:, k : k + 1] - t0  # (nf, nb)
+            ti = torch.searchsorted(t_grid, t_arr.contiguous())
+            valid = ti < nt
+            ti = torch.clamp(ti, 0, nt - 1)
+            contrib = torch.where(valid, k_br * amp, 0.0)
+            out.index_add_(0, (bin_base + ti).reshape(-1), contrib.reshape(-1))
+    return _normalize_lag_flux(out.reshape(nb, nt), g_grid)

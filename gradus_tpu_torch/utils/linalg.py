@@ -12,6 +12,7 @@ __all__ = [
     "sym4x4_inverse_components",
     "equatorial_project",
     "spinaxis_project",
+    "spherical_to_cartesian",
     "smooth_step_interpolate",
 ]
 
@@ -62,6 +63,16 @@ def spinaxis_project(x, signed: bool = False):
     r, th = x[..., 1], x[..., 2]
     c = torch.cos(th)
     return r * (c if signed else torch.abs(c))
+
+
+def spherical_to_cartesian(x):
+    """(r, θ, φ) 3-vector (or the spatial part of a 4-vector) → cartesian
+    (x, y, z) (reference `src/utils.jl:79-88`)."""
+    if x.shape[-1] == 4:
+        x = x[..., 1:]
+    r, th, ph = x[..., 0], x[..., 1], x[..., 2]
+    sth = torch.sin(th)
+    return torch.stack([r * torch.cos(ph) * sth, r * torch.sin(ph) * sth, r * torch.cos(th)], dim=-1)
 
 
 def smooth_step_interpolate(x, x0, dx=2.5, smoothing_offset=1e4):

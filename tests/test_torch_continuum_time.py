@@ -9,6 +9,7 @@ continuum ray's ~2,500 solver iterations take ~100 s; this file holds the
 port's costliest tests.
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -29,6 +30,8 @@ import gradus_tpu_torch.corona as tc  # noqa: E402
 from gradus_tpu_torch.geometry import DatumPlane  # noqa: E402
 from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
 from gradus_tpu_torch.reverberation import continuum_time  # noqa: E402
+
+port_rev = importlib.import_module("gradus_tpu_torch.reverberation")
 from gradus_tpu_torch.transfer.solvers import find_offset_for_radius, impact_parameters_for_radius  # noqa: E402
 
 A_SPIN = 0.998
@@ -61,15 +64,34 @@ def test_impact_parameters_for_radius_ring_of_nans_beyond_max_iter():
     assert al.shape == be.shape == (4,) and bool(torch.isnan(al).all())
 
 
-def test_continuum_time_matches_jax():
+def test_continuum_time_matches_jax(monkeypatch):
     """The lamp post (h = 5) seen from r = 1000, i = 45°: t₀ at 1e-10
-    relative (measured 9.2e-14); ring and disc coronae raise (A11)."""
+    relative (measured 9.2e-14). Ring and disc coronae go, as in the JAX
+    package, through `optimize_for_target` of the source's position and
+    two steps of `refine_for_target` from its (α, β), whose arrival time
+    is t₀ (here with both stubbed; their parity is
+    tests/test_torch_ring_continuum.py's)."""
     x = [0.0, 1000.0, math.radians(45.0), 0.0]
     tm = KerrMetric(1.0, A_SPIN, device="cpu")
     tj = float(jax_continuum_time(JaxKerr(M=1.0, a=A_SPIN), jnp.asarray(x), jc.LampPostModel()))
     tt = float(continuum_time(tm, torch.tensor(x, dtype=torch.float64), tc.LampPostModel()))
     assert 1000.0 < tt < 1030.0
     assert math.isclose(tt, tj, rel_tol=1e-10)
-    for model in (tc.RingCorona(), tc.DiscCorona()):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            continuum_time(tm, torch.tensor(x, dtype=torch.float64), model)
+    calls = []
+
+    def optimize(target, m, x0):
+        calls.append(("optimize", target.tolist()))
+        return torch.tensor(0.25, dtype=torch.float64), torch.tensor(-0.5, dtype=torch.float64), None, None
+
+    def refine(target, m, x0, ab0, *, iters):
+        calls.append(("refine", target.tolist(), ab0.tolist(), iters))
+        return ab0, torch.tensor(1234.5, dtype=torch.float64), None
+
+    monkeypatch.setattr(port_rev, "optimize_for_target", optimize)
+    monkeypatch.setattr(port_rev, "refine_for_target", refine)
+    for model in (tc.RingCorona(r=3.0, h=4.0), tc.DiscCorona(r=6.0, h=4.0)):
+        calls.clear()
+        t0 = continuum_time(tm, torch.tensor(x, dtype=torch.float64), model)
+        src = model.sample_position_velocity(tm)[0][1:4].tolist()
+        assert float(t0) == 1234.5
+        assert calls == [("optimize", src), ("refine", src, [0.25, -0.5], 2)]

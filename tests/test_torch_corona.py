@@ -13,6 +13,7 @@ at level 0, which keeps its arithmetic as written (no FMA contraction), as
 tests/test_torch_trace_geodesics.py does.
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -357,14 +358,22 @@ def test_emissivity_physics(sweep, monte_carlo):
     assert -4.0 < math.log(e[1] / e[0]) / math.log(4.0) < -2.0
 
 
-def test_emissivity_dispatch_and_unported_branches(kerr):
-    """Ring and disc coronae without a sampler need `corona/extended.py`
-    (ROADMAP A9, second half) and raise; with a sampler they run the
-    Monte-Carlo profile. `bin_corona_hits(axis_name=...)` raises (A12)."""
+def test_emissivity_dispatch_and_unported_branches(kerr, monkeypatch):
+    """Ring and disc coronae without a sampler go to `corona/extended.py`
+    (a ring to the near-field hybrid unless ``near_field="fan"``, a disc to
+    the fan stack unless ``near_field="hybrid"``; here with the profile functions
+    stubbed, their parity is tests/test_torch_extended_corona.py's); with a
+    sampler they run the Monte-Carlo profile. `bin_corona_hits(axis_name=...)`
+    raises (A12)."""
     tm, td = kerr["tm"], ThinDisc(0.0, 100.0, device="cpu")
-    for model in (tc.RingCorona(), tc.DiscCorona()):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tc.emissivity_profile(tm, td, model)
+    ext = importlib.import_module("gradus_tpu_torch.corona.extended")
+    for name in ("ring_corona_profile", "ring_corona_profile_hybrid", "disc_corona_profile", "disc_corona_profile_hybrid"):
+        monkeypatch.setattr(ext, name, lambda m, d, model, spectrum, _name=name, **kw: (_name, kw))
+    ring, disc = tc.RingCorona(), tc.DiscCorona()
+    assert tc.emissivity_profile(tm, td, ring, n_beta=3) == ("ring_corona_profile_hybrid", dict(n_beta=3))
+    assert tc.emissivity_profile(tm, td, ring, near_field="fan") == ("ring_corona_profile", {})
+    assert tc.emissivity_profile(tm, td, disc, n_rings=2) == ("disc_corona_profile", dict(n_rings=2))
+    assert tc.emissivity_profile(tm, td, disc, near_field="hybrid") == ("disc_corona_profile_hybrid", {})
     prof = tracecorona_profile(tm, td, tc.RingCorona(r=4.0, h=3.0), n_samples=32, lam_max=400.0, n_bins=8)
     assert 0 < int(prof.n) <= 8
     with pytest.raises(NotImplementedError, match="item 12"):

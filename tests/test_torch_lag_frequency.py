@@ -136,10 +136,13 @@ def test_lag_frequency_matches_jax(runs):
     assert float(tau_t[low].mean()) > 0
 
 
-def test_unported_lag_paths_raise():
-    """Time-dependent profiles (A9, second half) and the `cuda` transfer
-    functions of a thick disc (whose kernel form is in ROADMAP queue B)
-    raise before any trace."""
+def test_unported_lag_paths_raise(monkeypatch):
+    """A time-dependent profile (a ring's or disc's) goes to
+    `integrate_lagtransfer_timedep` with ``n_radii`` clamped to 400, with a
+    warning (here with the pieces stubbed; the parity is
+    tests/test_torch_ring_lags.py's); the `cuda` transfer functions of a
+    thick disc (whose kernel form is in ROADMAP queue B) raise before any
+    trace."""
     m = KerrMetric(1.0, A_SPIN, device="cpu")
     x = torch.tensor(X_OBS, dtype=torch.float64)
 
@@ -147,13 +150,20 @@ def test_unported_lag_paths_raise():
         def time_emissivity_curve(self):
             pass
 
-    orig = port_rev.emissivity_profile
-    port_rev.emissivity_profile = lambda *a, **k: Timed()
-    try:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            port_rev.lag_frequency(m, x, ThinDisc(0.0, math.inf, device="cpu"), tc.LampPostModel())
-    finally:
-        port_rev.emissivity_profile = orig
+    calls = []
+
+    def timedep(prof, tfs, bins, tbins, *, t0, n_radii):
+        calls.append((type(prof).__name__, tfs, float(t0), n_radii))
+        return torch.zeros(len(bins), len(tbins), dtype=torch.float64)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(port_rev, "emissivity_profile", lambda *a, **k: Timed())
+        mp.setattr(port_rev, "continuum_time", lambda *a: torch.tensor(7.0, dtype=torch.float64))
+        mp.setattr(port_rev, "transferfunctions", lambda *a, **k: "tfs")
+        mp.setattr(port_rev, "integrate_lagtransfer_timedep", timedep)
+        with pytest.warns(UserWarning, match="clamping n_radii 6000"):
+            _, _, flux = port_rev.lag_frequency(m, x, ThinDisc(0.0, math.inf, device="cpu"), tc.RingCorona())
+    assert calls == [("Timed", "tfs", 7.0, 400)] and bool(torch.isnan(flux).all())
     with pytest.raises(NotImplementedError, match="thick discs"):
         port_rev.transferfunctions(
             m, x, ShakuraSunyaev.from_metric(m), radii=torch.tensor([4.0, 8.0], dtype=torch.float64), backend="cuda"

@@ -6,6 +6,7 @@ a transfer table, and the binned flux. No integrator runs here.
 """
 
 import dataclasses
+import importlib
 import math
 
 import numpy as np
@@ -34,7 +35,7 @@ from gradus_tpu.transfer.tables import LineProfileModel as JaxLineProfileModel  
 from gradus_tpu.utils.quadrature import gauss_legendre as jax_gauss_legendre  # noqa: E402
 
 import gradus_tpu_torch.camera.grids as grids  # noqa: E402
-from gradus_tpu_torch.corona import DiscCorona, RingCorona, emissivity_profile  # noqa: E402
+from gradus_tpu_torch.corona import AnalyticRadialDiscProfile, DiscCorona, RingCorona, emissivity_profile  # noqa: E402
 from gradus_tpu_torch.camera.planes import CartesianPlane, PolarPlane  # noqa: E402
 from gradus_tpu_torch.geodesics.equation import metric_jacobian  # noqa: E402
 from gradus_tpu_torch.geometry import DatumPlane, ShakuraSunyaev  # noqa: E402
@@ -317,18 +318,30 @@ def test_binned_flux_matches_jax():
 
 
 @pytest.mark.parametrize("case", ["binning_method", "profile", "axis_name", "xla_backend"])
-def test_unported_line_profile_paths_raise(case):
+def test_unported_line_profile_paths_raise(case, monkeypatch):
+    """`binned_flux(axis_name=...)` and a thick disc's transfer functions on
+    the `cuda` backend raise. The ring's and the disc's profiles without a
+    sampler (``binning_method``, ``profile``) raised until corona/extended.py
+    was ported: now `emissivity_profile` dispatches them there (its
+    profile functions stubbed here with r⁻³; their parity is
+    tests/test_torch_extended_corona.py's and tests/test_torch_disc_corona.py's)
+    and the binned line profile, on a 4 × 4 plane, takes the profile's ε."""
     m = KerrMetric(1.0, A_SPIN, device="cpu")
     x = torch.tensor([0.0, 1000.0, math.radians(60.0), 0.0], dtype=torch.float64)
     d = DatumPlane(0.0, device="cpu")
+    if case in ("binning_method", "profile"):
+        extended = importlib.import_module("gradus_tpu_torch.corona.extended")
+        built = []
+        for name in ("ring_corona_profile_hybrid", "disc_corona_profile"):
+            monkeypatch.setattr(extended, name, lambda *a, _n=name, **k: built.append(_n) or AnalyticRadialDiscProfile(lambda r: r**-3.0))
+        prof = emissivity_profile(m, d, RingCorona() if case == "binning_method" else DiscCorona())
+        plane = PolarPlane(grids.GeometricGrid(), Nr=4, Ntheta=4, r_max=30.0, dtype=torch.float64, device="cpu")
+        bins, flux = lineprofile(m, x, d, method=BinningMethod(), profile=prof, plane=plane)
+        assert built == ["ring_corona_profile_hybrid" if case == "binning_method" else "disc_corona_profile"]
+        assert bool(torch.isfinite(flux).all()) and math.isclose(float(flux.sum()), 1.0, rel_tol=1e-12)
+        return
     with pytest.raises(NotImplementedError):
-        # `profile=` is ported (tests/test_torch_lineprofile_profile.py); the
-        # ring and disc coronae's profiles without a sampler are not (A9)
-        if case == "binning_method":
-            lineprofile(m, x, d, method=BinningMethod(), profile=emissivity_profile(m, d, RingCorona()))
-        elif case == "profile":
-            lineprofile(m, x, d, profile=emissivity_profile(m, d, DiscCorona()))
-        elif case == "axis_name":
+        if case == "axis_name":
             binned_flux(m, None, None, None, None, min_re=1, max_re=2, lam_max=1, redshift_pf=None, axis_name="i")
         else:
             # a thick disc's transfer functions, on the backend that refuses it

@@ -11,8 +11,12 @@ captured graph that runs the body it was given.
 
 Marked `cuda` (they skip without a card): the captured loop against the
 uncaptured one (`cuda_graphs(False)`), bit for bit, for a primal and a jvp
-trace, every metric class and every geometry of the port; and a
-`torch.func` transform around a captured loop raises.
+trace, every metric class and every geometry of the port, the dense
+trace and its tangent of `refine_for_target` (and `torch.func.jvp` of its
+arrival time, whose traces replay captured within the transform), a
+ring's and a disc's fan profiles, and the adaptive sky's trace of 2N rays
+with their tangents (each copy's tangent bit for bit that of a trace of
+its own); and a `torch.func` transform around a captured loop raises.
 
     python -m pytest --noconftest -m cuda tests/test_torch_lockstep_graph.py
 """
@@ -265,3 +269,111 @@ def test_transform_around_a_captured_loop_raises(dev):
         torch.func.jvp(_hit_x(m, x, A, d), (B,), (torch.ones_like(B),))
     with cuda_graphs(False):
         torch.func.jvp(_hit_x(m, x, A, d), (B,), (torch.ones_like(B),))
+
+
+def _branches_equal(a, b):
+    for arm in ("left", "right"):
+        for f in ("radii", "t", "eps", "n"):
+            assert torch.equal(getattr(getattr(a, arm), f), getattr(getattr(b, arm), f)), (arm, f)
+
+
+@pytest.mark.cuda
+def test_captured_dense_tangent_matches_uncaptured(dev):
+    """The dense trace (64 saved states) of two rays toward a ring corona's
+    source at r = 1000, each with its own tangent (`refine_for_target`'s
+    Gauss-Newton step), captured against uncaptured bit for bit."""
+    from gradus_tpu_torch.transfer.targets import _dense
+
+    m = KerrMetric(1.0, 0.5, device=dev)
+    x = torch.tensor([0.0, 1000.0, math.radians(45.0), 0.0], dtype=torch.float64, device=dev)
+    ab = torch.tensor([0.08, 0.70], dtype=torch.float64, device=dev)
+    eye = torch.eye(2, dtype=torch.float64, device=dev)
+    (p1, d1), (p2, d2), stats = _trace_both(
+        lambda: _dense(m, x, ab[0].repeat(2), ab[1].repeat(2), 2000.0, 64, 0.0, 2000.0, (eye[0], eye[1]))
+    )
+    _equal(p1[0], p2[0])
+    _equal(d1[0], d2[0])
+    for a, b in zip(p1[1:] + d1[1:3], p2[1:] + d2[1:3]):
+        assert torch.equal(a, b)
+    assert stats["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_captured_ring_and_disc_profiles_match_uncaptured(dev):
+    """A ring's fan (4 slices × 48 angles, 4 golden-section steps) and a
+    two-ring disc stack (3 × 32, 2 steps), Kerr a = 0.5, ThinDisc(0, 100):
+    every branch captured against uncaptured bit for bit, one capture a
+    trace."""
+    from gradus_tpu_torch.corona import DiscCorona, RingCorona, emissivity_profile
+
+    m = KerrMetric(1.0, 0.5, device=dev)
+    d = td.ThinDisc(0.0, 100.0, device=dev)
+    ring, want, stats = _trace_both(
+        lambda: emissivity_profile(m, d, RingCorona(r=3.0, h=4.0), n_beta=4, n_angles=48, n_refine=4, near_field="fan")
+    )
+    _branches_equal(ring, want)
+    assert stats["captures"] == 1 + 2 + 4
+    disc, want, stats = _trace_both(
+        lambda: emissivity_profile(m, d, DiscCorona(r=6.0, h=4.0), n_rings=2, n_beta=3, n_angles=32, n_refine=2)
+    )
+    _branches_equal(disc.rings, want.rings)
+    assert stats["captures"] == 1 + 2 + 2
+
+
+@pytest.mark.cuda
+def test_corona_sky_two_tangents_in_one_trace_on_the_card(dev):
+    """`CoronaSkyTracer`'s trace of 2N rays (N = 24: no multiple of a
+    vector's width, as the CPU test needs) gives each copy's tangent bit for
+    bit as a trace of its own, captured; and the whole round captured
+    against uncaptured."""
+    from gradus_tpu_torch.corona import RingCorona
+    from gradus_tpu_torch.corona.adaptive import CoronaSkyTracer
+    from gradus_tpu_torch.corona.samplers import sky_angles_to_velocity
+    from gradus_tpu_torch.integrate import domain_upper_hemisphere
+
+    m = KerrMetric(1.0, 0.5, device=dev)
+    d = td.ThinDisc(0.0, 100.0, device=dev)
+    tracer = CoronaSkyTracer(m, d, RingCorona(r=3.0, h=4.0))
+    rng = np.random.default_rng(2)
+    th = torch.as_tensor(np.arccos(rng.uniform(-1, 1, 24)), device=dev)
+    ph = torch.as_tensor(rng.uniform(-np.pi, np.pi, 24), device=dev)
+    (vals, _), (want, _), stats = _trace_both(lambda: tracer._eval(th, ph))
+    for k in vals:
+        assert torch.equal(torch.nan_to_num(vals[k]), torch.nan_to_num(want[k])), k
+    assert stats["captures"] == 1
+    v, v_dot = jvp(
+        lambda a, b: sky_angles_to_velocity(m, tracer.x_src, tracer.v_src, a, b),
+        (th, ph),
+        (torch.zeros_like(th), torch.ones_like(ph)),
+    )
+    gp, gp_dot = trace_geodesics(
+        m, tracer.x_src.expand_as(v), v, (0.0, 1e4), geometry=d, chart_outer=12000.0,
+        terminate_fns=(domain_upper_hemisphere(),), constrain=False, v_dot=v_dot,
+    )
+    hit = gp.status == StatusCodes.IntersectedWithGeometry
+    assert int(hit.sum()) >= 8
+    assert torch.equal(vals["phi"][hit], gp.x[hit, 3])
+    from gradus_tpu_torch.utils import equatorial_project
+
+    _, dr_dph = jvp(equatorial_project, (gp.x,), (gp_dot.x,))
+    assert torch.equal(vals["dr_dph"][hit], dr_dph.abs()[hit])
+
+
+@pytest.mark.cuda
+def test_arrival_time_jvp_replays_captured_loops(dev):
+    """`torch.func.jvp` of `refine_for_target`'s arrival time with respect
+    to the target runs its traces captured (inside its autograd.Function's
+    forward, on plain tensors), and gives the uncaptured run's value and
+    derivative bit for bit."""
+    from gradus_tpu_torch.transfer.targets import refine_for_target
+
+    m = KerrMetric(1.0, 0.5, device=dev)
+    x = torch.tensor([0.0, 1000.0, math.radians(45.0), 0.0], dtype=torch.float64, device=dev)
+    target = torch.tensor([5.0, math.atan2(3.0, 4.0), 0.0], dtype=torch.float64, device=dev)
+    ab0 = torch.tensor([0.08, 0.70], dtype=torch.float64, device=dev)
+    e_r = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=dev)
+    (t, dt), (t2, dt2), stats = _trace_both(
+        lambda: torch.func.jvp(lambda p: refine_for_target(p, m, x, ab0, iters=2)[1], (target,), (e_r,))
+    )
+    assert torch.equal(t, t2) and torch.equal(dt, dt2)
+    assert stats["captures"] == 3 and math.isfinite(float(dt)) and float(dt) < 0
