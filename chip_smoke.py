@@ -62,13 +62,30 @@ through their entry points, none of which may call the plain-torch polish:
 - the `xla` transfer functions (the jvp Newton through the lockstep
   solver, the default backend) at full size: `ctf_xla` (`bench_ctf`'s thin
   disc: m1, and against the `cuda` backend) and `thick_disc` (a
-  `ShakuraSunyaev` disc at 10 golden-section steps, not 15, against
-  `lineprofile(method=BinningMethod())`),
+  `ShakuraSunyaev` disc against `lineprofile(method=BinningMethod())`),
+  at 6 and 4 golden-section steps, not 15 and 10, so that the script ends
+  inside its time limit,
   and `thick_disc_golden` (tests/test_transfer.py's thick-disc golden in
-  f64, its samples against the JAX package's and the port's CPU runs).
-They and `trace_api` run in worker processes (`WORKERS`) beside the main
-one's `kernel_vs_plain`, `render_api` and `binning_api`, after the phases
-that time kernels. (The workers share the card: captured loops from two
+  f64, its samples against the JAX package's and the port's CPU runs);
+- the special traces on the lockstep solver, each at full size on the
+  card with its loops captured and a subset of 512 rays held against the
+  same call on CPU tensors (`TRACES`, alone on the card after the
+  kernel-timed phases; their CPU subsets in the worker `traces_cpu`):
+  `charged` (65,536 charged particles on Kerr-Newman's charged circular
+  orbits, f64, and `solve_equatorial_circular_orbit` at 64 radii),
+  `shaped_chart` (`event_horizon_chart` as the inner chart at 1024², Kerr
+  against the scalar chart and Johannsen-Psaltis), `first_order` (the
+  Mino-time tracer against the second-order one at 1024², f64), `windings`
+  and `radiative_transfer` (1024²; the charged and radiative-transfer
+  loops also held captured against uncaptured bit for bit) and `mesh` (a
+  triangulated annulus at 256² against the thin disc, and in f32 on the
+  pixels where its f32 trace loses disc hits), in f64 but
+  Johannsen-Psaltis and the mesh's f32 trace (each phase's docstring says
+  why not f32).
+The phases from the lags on (but the special traces' card work), with
+`kernel_vs_plain` and `trace_api`, run in worker processes (`WORKERS`)
+beside the main one's `render_api` and `binning_api`, after the phases
+that time kernels and the special traces' card work. (The workers share the card: captured loops from two
 processes take turns on it.)
 
 Every phase prints one line; any failure raises, so the exit code is
@@ -76,7 +93,7 @@ non-zero. The last line is a JSON object with the device.
 
     python3 chip_smoke.py
 
-A worker's phases alone (a name of `WORKERS`):
+A worker's phases alone (a name of `WORKERS`, or `traces` for `TRACES`):
 `python3 chip_smoke.py --worker NAME OUT.json`.
 
 Needs one CUDA device and the CUDA toolkit (nvcc). Imports no JAX.
@@ -113,7 +130,13 @@ from gradus_tpu_torch.camera import (
     rendergeodesics,
 )
 from gradus_tpu_torch.camera.render import _pixel_velocities
-from gradus_tpu_torch.geometry import DatumPlane, ShakuraSunyaev, ThinDisc
+from gradus_tpu_torch.geometry import (
+    AbstractThickAccretionDisc,
+    DatumPlane,
+    MeshAccretionGeometry,
+    ShakuraSunyaev,
+    ThinDisc,
+)
 from gradus_tpu_torch.integrate import StatusCodes, cuda_solver
 from gradus_tpu_torch.integrate.cuda_solver import (
     CudaTracer,
@@ -123,7 +146,14 @@ from gradus_tpu_torch.integrate.cuda_solver import (
 from gradus_tpu_torch.integrate import cuda_graphs
 from gradus_tpu_torch.integrate import solver as lockstep_solver
 from gradus_tpu_torch.integrate.solver import _Problem
-from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs, trace_geodesics
+from gradus_tpu_torch.integrate.tracing import (
+    PoloidalShape,
+    event_horizon_chart,
+    make_geodesic_rhs,
+    trace_geodesics,
+    trace_radiative_transfer,
+    trace_windings,
+)
 from gradus_tpu_torch.utils.jvp import jvp as lifted_jvp
 from gradus_tpu_torch import metrics
 from gradus_tpu_torch.lineprofile import BinningMethod, TransferFunctionMethod, binned_flux, lineprofile
@@ -132,7 +162,9 @@ from gradus_tpu_torch.metrics import (
     JohannsenPsaltisMetric,
     KerrMetric,
     KerrNewmanMetric,
+    trace_geodesics_first_order,
 )
+from gradus_tpu_torch.orbits import CircularOrbits, charged_circular_orbit_omega, solve_equatorial_circular_orbit
 from gradus_tpu_torch.corona import (
     BothHemispheres,
     DiscCorona,
@@ -154,6 +186,7 @@ from gradus_tpu_torch.transfer import (
 )
 from gradus_tpu_torch.transfer.solvers import _make_trace_to_disc
 from gradus_tpu_torch.utils import equatorial_project
+from gradus_tpu_torch.utils.interp import linear_interp
 
 # the modules, which the package's functions of the same names shadow
 lineprofile_module = importlib.import_module("gradus_tpu_torch.lineprofile")
@@ -1956,8 +1989,8 @@ def phase_ctf_xla(dev, num_re=100, N_extrema=15, N=80):
     0.1:1.5×180), with no launch of B1: finite, Σ = 1 ± 1e-4, bin by bin
     within 2% (median over the bins above 1e-3 of the peak) of the
     ``backend="cuda"`` profile at the same configuration, and at the full
-    configuration (100 radii, 15 steps) m1 within 1e-3 of the JAX package's
-    f64 CPU value. Forward-mode traces, lockstep iterations, ms an
+    configuration (100 radii, 80 angles, whatever the steps) m1 within
+    1e-3 of the JAX package's f64 CPU value. Forward-mode traces, lockstep iterations, ms an
     iteration and the captures' host seconds."""
     dtype = torch.float32
     m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
@@ -1971,7 +2004,7 @@ def phase_ctf_xla(dev, num_re=100, N_extrema=15, N=80):
     cuda_flux = lineprofile(m, x, d, backend="cuda", **kw)[1].double().cpu().numpy()
     f = flux.double().cpu().numpy()
     m1 = _m1(f, bins.double().cpu().numpy())
-    full = num_re == 100 and N_extrema == 15 and N == 80
+    full = num_re == 100 and N == 80
     res = dict(
         num_re=num_re, angles=N, N_extrema=N_extrema, full_size=full, seconds_per_profile=seconds,
         seconds_per_radius=seconds / num_re, traces=steps.calls, jvp_traces=steps.tangent_calls,
@@ -2078,7 +2111,7 @@ def phase_thick_disc(dev, num_re=100, N_extrema=15, N=80, binned_plane=None):
     `lineprofile(method=BinningMethod())` on the same disc: at 100 radii ×
     80 angles, a median gap of at most 5% over the bins holding ≥ 1e-3 of
     the flux. ``num_re``, ``N_extrema`` and ``N`` cut the line profile's
-    transfer functions (the script's run takes 10 golden-section steps, not
+    transfer functions (the script's run takes 4 golden-section steps, not
     15, to end inside its time limit), ``binned_plane`` (a `PolarPlane`) the
     binned profile's rays."""
     dtype = torch.float32
@@ -2772,6 +2805,712 @@ def phase_disc_corona(dev):
     return res
 
 
+# --- the special traces on the lockstep solver (`TRACES`) ---------------------------
+#
+# Each phase runs its product at full size on the card (every loop captured)
+# and returns its result with a check of 512 of its rays against the same
+# call on CPU tensors. The CPU's side is the worker ``traces_cpu``
+# (`phase_cpu_subsets`), which makes the same inputs on the CPU and runs
+# beside the other workers, so that the CPU's time does not hold the card.
+
+TRACES_SIDE = 1024
+TRACES_SUBSET = 512
+SLAB_MAX_STEPS = 1000
+# the radiative transfer's captured loop against the uncaptured one runs
+# this many iterations (an uncaptured iteration costs ~70 ms)
+SLAB_GRAPH_AB_STEPS = 160
+TRACES_CHART_OUTER = 1100.0
+MESH_SIDE = 256
+MESH_N_PHI = 64
+# The f32 mesh trace runs on every MESH_F32_STRIDE-th pixel of the
+# MESH_SIDE² grid; away from the rims it may lose no disc hit: the full f32
+# image lost none (on an H100, PERF.md §5).
+MESH_F32_STRIDE = 16
+MESH_F32_OFF_RIM_LOSSES = 0
+# The first-order tracer's hits inside r = 3.8, where its gap to the
+# second-order trace grows in both packages (scripts/torch_reference_witness.py
+# first_order, CPU, f64): the share beyond 5e-3 (the JAX package's 60% at
+# 64², 58% at 128²) and the largest gap (the JAX package's on the card's 8
+# worst rays 0.119–0.127, the card's within 2e-4 of it).
+FIRST_ORDER_NEAR_HOLE_SHARE = 0.65
+FIRST_ORDER_NEAR_HOLE_GAP = 0.13
+
+
+class _EmittingSlab(AbstractThickAccretionDisc):
+    """Top-hat emitting slab |z| < 1 between ρ ∈ [8, 12], j_ν = 1
+    (tests/test_rt_windings.py:30-40), optically thick."""
+
+    def __init__(self, inner_r=8.0, outer_r=12.0, *, dtype=torch.float64, device=None):
+        super().__init__()
+        self._buffers_from(dtype, device, inner_r=inner_r, outer_r=outer_r)
+
+    def cross_section(self, rho):
+        return torch.where((rho > self.inner_r) & (rho < self.outer_r), 1.0, -1.0)
+
+    def emission_coefficient(self, x4, nu):
+        return torch.ones(x4.shape[:-1], dtype=x4.dtype, device=x4.device)
+
+
+def _annulus_triangles(n_phi=96, r_in=6.0, r_out=50.0):
+    """A triangulated annulus r_in ≤ ρ ≤ r_out in the equatorial plane:
+    ``n_phi`` quads of two triangles, each front-facing upward (the JSF
+    test is one-sided) and once more reversed, facing down: (4·n_phi, 3, 3)."""
+    phi = np.linspace(0.0, 2 * math.pi, n_phi + 1)
+    ring = lambda r: np.stack([r * np.cos(phi), r * np.sin(phi), np.zeros_like(phi)], -1)
+    inner, outer = ring(r_in), ring(r_out)
+    k = np.arange(n_phi)
+    up = np.concatenate(
+        [np.stack([inner[k], outer[k], outer[k + 1]], 1), np.stack([inner[k], outer[k + 1], inner[k + 1]], 1)]
+    )
+    normal_z = np.cross(up[:, 0] - up[:, 2], up[:, 1] - up[:, 2])[:, 2]
+    up = np.where((normal_z > 0)[:, None, None], up, up[:, [1, 0, 2]])
+    return np.concatenate([up, up[:, [1, 0, 2]]])
+
+
+def _shared_edge_distance(rho, phi, n_phi, r_in=6.0, r_out=50.0):
+    """Distance in the plane from each (ρ, φ) (numpy arrays) to the nearest
+    edge that two triangles of `_annulus_triangles` share: the radial edges
+    between quads and each quad's diagonal."""
+    ang = np.linspace(0.0, 2 * math.pi, n_phi + 1)
+    p = np.stack([rho * np.cos(phi), rho * np.sin(phi)], -1)[..., None, :]
+    ring = lambda r: np.stack([r * np.cos(ang), r * np.sin(ang)], -1)
+    k = np.arange(n_phi)
+    a = np.concatenate([ring(r_in)[k], ring(r_in)[k]])
+    b = np.concatenate([ring(r_out)[k], ring(r_out)[k + 1]])
+    t = np.clip(np.sum((p - a) * (b - a), -1) / np.sum((b - a) ** 2, -1), 0.0, 1.0)
+    return np.linalg.norm(a + t[..., None] * (b - a) - p, axis=-1).min(-1)
+
+
+def _mesh_args(n_phi=None):
+    """`MeshAccretionGeometry`'s arguments for the annulus of ``n_phi``
+    quads: its bounding box widened by 10 and ``proximity2`` the square of
+    its largest triangle's size plus 10."""
+    tri = _annulus_triangles(MESH_N_PHI if n_phi is None else n_phi)
+    size = max(np.linalg.norm(tri[:, i] - tri[:, j], axis=-1).max() for i, j in ((0, 1), (0, 2), (1, 2)))
+    flat = tri.reshape(-1, 3)
+    return dict(triangles=tri, bbox_min=flat.min(0) - 10.0, bbox_max=flat.max(0) + 10.0, proximity2=(size + 10.0) ** 2)
+
+
+def _traces_rays(dtype, dev, side, metric=None, outer_r=50.0):
+    """The flagship camera at side² pixels (`_pixel_grid`): (metric, disc or
+    None, x, v, A, B)."""
+    m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev) if metric is None else metric
+    d = None if outer_r is None else ThinDisc(0.0, outer_r, dtype=dtype, device=dev)
+    x = torch.tensor(X_OBS, dtype=dtype, device=dev)
+    A, B = _pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, dtype, dev)
+    return m, d, x, map_impact_parameters(m, x, A, B), A, B
+
+
+_SCALAR_TRACES = {}
+
+
+def _flagship_scalar_trace(dev, side):
+    """The second-order f64 trace of side² flagship pixels against
+    ThinDisc(0, 50) with the scalar chart (chart_outer `TRACES_CHART_OUTER`):
+    (points, its record), traced once for `phase_shaped_chart` and
+    `phase_first_order`, which both compare against it."""
+    if side not in _SCALAR_TRACES:
+        m, d, x, v, _, _ = _traces_rays(torch.float64, dev, side)
+        _SCALAR_TRACES[side] = _lockstep_run(
+            "second-order scalar-chart trace",
+            lambda: trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d, chart_outer=TRACES_CHART_OUTER),
+        )
+    return _SCALAR_TRACES[side]
+
+
+def _subset(n, k=TRACES_SUBSET):
+    """``k`` pixel indices spread evenly over ``n`` (raster order), on the CPU."""
+    return torch.linspace(0, n - 1, k, dtype=torch.float64).round().long()
+
+
+def _slab_subset(side):
+    """The radiative transfer's CPU subset: 512 pixels spread evenly over
+    those whose image-plane ellipse radius √(α² + (β/cos i)²) lies in
+    [7, 13], the slab's image (on the CPU)."""
+    A, B = _pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, torch.float64, "cpu")
+    ell = torch.sqrt(A * A + (B / math.cos(X_OBS[2])) ** 2)
+    band = torch.nonzero((ell >= 7.0) & (ell <= 13.0)).flatten()
+    return band[_subset(len(band))]
+
+
+def _lockstep_run(what, fn):
+    """fn() on the card with every lockstep loop captured (`_require_captured`),
+    and no route to the integrator kernel: (output, its seconds, lockstep
+    loops and iterations, ms an iteration and graph counters)."""
+    with _NoKernelRoute(), _Lockstep() as steps:
+        out, seconds = _trace_seconds(fn)
+    _require_captured(what, steps)
+    rec = dict(
+        seconds=seconds, loops=steps.calls, iterations=steps.iters,
+        ms_per_iteration=seconds * 1e3 / max(steps.iters, 1), graph=steps.graph,
+    )
+    return out, rec
+
+
+def _numpy_points(gp):
+    return {k: getattr(gp, k).cpu().numpy() for k in ("status", "x", "v", "lam_max") if getattr(gp, k) is not None} | (
+        {} if gp.aux is None else {"aux": gp.aux.cpu().numpy()}
+    )
+
+
+def _cpu_inputs(kind):
+    """The inputs of CPU subset ``kind``, made on the CPU as its phase makes
+    them on the card: numpy arrays."""
+    cpu = torch.device("cpu")
+    if kind == "charged":
+        m = KerrNewmanMetric(1.0, 0.5, 0.3, device=cpu)
+        half = CHARGED_PARTICLES // 2
+        idx = _subset(half, TRACES_SUBSET // 2)
+        starts = [_charged_orbits(m, half, s) for s in (CHARGED_Q, -CHARGED_Q)]
+        return dict(
+            x=torch.cat([x[idx] for x, _ in starts]).numpy(), v=torch.cat([v[idx] for _, v in starts]).numpy(),
+            q=np.repeat([CHARGED_Q, -CHARGED_Q], len(idx)),
+        )
+    dtype = torch.float32 if kind == "chart_jp" else torch.float64
+    metric = JohannsenPsaltisMetric(1.0, 0.6, 2.0, dtype=dtype, device=cpu) if kind == "chart_jp" else None
+    side = MESH_SIDE if kind == "mesh" else TRACES_SIDE
+    m, _, x, v, _, _ = _traces_rays(dtype, cpu, side, metric=metric)
+    idx = _slab_subset(side) if kind == "radiative_transfer" else _subset(side * side)
+    a = dict(x=x.expand_as(v)[idx].numpy(), v=v[idx].numpy())
+    if kind.startswith("chart"):
+        chart = event_horizon_chart(m)
+        a.update(rs=chart.rs.numpy(), thetas=chart.thetas.numpy())
+    if kind == "mesh":
+        a.update(_mesh_args())
+    return a
+
+
+def _cpu_trace(kind, a):
+    """The CPU side of a phase: the same call as on the card, on CPU
+    tensors, for the subset's inputs ``a`` (numpy arrays); returns its
+    points as numpy arrays."""
+    cpu = dict(device="cpu")
+    dt = torch.float32 if kind == "chart_jp" else torch.float64
+    kw = dict(dtype=dt, **cpu)
+    x, v = torch.as_tensor(a["x"]), torch.as_tensor(a["v"])
+    if kind == "first_order":
+        m = metrics.KerrSpacetimeFirstOrder(1.0, 0.998, **kw)
+        out = trace_geodesics_first_order(m, x, v, SPAN, geometry=ThinDisc(0.0, 50.0, **kw), chart_outer=TRACES_CHART_OUTER)
+    elif kind in ("chart_kerr", "chart_jp"):
+        m = KerrMetric(1.0, 0.998, **kw) if kind == "chart_kerr" else JohannsenPsaltisMetric(1.0, 0.6, 2.0, **kw)
+        chart = PoloidalShape(torch.as_tensor(a["rs"]), torch.as_tensor(a["thetas"]))
+        out = trace_geodesics(
+            m, x, v, SPAN, geometry=ThinDisc(0.0, 50.0, **kw), chart_inner=chart, chart_outer=TRACES_CHART_OUTER
+        )
+    elif kind == "windings":
+        gp, w = trace_windings(KerrMetric(1.0, 0.998, **kw), x, v, SPAN)
+        return dict(_numpy_points(gp), windings=w.numpy())
+    elif kind == "radiative_transfer":
+        out = trace_radiative_transfer(
+            KerrMetric(1.0, 0.998, **kw), x, v, SPAN, geometry=_EmittingSlab(**kw), max_steps=SLAB_MAX_STEPS
+        )
+    elif kind == "charged":
+        m = KerrNewmanMetric(1.0, 0.5, 0.3, **kw)
+        q = torch.as_tensor(a["q"])
+        parts = [_charged_legs(m, x[q == s], v[q == s], s)[0] for s in (CHARGED_Q, -CHARGED_Q)]
+        out = SimpleNamespace(**{k: torch.cat([getattr(p, k) for p in parts]) for k in ("status", "x", "v", "lam_max")}, aux=None)
+    elif kind == "mesh":
+        mesh = MeshAccretionGeometry(a["triangles"], a["bbox_min"], a["bbox_max"], float(a["proximity2"]), **kw)
+        out = trace_geodesics(KerrMetric(1.0, 0.998, **kw), x, v, SPAN, geometry=mesh)
+    else:
+        raise ValueError(kind)
+    return _numpy_points(out)
+
+
+CPU_SUBSETS = ("charged", "chart_kerr", "chart_jp", "first_order", "windings", "radiative_transfer", "mesh")
+
+
+def phase_cpu_subsets(dev=None):
+    """Each of `CPU_SUBSETS` on the CPU, in one thread: {kind: its points
+    as lists, and its ``cpu_seconds``} (the worker ``traces_cpu``)."""
+    torch.set_num_threads(1)
+    out = {}
+    for kind in CPU_SUBSETS:
+        t0 = time.perf_counter()
+        pts = _cpu_trace(kind, _cpu_inputs(kind))
+        out[kind] = {k: np.asarray(a).tolist() for k, a in pts.items()} | dict(cpu_seconds=time.perf_counter() - t0)
+    return out
+
+
+def _status_agreement(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return dict(rays=int(a.size), agree=float((a == b).mean()), differ=int((a != b).sum()))
+
+
+def phase_first_order(dev):
+    """`trace_geodesics_first_order(KerrSpacetimeFirstOrder(a = 0.998), ...)`
+    at TRACES_SIDE² flagship pixels (ThinDisc(0, 50), λ ≤ 2200, chart_outer
+    1100) against the port's second-order `trace_geodesics(KerrMetric(a =
+    0.998), ...)` on the same rays (`_flagship_scalar_trace`, shared with
+    `phase_shaped_chart`): statuses equal on ≥ 99.5% of pixels (the number
+    that differ printed); hit r and t within 5e-3 relative
+    (tests/test_first_order.py's rtol) on ≥ 99.9% of the hits at r ≥ 3.8,
+    the smallest hit radius of that test's rays. Nearer the hole the
+    first-order form departs further from the second-order one in the JAX
+    package too (scripts/torch_reference_witness.py first_order: at 128² on
+    the CPU, 170 of its 295 hits inside r = 3.8 beyond 5e-3 in both
+    packages, the largest gap 0.106, the two packages' gaps on those rays
+    within 1.6e-4 of each other), so there the share beyond 5e-3 and the
+    largest gap are held to `FIRST_ORDER_NEAR_HOLE_SHARE` and
+    `FIRST_ORDER_NEAR_HOLE_GAP`, set from the JAX package's, and the worst
+    rays printed. The CPU subset
+    (512 rays): statuses equal on ≥ 99%, hit r and t within 1e-5 relative
+    (the two packages' CPU gap, tests/test_torch_first_order_rt.py: 1.6e-6).
+
+    In f64, not f32: in f32 the second-order form in Mino time does not
+    keep the radial constraint p_r² = R(r) — R spans ~10¹² at r = 1000 and
+    ~1 near the hole, so its f32 rounding far out swamps it near the hole —
+    and on the CPU at 48² half the statuses then differ from the
+    second-order trace's (1,167 of 2,304; 160 lockstep iterations)."""
+    dtype, side = torch.float64, TRACES_SIDE
+    m, d, x, v, A, B = _traces_rays(dtype, dev, side)
+    mfo = metrics.KerrSpacetimeFirstOrder(1.0, 0.998, dtype=dtype, device=dev)
+    xs = x.expand_as(v)
+    idx = _subset(v.shape[0])
+    fo, fo_rec = _lockstep_run(
+        "first_order",
+        lambda: trace_geodesics_first_order(mfo, xs, v, SPAN, geometry=d, chart_outer=TRACES_CHART_OUTER),
+    )
+    so, so_rec = _flagship_scalar_trace(dev, side)
+    hit = (fo.status == HIT) & (so.status == HIT)
+    far, near = hit & (so.x[:, 1] >= 3.8), hit & (so.x[:, 1] < 3.8)
+    rel = {k: _rel(fo.x[:, i], so.x[:, i]) for k, i in (("t", 0), ("r", 1))}
+    gap = torch.maximum(rel["r"], rel["t"])
+    over = gap > 5e-3
+    far_over = torch.nonzero(over & far).flatten()
+    near_i = torch.nonzero(near).flatten()
+    worst_near = near_i[gap[near_i].argsort(descending=True)[:8]]
+    res = dict(
+        pixels=side * side, dtype="f64", first_order=fo_rec, second_order=so_rec,
+        status=_status_agreement(fo.status.cpu(), so.status.cpu()), hits=int(hit.sum()), hits_r_ge_3_8=int(far.sum()),
+        hit_r_max_rel=float(rel["r"][far].max()), hit_t_max_rel=float(rel["t"][far].max()),
+        hit_r_median_rel=float(rel["r"][hit].median()),
+        hits_r_ge_3_8_over_5e_3=dict(
+            count=len(far_over), share=len(far_over) / max(int(far.sum()), 1),
+            worst=[dict(r_second_order=float(so.x[i, 1]), r_first_order=float(fo.x[i, 1]), rel=float(rel["r"][i]))
+                   for i in far_over[rel["r"][far_over].argsort(descending=True)[:10]].tolist()],
+        ),
+        hits_inside_3_8=dict(
+            count=len(near_i), over_5e_3=int(over[near].sum()),
+            share_over_5e_3=int(over[near].sum()) / max(len(near_i), 1),
+            gap_max=float(gap[near].max()) if len(near_i) else 0.0,
+            gap_median=float(gap[near].median()) if len(near_i) else 0.0,
+            worst=[dict(alpha=float(A[i]), beta=float(B[i]), r_second_order=float(so.x[i, 1]), gap=float(gap[i]))
+                   for i in worst_near.tolist()],
+        ),
+        held_inside_3_8=dict(share=FIRST_ORDER_NEAR_HOLE_SHARE, gap=FIRST_ORDER_NEAR_HOLE_GAP),
+    )
+    _say("first_order", **res)
+    inside = res["hits_inside_3_8"]
+    if not (res["status"]["agree"] >= 0.995 and res["hits_r_ge_3_8_over_5e_3"]["share"] <= 1e-3):
+        raise AssertionError(f"first-order tracer against the second-order one: {res}")
+    if not (inside["share_over_5e_3"] <= FIRST_ORDER_NEAR_HOLE_SHARE and inside["gap_max"] <= FIRST_ORDER_NEAR_HOLE_GAP):
+        raise AssertionError(f"first-order tracer against the second-order one inside r = 3.8: {res}")
+    card = dict(status=fo.status[idx].cpu().numpy(), x=fo.x[idx].cpu().numpy())
+
+    def against_cpu(sub):
+        fs, ss = card["status"], sub["status"]
+        both = (fs == HIT) & (ss == HIT)
+        gx = card["x"]
+        cpu_rel = float((np.abs(gx[both, :2] - sub["x"][both, :2]) / np.abs(sub["x"][both, :2])).max()) if both.any() else 0.0
+        res["cpu_subset"] = dict(status=_status_agreement(fs, ss), hits=int(both.sum()), hit_tr_max_rel=cpu_rel,
+                                 cpu_seconds=sub["cpu_seconds"])
+        if not (res["cpu_subset"]["status"]["agree"] >= 0.99 and cpu_rel <= 1e-5):
+            raise AssertionError(f"first-order tracer against the CPU: {res}")
+        return res["cpu_subset"]
+
+    return res, {"first_order": against_cpu}
+
+
+def phase_windings(dev):
+    """`trace_windings` at TRACES_SIDE² flagship pixels without a disc
+    (f64, λ ≤ 2200): the histogram of winding counts; the outer pixels (α²
+    + β² ≥ 400) wind exactly once (tests/test_rt_windings.py's wide ray),
+    and some pixels near the shadow's rim (α² + β² < 400) wind ≥ 2 times
+    (its near-critical ray). The CPU subset (512 rays): counts equal on ≥
+    99.9%, the rays that differ printed (grazing the photon ring).
+
+    In f64, not f32: in f32 the loop runs 3,008 iterations here (on an
+    H100, 37 s alone), in f64 ~4× fewer (432 against 1,872 at 24² on
+    the CPU; the JAX package's loop counts 430 against 1,689,
+    scripts/torch_reference_witness.py iterations), at under twice the
+    cost each: half the card time, which the script's time limit needs."""
+    dtype, side = torch.float64, TRACES_SIDE
+    m, _, x, v, A, B = _traces_rays(dtype, dev, side, outer_r=None)
+    xs = x.expand_as(v)
+    idx = _subset(v.shape[0])
+    (gp, w), rec = _lockstep_run("windings", lambda: trace_windings(m, xs, v, SPAN))
+    outer = A * A + B * B >= 400.0
+    res = dict(
+        pixels=side * side, dtype="f64", **rec, histogram=torch.bincount(w.long()).tolist(),
+        outer_pixels=int(outer.sum()), outer_not_one=int((w[outer] != 1).sum()),
+        two_or_more=int((w >= 2).sum()), two_or_more_outside_r20=int(((w >= 2) & outer).sum()),
+    )
+    _say("windings", **res)
+    if res["outer_not_one"] or not res["two_or_more"]:
+        raise AssertionError(f"trace_windings: {res}")
+    wc, Ai, Bi = w[idx].cpu().numpy(), A[idx].cpu().numpy(), B[idx].cpu().numpy()
+
+    def against_cpu(sub):
+        ws = sub["windings"]
+        differ = np.nonzero(wc != ws)[0]
+        res["cpu_subset"] = dict(
+            rays=len(wc), agree=float((wc == ws).mean()), cpu_seconds=sub["cpu_seconds"],
+            differing=[dict(alpha=float(Ai[i]), beta=float(Bi[i]), card=int(wc[i]), cpu=int(ws[i])) for i in differ],
+        )
+        if res["cpu_subset"]["agree"] < 0.999:
+            raise AssertionError(f"trace_windings against the CPU: {res}")
+        return res["cpu_subset"]
+
+    return res, {"windings": against_cpu}
+
+
+def phase_radiative_transfer(dev):
+    """`trace_radiative_transfer` at TRACES_SIDE² flagship pixels (λ ≤ 2200)
+    through an optically thick emitter, `_EmittingSlab` (a top-hat slab
+    |z| < 1 between ρ ∈ [8, 12], j_ν = 1, as tests/test_rt_windings.py's):
+    a ray that never counts a crossing keeps I = I0 exactly; a ray with an
+    even count ≥ 2 (in and out again) has I > I0; some do. A ray with an
+    odd count meets the reference's fault (ROADMAP C): the count misses a
+    crossing of the slab's vertical walls, where the top-hat indicator
+    jumps, and the second of two crossings in one step, so the in/out
+    parity inverts and emission is integrated outside the slab; such a ray
+    falling into the hole stalls, so the loop is capped at
+    `SLAB_MAX_STEPS` iterations (on an H100: 6,500 rays, every one
+    with an odd count, still alive after 3,000; at a cap of 1,000, those
+    and 2 rays with no count, at r = 1.083 by the horizon; at 700, also
+    rays still climbing past a pole, r up to 84): every ray the cap stops
+    with an even count must be one still by the hole (r < 10 at the cap).
+    Those rays are counted and printed. The captured loop against
+    `cuda_graphs(False)`, bit for bit, on 256 of the rays with an even
+    count ≥ 2, over their first `SLAB_GRAPH_AB_STEPS` iterations.
+
+    The CPU subset (`_slab_subset`): the counts equal on ≥ 90%, and where
+    they are equal and even, I within a median relative gap of 5e-3, the
+    largest printed. The count and I follow the step sequence (a crossing
+    is counted at the end of its step, so I is integrated from step end to
+    step end), and the two devices' sequences part by rounding: on the
+    CPU, the same rays with v scaled by 1 + 1e-15 keep 91.7% of their
+    counts and a median gap of 6.6e-4 (the largest 4.9e-2).
+
+    In f64, not f32: in f32 the step sequences part from the first steps
+    (the error estimate is rounding), so the card and the CPU integrate
+    over different stretches of the slab (on an H100: 11 of 512
+    counts and the one comparable intensity 20% apart), and the stalled
+    rays' loop needs ~1,700 iterations (against ~500 in f64)."""
+    dtype, side = torch.float64, TRACES_SIDE
+    m, _, x, v, A, B = _traces_rays(dtype, dev, side, outer_r=None)
+    slab = _EmittingSlab(dtype=dtype, device=dev)
+    xs = x.expand_as(v)
+    idx = _slab_subset(side)
+
+    def rt(xx, vv, max_steps=SLAB_MAX_STEPS):
+        return trace_radiative_transfer(m, xx, vv, SPAN, geometry=slab, max_steps=max_steps)
+
+    gp, rec = _lockstep_run("radiative_transfer", lambda: rt(xs, v))
+    I, n = gp.aux[:, 0], gp.aux[:, 1]
+    none, even = n == 0, (n >= 2) & (torch.remainder(n, 2) == 0)
+    odd = torch.remainder(n, 2) == 1
+    stopped = (gp.status == StatusCodes.NoStatus) & (gp.lam_max < SPAN[1] - 1e-3)
+    sel = torch.nonzero(even).flatten()
+    sel = sel[torch.linspace(0, len(sel) - 1, 256, device=sel.device).round().long()]
+    got, want, ab = _graph_ab(lambda: rt(xs[sel], v[sel], SLAB_GRAPH_AB_STEPS))
+    res = dict(
+        pixels=side * side, dtype="f64", max_steps=SLAB_MAX_STEPS, **rec,
+        crossings=torch.bincount(n.long()).tolist(), never_entered=int(none.sum()),
+        never_entered_I_not_I0=int((I[none] != 1.0).sum()), in_and_out=int(even.sum()),
+        in_and_out_I_not_above_I0=int((I[even] <= 1.0).sum()), odd_count=int(odd.sum()),
+        unfinished=int(stopped.sum()),
+        unfinished_with_odd_count=int((stopped & odd).sum()),
+        unfinished_with_even_count=[dict(r=float(gp.x[i, 1]), theta=float(gp.x[i, 2]), crossings=int(n[i]))
+                                    for i in torch.nonzero(stopped & ~odd).flatten()[:16].tolist()],
+        I_max=float(I.max()),
+        graph_vs_uncaptured=dict(rays=256, max_steps=SLAB_GRAPH_AB_STEPS,
+                                 bit_equal=_same_points(got, want) and torch.equal(got.aux, want.aux), **ab),
+    )
+    _say("radiative_transfer", **res)
+    if res["never_entered_I_not_I0"] or res["in_and_out_I_not_above_I0"] or not res["in_and_out"]:
+        raise AssertionError(f"trace_radiative_transfer: {res}")
+    if int((stopped & ~odd & (gp.x[:, 1] >= 10.0)).sum()):
+        raise AssertionError(f"trace_radiative_transfer: the cap stopped rays with an even count away from the hole: {res}")
+    if not res["graph_vs_uncaptured"]["bit_equal"] or res["graph_vs_uncaptured"]["with_graph"]["graph"]["captures"] != 1:
+        raise AssertionError(f"trace_radiative_transfer captured against uncaptured: {res}")
+    nc, Ic = n[idx].cpu().numpy(), I[idx].cpu().numpy()
+
+    def against_cpu(sub):
+        ns = sub["aux"][:, 1]
+        same_even = (nc == ns) & (nc >= 2) & (nc % 2 == 0)
+        I_rel = np.abs(Ic[same_even] - sub["aux"][same_even, 0]) / sub["aux"][same_even, 0]
+        res["cpu_subset"] = r = dict(
+            rays=len(idx), crossings_agree=float((nc == ns).mean()), card_crossings=np.bincount(nc.astype(int)).tolist(),
+            even_compared=int(same_even.sum()), I_median_rel=float(np.median(I_rel)) if len(I_rel) else 0.0,
+            I_max_rel=float(I_rel.max()) if len(I_rel) else 0.0, cpu_seconds=sub["cpu_seconds"],
+        )
+        if r["crossings_agree"] < 0.9 or not r["even_compared"] or not r["I_median_rel"] <= 5e-3:
+            raise AssertionError(f"trace_radiative_transfer against the CPU: {res}")
+        return r
+
+    return res, {"radiative_transfer": against_cpu}
+
+
+def phase_shaped_chart(dev):
+    """The θ-dependent inner chart at TRACES_SIDE² flagship pixels
+    (ThinDisc(0, 50), λ ≤ 2200, chart_outer 1100 so that every escaping ray
+    leaves the chart before λ = 2200): Kerr a = 0.998 in f64 with
+    `event_horizon_chart(m)` against the scalar chart
+    (`_flagship_scalar_trace`, shared with `phase_first_order`), statuses
+    identical on ≥ 99.99% of pixels, each that differs printed with its end
+    radius against r_min(θ) (tests/test_charts_doughnut.py:22-46's
+    property; the bisected horizon sits within ~1e-6 of the analytic one,
+    so a ray that ends on the bound may go either way); Johannsen-Psaltis
+    (a = 0.6, ε₃ = 2) with its own chart: no NoStatus, and every captured
+    ray ends within r_min(θ) + 0.3. The CPU subsets (512 rays, each chart
+    made on the CPU): statuses equal on ≥ 99%.
+
+    Kerr in f64, not f32 as the flagship render: in f32 this camera's
+    lockstep loop needs 1,616 iterations (the error estimate is rounding
+    for its slowest rays; 11.3 ms each on an H100), in f64 432
+    (21 ms each), so f64 takes half the card time, which the script's time
+    limit needs; the JAX package's loop needs the same ~3× more in f32 (851
+    against 286 at 24² on the CPU, the port's 976 against 288,
+    scripts/torch_reference_witness.py iterations). Johannsen-Psaltis in
+    f32 (304 iterations, 16.6 ms each; 432 in f64)."""
+    res, cards = {}, {}
+    for name, dtype in (("kerr", torch.float64), ("johannsen_psaltis", torch.float32)):
+        metric = (KerrMetric(1.0, 0.998, dtype=dtype, device=dev) if name == "kerr"
+                  else JohannsenPsaltisMetric(1.0, 0.6, 2.0, dtype=dtype, device=dev))
+        m, d, x, v, _, _ = _traces_rays(dtype, dev, TRACES_SIDE, metric=metric)
+        xs = x.expand_as(v)
+        chart = event_horizon_chart(m)
+        idx = _subset(v.shape[0])
+        kw = dict(geometry=d, chart_outer=TRACES_CHART_OUTER)
+        gp, rec = _lockstep_run(f"shaped_chart {name}", lambda: trace_geodesics(m, xs, v, SPAN, chart_inner=chart, **kw))
+        cards[name] = gp.status[idx].cpu().numpy()
+        cap = gp.status == StatusCodes.WithinInnerBoundary
+        r_min = linear_interp(gp.x[:, 2], chart.thetas, chart.rs)
+        r = dict(
+            shaped=rec, chart_rs=[float(chart.rs.min()), float(chart.rs.max())],
+            statuses=torch.bincount(gp.status.long(), minlength=4).tolist(), captured=int(cap.sum()),
+            captured_beyond_rmin_0_3=int((gp.x[cap, 1] > r_min[cap] + 0.3).sum()),
+            captured_end_minus_rmin_max=float((gp.x[cap, 1] - r_min[cap]).max()) if bool(cap.any()) else None,
+        )
+        if name == "kerr":
+            sc, sc_rec = _flagship_scalar_trace(dev, TRACES_SIDE)
+            diff = torch.nonzero(gp.status != sc.status).flatten()
+            r.update(
+                scalar=sc_rec, status=_status_agreement(gp.status.cpu(), sc.status.cpu()),
+                differing=[
+                    dict(shaped=int(gp.status[i]), scalar=int(sc.status[i]), r_end=float(gp.x[i, 1]),
+                         r_min=float(r_min[i]), r_scalar_end=float(sc.x[i, 1]))
+                    for i in diff[:20].tolist()
+                ],
+            )
+        res[name] = r
+    _say("shaped_chart", **res)
+    k, jp = res["kerr"], res["johannsen_psaltis"]
+    if k["status"]["agree"] < 0.9999 or jp["statuses"][StatusCodes.NoStatus] or jp["captured_beyond_rmin_0_3"] or not jp["captured"]:
+        raise AssertionError(f"the shaped chart: {res}")
+
+    def against_cpu(name):
+        def check(sub):
+            res[name]["cpu_subset"] = dict(status=_status_agreement(cards[name], sub["status"]), cpu_seconds=sub["cpu_seconds"])
+            if res[name]["cpu_subset"]["status"]["agree"] < 0.99:
+                raise AssertionError(f"the shaped chart against the CPU: {res}")
+            return res[name]["cpu_subset"]
+
+        return check
+
+    return res, {"chart_kerr": against_cpu("kerr"), "chart_jp": against_cpu("johannsen_psaltis")}
+
+
+CHARGED_Q = 0.3
+CHARGED_LAMBDA = 2000.0
+CHARGED_PARTICLES = 65536
+CHARGED_SOLVE_RADII = 64
+
+
+def _charged_orbits(m, n, q):
+    """``n`` timelike states on the equatorial circular orbits that
+    `charged_circular_orbit_omega` gives at q/μ = ``q`` for r ∈ [6, 20]."""
+    r = torch.linspace(6.0, 20.0, n, dtype=m.a.dtype, device=m.a.device)
+    om = charged_circular_orbit_omega(m, r, q=q)
+    g = m.components(r, torch.full_like(r, math.pi / 2))
+    ut = 1.0 / torch.sqrt(-(g[:, 0] + 2 * om * g[:, 4] + om * om * g[:, 3]))
+    z = torch.zeros_like(r)
+    return torch.stack([z, r, torch.full_like(r, math.pi / 2), z], -1), torch.stack([ut, z, z, om * ut], -1)
+
+
+def _charged_legs(m, x, v, q, run=lambda f: (f(), None)):
+    """Traces the particles (``x``, ``v``) at q/μ = ``q`` to λ = CHARGED_LAMBDA
+    in four legs, each from the last one's end, through ``run(fn) → (points,
+    record)``: (the last points, [(each leg's points, its record)])."""
+    legs = []
+    for leg in range(4):
+        span = (CHARGED_LAMBDA / 4 * leg, CHARGED_LAMBDA / 4 * (leg + 1))
+        gp, rec = run(lambda: trace_geodesics(m, x, v, span, mu=1.0, q=q, constrain=False))
+        legs.append((gp, rec))
+        x, v = gp.x, gp.v
+    return gp, legs
+
+
+def phase_charged(dev):
+    """Charged traces, f64, Kerr-Newman (a = 0.5, Q = 0.3):
+    CHARGED_PARTICLES timelike particles, half at q/μ = +0.3 and half at
+    −0.3, on the equatorial circular orbits `charged_circular_orbit_omega`
+    gives for r ∈ [6, 20], traced to λ = 2000 in four legs of 500 (the
+    Lorentz force through the batched `faraday_tensor`): every radius stays
+    within 1e-8 relative of its start at each leg's end, and θ within 1e-6
+    of π/2 (on the CPU at 64 radii: 1.2e-9 and 2.1e-7). The captured loop
+    against `cuda_graphs(False)`, bit for bit, on 256 particles over the
+    first leg. The CPU subset (512 particles, the same four legs): statuses
+    equal, positions within atol 1e-6. Then `solve_equatorial_circular_orbit`
+    at CHARGED_SOLVE_RADII radii of the same metric (uncharged particles;
+    its 30 golden-section steps, one batched trace of the radii each)
+    against `CircularOrbits`' analytic v^φ, within 1e-6 relative (on the CPU
+    3.1e-16 at 16 radii)."""
+    m = KerrNewmanMetric(1.0, 0.5, 0.3, device=dev)
+    drift, theta_dev, recs, ends = 0.0, 0.0, [], []
+    half = CHARGED_PARTICLES // 2
+    starts = {s: _charged_orbits(m, half, s) for s in (CHARGED_Q, -CHARGED_Q)}
+    for s, (x, v) in starts.items():
+        gp, legs = _charged_legs(m, x, v, s, run=lambda f: _lockstep_run("charged", f))
+        for end, rec in legs:
+            recs.append(rec)
+            drift = max(drift, float(((end.x[:, 1] - x[:, 1]).abs() / x[:, 1]).max()))
+            theta_dev = max(theta_dev, float((end.x[:, 2] - math.pi / 2).abs().max()))
+        ends.append(gp)
+    x, v = starts[CHARGED_Q]
+    sel = _subset(half, 256).to(dev)
+    got, want, ab = _graph_ab(lambda: trace_geodesics(m, x[sel], v[sel], (0.0, CHARGED_LAMBDA / 4), mu=1.0, q=CHARGED_Q, constrain=False))
+    r = torch.linspace(6.0, 20.0, CHARGED_SOLVE_RADII, dtype=torch.float64, device=dev)
+    vphi, solve_rec = _lockstep_run("solve_equatorial_circular_orbit", lambda: solve_equatorial_circular_orbit(m, r))
+    analytic = CircularOrbits.fourvelocity(m, (r, torch.full_like(r, math.pi / 2)))[:, 3]
+    res = dict(
+        particles=CHARGED_PARTICLES, q_over_mu=[CHARGED_Q, -CHARGED_Q], lam=CHARGED_LAMBDA, loops=len(recs),
+        seconds=sum(r["seconds"] for r in recs), iterations=sum(r["iterations"] for r in recs),
+        ms_per_iteration=sum(r["seconds"] for r in recs) * 1e3 / max(sum(r["iterations"] for r in recs), 1),
+        legs=recs, radius_drift_max_rel=drift, theta_deviation_max=theta_dev,
+        finished=int(sum(int((e.status == StatusCodes.NoStatus).sum()) for e in ends)),
+        graph_vs_uncaptured=dict(rays=256, bit_equal=_same_points(got, want), **ab),
+        solve_equatorial_circular_orbit=dict(radii=CHARGED_SOLVE_RADII, **solve_rec, vphi_max_rel=float(_rel(vphi, analytic).max())),
+    )
+    _say("charged", **res)
+    if not (drift <= 1e-8 and theta_dev <= 1e-6 and res["finished"] == CHARGED_PARTICLES):
+        raise AssertionError(f"charged circular orbits: {res}")
+    if not res["graph_vs_uncaptured"]["bit_equal"] or res["graph_vs_uncaptured"]["with_graph"]["graph"]["captures"] != 1:
+        raise AssertionError(f"charged traces captured against uncaptured: {res}")
+    if not res["solve_equatorial_circular_orbit"]["vphi_max_rel"] <= 1e-6:
+        raise AssertionError(f"solve_equatorial_circular_orbit against the analytic v^φ: {res}")
+    idx = _subset(half, TRACES_SUBSET // 2).to(dev)
+    card = {k: torch.cat([getattr(e, k)[idx] for e in ends]).cpu().numpy() for k in ("status", "x")}
+
+    def against_cpu(sub):
+        res["cpu_subset"] = dict(
+            status=_status_agreement(card["status"], sub["status"]), x_max_abs=float(np.abs(card["x"] - sub["x"]).max()),
+            cpu_seconds=sub["cpu_seconds"],
+        )
+        if res["cpu_subset"]["status"]["agree"] < 1.0 or not res["cpu_subset"]["x_max_abs"] <= 1e-6:
+            raise AssertionError(f"charged traces against the CPU: {res}")
+        return res["cpu_subset"]
+
+    return res, {"charged": against_cpu}
+
+
+def _mesh_against_disc(m, xs, v, A, B, mesh, what):
+    """The mesh trace of (``xs``, ``v``) against the ThinDisc(6, 50) trace of
+    the same rays, in the metric's dtype: the records, the hit counts, and
+    each ray whose hit masks differ with whether it lies within one chord
+    of the annulus's rims (a polygon edge, 2ρ·sin(π/n_phi), of ρ = 6 or
+    ρ = 50: traced again against each of those two bands, a thin disc
+    each, it hits one), where its disc hit lies (ρ, φ) and how far that is
+    from the nearest edge two triangles share."""
+    dtype, dev = v.dtype, v.device
+    torch.cuda.reset_peak_memory_stats()
+    gm, rec = _lockstep_run(what, lambda: trace_geodesics(m, xs, v, SPAN, geometry=mesh))
+    peak = torch.cuda.max_memory_allocated()
+    gd, disc_rec = _lockstep_run(f"{what} disc", lambda: trace_geodesics(m, xs, v, SPAN, geometry=ThinDisc(6.0, 50.0, dtype=dtype, device=dev)))
+    differ = torch.nonzero((gm.status == HIT) != (gd.status == HIT)).flatten()
+    w_in, w_out = (2 * r * math.sin(math.pi / MESH_N_PHI) for r in (6.0, 50.0))
+    at_rims = torch.zeros(len(differ), dtype=torch.bool, device=dev)
+    for lo, hi in ((6.0 - w_in, 6.0 + w_in), (50.0 - w_out, 50.0 + w_out)):
+        if len(differ):
+            band = ThinDisc(lo, hi, dtype=dtype, device=dev)
+            at_rims |= trace_geodesics(m, xs[differ], v[differ], SPAN, geometry=band).status == HIT
+    dx = gd.x[differ].double().cpu().numpy()
+    rho, phi = dx[:, 1] * np.sin(dx[:, 2]), dx[:, 3]
+    edge = _shared_edge_distance(rho, phi, MESH_N_PHI) if len(differ) else np.zeros(0)
+    rays = [
+        dict(alpha=float(A[i]), beta=float(B[i]), mesh_status=int(gm.status[i]), disc_status=int(gd.status[i]),
+             disc_rho=float(rho[k]), disc_phi=float(phi[k]), shared_edge_distance=float(edge[k]), at_rims=bool(at_rims[k]))
+        for k, i in enumerate(differ.tolist())
+    ]
+    off_rim = [r for r in rays if not r["at_rims"]]
+    out = dict(
+        rays=len(v), mesh=rec, disc=disc_rec, peak_allocated_bytes=peak, mesh_hits=int((gm.status == HIT).sum()),
+        disc_hits=int((gd.status == HIT).sum()), differing=len(rays), differing_within_a_chord_of_the_rims=len(rays) - len(off_rim),
+        off_rim_disc_hits_lost=sum(r["disc_status"] == HIT for r in off_rim), off_rim=off_rim, at_rims=[r for r in rays if r["at_rims"]][:16],
+    )
+    return gm, out
+
+
+def phase_mesh(dev):
+    """A triangulated annulus 6 ≤ ρ ≤ 50 (`_annulus_triangles`: 4·MESH_N_PHI
+    triangles, each face both ways up, as the JSF test is one-sided) as a
+    `MeshAccretionGeometry` (`_mesh_args`: the default ``proximity2`` of 9
+    would drop hits on large triangles; tests/test_mesh_tables.py widens it
+    and the box too), traced at MESH_SIDE² flagship pixels (λ ≤ 2200)
+    against the ThinDisc(6, 50) trace of the same pixels
+    (`_mesh_against_disc`).
+
+    In f64: hit masks equal but for pixels within one chord of the
+    annulus's rims (their number printed). The CPU subset (512 rays):
+    statuses equal on ≥ 99%.
+
+    In f32 (the flagship render's dtype), on every `MESH_F32_STRIDE`-th
+    pixel, against the f32 disc trace of the same pixels: the same check,
+    the disc hits lost away from the rims held to
+    `MESH_F32_OFF_RIM_LOSSES`. In f32 the JSF test lets a chord through
+    where it crosses within a few 1e-6 of an edge that two triangles
+    share, in both packages (ROADMAP C,
+    tests/test_torch_reference_properties.py); the full f32 image at 256²
+    lost no disc hit to it (on an H100, 38 differing pixels, all at the
+    rims).
+
+    At 256², not 1024²: `segment_hit` materialises (rays × triangles)
+    tensors for each chord, ~60–80 bytes a pair in f32, so 1024² rays
+    against 256 triangles would take ~17–22 GB a chord; a hand-written
+    segment test is a later PR's. The full image is traced in f64 because
+    f32 needs ~4× its lockstep iterations at this camera (3,056 against
+    768 at 256²; the JAX package's loop the same, ROADMAP C) at ~45 ms
+    each against 256 triangles."""
+    side, args = MESH_SIDE, _mesh_args()
+    res = dict(pixels=side * side, triangles=len(args["triangles"]), proximity2=args["proximity2"])
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        m, _, x, v, A, B = _traces_rays(dtype, dev, side, outer_r=None)
+        xs = x.expand_as(v)
+        if name == "f32":
+            xs, v, A, B = (t[::MESH_F32_STRIDE] for t in (xs, v, A, B))
+        mesh = MeshAccretionGeometry(*args.values(), dtype=dtype, device=dev)
+        gm, res[name] = _mesh_against_disc(m, xs, v, A, B, mesh, f"mesh {name}")
+        if name == "f64":
+            card = gm.status[_subset(v.shape[0])].cpu().numpy()
+    res["f32"]["held_off_rim_losses"] = MESH_F32_OFF_RIM_LOSSES
+    _say("mesh", **res)
+    r64, r32 = res["f64"], res["f32"]
+    if r64["off_rim"] or not r64["mesh_hits"]:
+        raise AssertionError(f"the mesh against the thin disc (f64): {res}")
+    if r32["off_rim_disc_hits_lost"] != len(r32["off_rim"]) or r32["off_rim_disc_hits_lost"] > MESH_F32_OFF_RIM_LOSSES:
+        raise AssertionError(f"the mesh against the thin disc (f32): {res}")
+
+    def against_cpu(sub):
+        res["cpu_subset"] = dict(status=_status_agreement(card, sub["status"]), cpu_seconds=sub["cpu_seconds"])
+        if res["cpu_subset"]["status"]["agree"] < 0.99:
+            raise AssertionError(f"the mesh against the CPU: {res}")
+        return res["cpu_subset"]
+
+    return res, {"mesh": against_cpu}
+
+
 # Most host-bound phases run in worker processes beside the main one, after
 # the kernel-timed phases, so that the script ends inside its time limit:
 # each lockstep iteration is host dispatch (the card is busy a third of it),
@@ -2786,12 +3525,19 @@ WORKERS = {
     "binflux": (("binflux_golden", {}), ("lagtransfer_semianalytic", {}), ("trace_api", {})),
     "corona": (("emissivity", {}), ("profiled_lineprofile", {})),
     "graph": (("lockstep_graph", {}),),
-    "xla_thin": (("ctf_xla", {}),),
-    "xla_thick": (("thick_disc", {"N_extrema": 10}),),
+    "xla_thin": (("ctf_xla", {"N_extrema": 6}),),
+    "xla_thick": (("thick_disc", {"N_extrema": 4}),),
     "thick_golden": (("thick_disc_golden", {}),),
     "ring_corona": (("ring_corona", {}),),
     "disc_corona": (("disc_corona", {}),),
+    "traces_cpu": (("cpu_subsets", {}),),
+    "plain": (("kernel_vs_plain", {}),),
 }
+# The special traces' card work runs alone on the card, in the main process
+# before the workers start (`_run_traces`), or alone as ``--worker traces``:
+# beside the workers their 1024² iterations (20–60 ms of card time each)
+# slowed every worker's loop 2–12× and the script overran its time limit.
+TRACES = ("charged", "shaped_chart", "first_order", "windings", "radiative_transfer", "mesh")
 _WORKER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_workers"
 
 
@@ -2801,6 +3547,16 @@ def _worker(name, out_path):
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     _build.load_library()
+    if name == "traces":
+        procs = _start_workers(("traces_cpu",))
+        try:
+            pending, seconds = _run_traces(dev)
+            cpu, _ = _join_workers(procs, timeout=1150.0)
+        finally:
+            _stop_workers(procs)
+        results = _hold_traces_to_cpu(pending, cpu["cpu_subsets"])
+        Path(out_path).write_text(json.dumps(dict(results=results, seconds=seconds)))
+        return
     results, seconds, prof = {}, {}, None
     for phase, kw in WORKERS[name]:
         t0 = time.perf_counter()
@@ -2814,10 +3570,36 @@ def _worker(name, out_path):
     Path(out_path).write_text(json.dumps(dict(results=results, seconds=seconds)))
 
 
-def _start_workers():
+def _run_traces(dev):
+    """The card's part of each `TRACES` phase, in order: ({phase: (result,
+    its checks against the CPU subsets)}, seconds keyed by phase)."""
+    pending, seconds = {}, {}
+    try:
+        for phase in TRACES:
+            t0 = time.perf_counter()
+            pending[phase] = globals()[f"phase_{phase}"](dev)
+            seconds[phase] = time.perf_counter() - t0
+    finally:
+        _SCALAR_TRACES.clear()
+    return pending, seconds
+
+
+def _hold_traces_to_cpu(pending, subsets):
+    """Holds each `TRACES` phase's card results to its CPU subsets
+    (`phase_cpu_subsets`' output), raising at the first that fails, and
+    prints each comparison: the results keyed by phase."""
+    held = {}
+    for _, checks in pending.values():
+        for kind, check in checks.items():
+            held[kind] = check({k: np.asarray(a) if isinstance(a, list) else a for k, a in subsets[kind].items()})
+    _say("cpu_subsets", **held)
+    return {phase: res for phase, (res, _) in pending.items()}
+
+
+def _start_workers(names=WORKERS):
     _WORKER_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in WORKERS:
+    for name in names:
         log = open(_WORKER_DIR / f"{name}.log", "w")
         procs[name] = (
             subprocess.Popen(
@@ -2848,6 +3630,25 @@ def _join_workers(procs, timeout):
     if failed:
         raise AssertionError(f"worker phases failed: {failed}")
     return results, seconds
+
+
+def _traces_summary(results, seconds):
+    """The `TRACES` phases for the closing line: seconds, and the lockstep
+    iterations and ms an iteration of each full-size trace."""
+
+    def loop(r):
+        return {k: r[k] for k in ("seconds", "iterations", "ms_per_iteration")}
+
+    fo, sc, rt = results["first_order"], results["shaped_chart"], results["radiative_transfer"]
+    return dict(
+        seconds={p: seconds[p] for p in TRACES},
+        charged={k: results["charged"][k] for k in ("particles", "seconds", "iterations", "ms_per_iteration")},
+        shaped_chart={"kerr": loop(sc["kerr"]["shaped"]), "kerr_scalar": loop(sc["kerr"]["scalar"]),
+                      "johannsen_psaltis": loop(sc["johannsen_psaltis"]["shaped"])},
+        first_order=loop(fo["first_order"]), second_order=loop(fo["second_order"]),
+        windings=loop(results["windings"]), radiative_transfer=loop(rt),
+        mesh={name: loop(results["mesh"][name]["mesh"]) for name in ("f64", "f32")},
+    )
 
 
 def _stop_workers(procs):
@@ -2881,17 +3682,21 @@ def main():
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
     binned = timed_phase("binning_lineprofile", phase_binning_lineprofile, dev, ctf_flux)
+    # the special traces' card work, alone on the card; their CPU subsets
+    # run in the worker ``traces_cpu`` and are held after the workers end
+    pending, traces_seconds = _run_traces(dev)
     # the host-bound phases: the workers' beside this process's
     t_workers = time.perf_counter()
     procs = _start_workers()
     try:
-        checks = timed_phase("kernel_vs_plain", phase_kernel_vs_plain, dev)
         render_api = timed_phase("render_api", phase_render_api, dev)
         binning_api = timed_phase("binning_api", phase_binning_api, dev, ctf_flux)
         lags, worker_seconds = _join_workers(procs, timeout=1150.0 - (time.perf_counter() - t_start))
-        trace_api = lags["trace_api"]
+        checks, trace_api = lags["kernel_vs_plain"], lags["trace_api"]
     finally:
         _stop_workers(procs)
+    traces = _hold_traces_to_cpu(pending, lags.pop("cpu_subsets"))
+    seconds.update(traces_seconds)
     seconds.update(worker_seconds)
     _say(
         "timing",
@@ -2953,6 +3758,7 @@ def main():
                         for k in ("seconds", "iterations", "loops", "forward_mode_loops", "split", "fan", "adaptive_sky")
                     },
                     "disc_corona": {k: lags["disc_corona"][k] for k in ("seconds", "rays", "iterations", "fan", "probes")},
+                    "traces": _traces_summary(traces, traces_seconds),
                     "lagtransfer_defaults": lags["binflux_golden"]["defaults"]["traces"],
                     "profiled_binned_profile": {
                         name: {k: r[k] for k in ("binned_seconds", "binned_iterations")}

@@ -33,7 +33,14 @@ Module paths and public names mirror `gradus_tpu`. This package imports
   (`optimize_for_target`, `refine_for_target`, `is_visible`),
   `continuum_time`, `integrate_lagtransfer` and its time-dependent form,
   `lag_frequency`, `lagtransfer` and `binflux`; the host-driven adaptive
-  grids of `camera/adaptive.py`.
+  grids of `camera/adaptive.py`;
+- the special traces on the lockstep solver: charged traces (the
+  Kerr-Newman Lorentz force), the θ-dependent inner chart
+  (`event_horizon_chart`, with `event_horizon`, `ergosphere` and
+  `is_naked_singularity`), the first-order Mino-time Kerr tracer
+  (`trace_geodesics_first_order`), `trace_radiative_transfer`,
+  `trace_windings`, triangle meshes (`MeshAccretionGeometry` and the
+  polygon utilities) and the orbit solvers of `orbits/solving.py`.
 """
 
 from gradus_tpu_torch.camera import (
@@ -86,12 +93,18 @@ from gradus_tpu_torch.geometry import (
     CompositeGeometry,
     DatumPlane,
     EllipticalDisc,
+    MeshAccretionGeometry,
     PolishDoughnut,
     PrecessingDisc,
     ShakuraSunyaev,
     ThickDisc,
     ThinDisc,
     WarpedThinDisc,
+    in_polygon,
+    jsf_segment_triangle,
+    orientation,
+    polygon_area,
+    polygon_barycenter,
 )
 from gradus_tpu_torch.integrate import (
     CudaTracer,
@@ -102,7 +115,13 @@ from gradus_tpu_torch.integrate import (
     integrate_rays,
     integrate_rays_plain,
     cuda_graphs,
+    PoloidalShape,
+    TraceGeodesic,
+    TraceRadiativeTransfer,
+    event_horizon_chart,
     trace_geodesics,
+    trace_radiative_transfer,
+    trace_windings,
     tracegeodesics,
 )
 from gradus_tpu_torch.lineprofile import (
@@ -111,10 +130,32 @@ from gradus_tpu_torch.lineprofile import (
     binned_flux,
     lineprofile,
 )
-from gradus_tpu_torch.metrics import AbstractMetric, KerrMetric, kerr_isco
-from gradus_tpu_torch.orbits import CircularOrbits, isco
+from gradus_tpu_torch.metrics import (
+    AbstractMetric,
+    KerrMetric,
+    KerrNewmanMetric,
+    KerrSpacetimeFirstOrder,
+    kerr_isco,
+    trace_geodesics_first_order,
+)
+from gradus_tpu_torch.orbits import (
+    CircularOrbits,
+    charged_circular_orbit_omega,
+    ergosphere,
+    event_horizon,
+    is_naked_singularity,
+    isco,
+    solve_equatorial_circular_orbit,
+    solve_orbit_theta,
+)
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.reverberation import binflux, continuum_time, lag_frequency, lagtransfer
+from gradus_tpu_torch.utils import (
+    cartesian_distance,
+    cartesian_squared_distance,
+    cartesian_to_spherical,
+    oblate_spheroid_to_spherical,
+)
 from gradus_tpu_torch.transfer import (
     CudaCTFSolver,
     CunninghamTransferTable,

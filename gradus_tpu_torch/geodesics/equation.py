@@ -28,10 +28,8 @@ __all__ = [
 ]
 
 
-def metric_jacobian(m: AbstractMetric, r, theta):
-    """Value + (∂_r, ∂_θ) of the 5 metric components, each stacked on a
-    trailing axis of 5, in two forward-mode passes (reference
-    `metric_jacobian`, auto-diff.jl:206-211)."""
+def _float_rtheta(r, theta):
+    """``r`` and ``theta`` as float tensors (f64 unless given), broadcast."""
     r, theta = (
         v if isinstance(v, torch.Tensor) else torch.as_tensor(v, dtype=torch.float64)
         for v in (r, theta)
@@ -39,11 +37,26 @@ def metric_jacobian(m: AbstractMetric, r, theta):
     dtype = torch.result_type(r, theta)
     if not dtype.is_floating_point:
         dtype = torch.float64
-    r, theta = torch.broadcast_tensors(r.to(dtype), theta.to(dtype))
+    return torch.broadcast_tensors(r.to(dtype), theta.to(dtype))
+
+
+def metric_jacobian(m: AbstractMetric, r, theta):
+    """Value + (∂_r, ∂_θ) of the 5 metric components, each stacked on a
+    trailing axis of 5, in two forward-mode passes (reference
+    `metric_jacobian`, auto-diff.jl:206-211)."""
+    r, theta = _float_rtheta(r, theta)
     ones, zeros = torch.ones_like(r), torch.zeros_like(r)
     g, dg_dr = torch.func.jvp(m.components, (r, theta), (ones, zeros))
     _, dg_dtheta = torch.func.jvp(m.components, (r, theta), (zeros, ones))
     return g, dg_dr, dg_dtheta
+
+
+def metric_jacobian_r(m: AbstractMetric, r, theta):
+    """Value + ∂_r of the 5 metric components: `metric_jacobian`'s first
+    forward-mode pass alone (the same bits), for the callers that need no
+    ∂_θ."""
+    r, theta = _float_rtheta(r, theta)
+    return torch.func.jvp(m.components, (r, theta), (torch.ones_like(r), torch.zeros_like(r)))
 
 
 def geodesic_equation(m: AbstractMetric, x, v):

@@ -1,3 +1,4 @@
+from gradus_tpu_torch.geometry.meshes import MeshAccretionGeometry, jsf_segment_triangle
 from gradus_tpu_torch.geometry.discs import (
     AbstractAccretionGeometry,
     AbstractThickAccretionDisc,
@@ -13,4 +14,10 @@ from gradus_tpu_torch.geometry.discs import (
     polish_doughnut_fw,
     CompositeGeometry,
     datumplane,
+)
+from gradus_tpu_torch.geometry.polygons import (
+    in_polygon,
+    orientation,
+    polygon_area,
+    polygon_barycenter,
 )

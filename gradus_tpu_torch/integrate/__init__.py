@@ -7,9 +7,14 @@ from gradus_tpu_torch.integrate.points import GeodesicPoint, unpack_solution
 from gradus_tpu_torch.integrate.solver import IntegrationResult, cuda_graphs, integrate_rays
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import (
+    PoloidalShape,
     TraceGeodesic,
+    TraceRadiativeTransfer,
     domain_upper_hemisphere,
+    event_horizon_chart,
     make_geodesic_rhs,
     trace_geodesics,
+    trace_radiative_transfer,
+    trace_windings,
     tracegeodesics,
 )

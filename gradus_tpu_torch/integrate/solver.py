@@ -7,8 +7,8 @@ masked array operations over the batch. On a CUDA tensor those operations
 run on the card: this is plain torch, not the CUDA integrator kernel
 (`integrate/cuda_solver.py`), which it does not call. Events:
 
-- chart bounds at step end: r ≤ r_inner → WithinInnerBoundary,
-  r > r_outer → OutOfDomain;
+- chart bounds at step end: r ≤ r_inner (a number, or r_min(θ) of a
+  `PoloidalShape`) → WithinInnerBoundary, r > r_outer → OutOfDomain;
 - a geometry's signed crossing indicator, located on the step's cubic
   Hermite interpolant (the cubic model of the indicator, or ``n_interp``
   samples and an in-loop bisection), validated by ``hit_fn``, and polished
@@ -57,6 +57,7 @@ import torch
 from gradus_tpu_torch.integrate.events import cubic_first_crossing
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tsit5 import hermite_interp, initial_dt, tsit5_step
+from gradus_tpu_torch.utils.interp import linear_interp
 from gradus_tpu_torch.utils.jvp import jvp
 
 __all__ = ["integrate_rays", "IntegrationResult", "cuda_graphs", "observe_loops"]
@@ -306,8 +307,15 @@ def _make_body(p: _Problem, dtype, device):
             c_prev_new = c["c_prev"]
 
         # --- chart + user discrete events (step end), masked by no-hit -------
+        # r_inner may be a θ-dependent PoloidalShape (reference
+        # `PoloidalShapeChart`, charts.jl:26-48): r_min at each ray's θ,
+        # clamped to the end values outside the shape's θ range
         r_new = y_new[..., 1]
-        inner = accept & ~hit_now & (r_new <= p.r_inner)
+        if getattr(p.r_inner, "rs", None) is not None:
+            rmin = linear_interp(y_new[..., 2], p.r_inner.thetas, p.r_inner.rs)
+        else:
+            rmin = p.r_inner
+        inner = accept & ~hit_now & (r_new <= rmin)
         outer = accept & ~hit_now & (r_new > p.r_outer)
         user_masks = [
             accept & ~hit_now & ~inner & ~outer & pred(y_new, lam_new) for pred, _code in p.terminate_fns
@@ -537,8 +545,8 @@ def integrate_rays(
         the position 4-vector for the chart checks).
     y0 : (N, S) initial states.
     lam_span : (λ0, λ1) scalars, or per-ray tensors broadcastable to (N,).
-    r_inner, r_outer : chart bounds (scalars). A θ-dependent ``PoloidalShape``
-        inner bound is not ported yet.
+    r_inner, r_outer : chart bounds (scalars); ``r_inner`` may also be a
+        θ-dependent `PoloidalShape`, interpolated at each ray's θ.
     crossing_fn : optional signed surface indicator ``c(y) -> (...,)``; a zero
         crossing that passes ``hit_fn`` terminates with
         IntersectedWithGeometry.
@@ -564,10 +572,6 @@ def integrate_rays(
 
     Returns an `IntegrationResult` (a pair with ``y0_dot``).
     """
-    if getattr(r_inner, "rs", None) is not None:
-        raise NotImplementedError(
-            "a PoloidalShape inner chart bound is not ported yet (ROADMAP queue A, item 11)"
-        )
     p = _Problem(
         f=f,
         abstol=abstol,

@@ -34,7 +34,9 @@ from gradus_tpu_torch.geometry.discs import (
     ThinDisc,
     WarpedThinDisc,
 )
+from gradus_tpu_torch.geometry.meshes import MeshAccretionGeometry
 from gradus_tpu_torch.integrate.points import GeodesicPoint
+from gradus_tpu_torch.integrate.tracing import PoloidalShape
 from gradus_tpu_torch.metrics import (
     BumblebeeMetric,
     CartesianMetric,
@@ -58,6 +60,8 @@ __all__ = [
     "from_numpy",
     "geometry_from_numpy",
     "geodesic_points_from_numpy",
+    "mesh_from_numpy",
+    "poloidal_shape_from_numpy",
     "near_field_profile_from_numpy",
     "radial_profile_from_numpy",
     "render_cache_from_numpy",
@@ -148,6 +152,31 @@ def geometry_from_numpy(kind: str, params: dict, *, dtype=torch.float64, device=
     metric = params.get("metric")
     metric = None if metric is None else from_numpy(*metric, **kw)
     return cls(**numbers, metric=metric, **kw)
+
+
+def mesh_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> MeshAccretionGeometry:
+    """A `MeshAccretionGeometry` from a dict of the JAX dataclass's fields
+    (``triangles`` (T, 3, 3), ``bbox_min``, ``bbox_max``, and
+    ``proximity2``, 9 when missing), in ``dtype`` on ``device`` (the card
+    when None)."""
+    return MeshAccretionGeometry(
+        np.asarray(d["triangles"], np.float64),
+        np.asarray(d["bbox_min"], np.float64),
+        np.asarray(d["bbox_max"], np.float64),
+        float(d.get("proximity2", 9.0)),
+        dtype=dtype,
+        device=device,
+    )
+
+
+def poloidal_shape_from_numpy(d: dict, *, dtype=torch.float64, device=None) -> PoloidalShape:
+    """A `PoloidalShape` (a θ-dependent inner chart) from a dict with its
+    ``rs`` and ``thetas``, in ``dtype`` on ``device`` (the card when
+    None)."""
+    device = default_device(device)
+    return PoloidalShape(
+        *(torch.as_tensor(np.asarray(d[k], np.float64), dtype=dtype, device=device) for k in ("rs", "thetas"))
+    )
 
 
 def geodesic_points_from_numpy(d: dict, *, device=None) -> GeodesicPoint:

@@ -3,9 +3,9 @@ Faraday tensor (counterpart of `gradus_tpu/metrics/kerr_newman.py`; reference
 `src/metrics/kerr-newman-ad.jl:1-61`, `src/tracing/utility.jl:89-99`).
 
 The CUDA integrator takes the metric through its dual numbers
-(`csrc/metrics.cuh`) for uncharged rays, as the JAX kernel does. The
-charged right-hand side that reads `faraday_tensor`, for the lockstep
-solver, is not ported yet (ROADMAP A10).
+(`csrc/metrics.cuh`) for uncharged rays, as the JAX kernel does. Charged
+traces run on the lockstep solver: `integrate/tracing.py::make_geodesic_rhs`
+adds the Lorentz force through `faraday_tensor`.
 """
 
 from __future__ import annotations
@@ -55,17 +55,17 @@ class KerrNewmanMetric(AbstractMetric):
 
 
 def faraday_tensor(m: AbstractMetric, x):
-    """F^μ_κ = g^{μσ}(∂_σ A_κ − ∂_κ A_σ) at one position ``x`` (4,), with ∂A
-    from `torch.func.jacfwd` of the potential w.r.t. (r, θ) (reference
-    `src/tracing/utility.jl:89-99`)."""
-    rtheta = torch.stack([x[..., 1], x[..., 2]])
-
-    def pot(rt):
-        return m.electromagnetic_potential(rt[0], rt[1])
-
-    dA_rt = torch.func.jacfwd(pot)(rtheta)  # (4, 2): ∂A_κ/∂(r, θ)
-    dA = torch.zeros((4, 4), dtype=dA_rt.dtype, device=dA_rt.device)
-    dA[:, 1] = dA_rt[:, 0]
-    dA[:, 2] = dA_rt[:, 1]
-    # dA[κ, σ] = ∂_σ A_κ ⇒ F_{σκ} = ∂_σ A_κ − ∂_κ A_σ = dA.T − dA
-    return m.inverse_metric(x) @ (dA.T - dA)
+    """F^μ_κ = g^{μσ}(∂_σ A_κ − ∂_κ A_σ) at positions ``x`` (..., 4), as
+    (..., 4, 4), with ∂A from two forward-mode passes of the potential
+    along r and θ (the reference's `jacfwd` of A_μ(r, θ),
+    `src/tracing/utility.jl:89-99`) and the index sums written as
+    elementwise products and sums: a batch of rays in one pass, with no
+    host read, so the charged right-hand side captures in a CUDA graph."""
+    r, th = x[..., 1], x[..., 2]
+    ones, zeros = torch.ones_like(r), torch.zeros_like(r)
+    _, dA_dr = torch.func.jvp(m.electromagnetic_potential, (r, th), (ones, zeros))
+    _, dA_dth = torch.func.jvp(m.electromagnetic_potential, (r, th), (zeros, ones))
+    z = torch.zeros_like(dA_dr)
+    dA = torch.stack([z, dA_dr, dA_dth, z], dim=-1)  # dA[..., κ, σ] = ∂_σ A_κ
+    F_low = dA.transpose(-1, -2) - dA  # F_{σκ} = ∂_σ A_κ − ∂_κ A_σ
+    return (m.inverse_metric(x)[..., :, :, None] * F_low[..., None, :, :]).sum(dim=-2)

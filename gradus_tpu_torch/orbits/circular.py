@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from gradus_tpu_torch.geodesics.equation import metric_jacobian
+from gradus_tpu_torch.geodesics.equation import metric_jacobian_r
 from gradus_tpu_torch.metrics.base import AbstractMetric
 from gradus_tpu_torch.utils.linalg import sym4x4_inverse_components
 
@@ -42,7 +42,7 @@ class CircularOrbits:
     @staticmethod
     def Omega(m: AbstractMetric, rtheta, contra_rotating=False):
         r, theta = _rtheta(rtheta)
-        _, dgr, _ = metric_jacobian(m, r, theta)
+        _, dgr = metric_jacobian_r(m, r, theta)
         return CircularOrbits.omega_analytic(dgr, contra_rotating)
 
     @staticmethod
@@ -75,22 +75,20 @@ class CircularOrbits:
 
     @staticmethod
     def vt(m: AbstractMetric, rtheta, contra_rotating=False):
-        r, theta = _rtheta(rtheta)
-        ginv = sym4x4_inverse_components(m.components(r, theta))
-        ut, uphi = CircularOrbits.ut_uphi(m, (r, theta), contra_rotating)
-        return ginv[..., 0] * ut + ginv[..., 4] * uphi
+        return CircularOrbits.fourvelocity(m, rtheta, contra_rotating)[..., 0]
 
     @staticmethod
     def vphi(m: AbstractMetric, rtheta, contra_rotating=False):
-        r, theta = _rtheta(rtheta)
-        ginv = sym4x4_inverse_components(m.components(r, theta))
-        ut, uphi = CircularOrbits.ut_uphi(m, (r, theta), contra_rotating)
-        return ginv[..., 4] * ut + ginv[..., 3] * uphi
+        return CircularOrbits.fourvelocity(m, rtheta, contra_rotating)[..., 3]
 
     @staticmethod
     def fourvelocity(m: AbstractMetric, rtheta, contra_rotating=False):
-        vt = CircularOrbits.vt(m, rtheta, contra_rotating)
-        vphi = CircularOrbits.vphi(m, rtheta, contra_rotating)
+        """(v^t, 0, 0, v^φ) from one (u_t, u_φ) raised by the inverse metric."""
+        r, theta = _rtheta(rtheta)
+        ginv = sym4x4_inverse_components(m.components(r, theta))
+        ut, uphi = CircularOrbits.ut_uphi(m, (r, theta), contra_rotating)
+        vt = ginv[..., 0] * ut + ginv[..., 4] * uphi
+        vphi = ginv[..., 4] * ut + ginv[..., 3] * uphi
         z = torch.zeros_like(vt)
         return torch.stack([vt, z, z, vphi], dim=-1)
 

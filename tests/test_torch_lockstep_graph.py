@@ -16,7 +16,9 @@ trace and its tangent of `refine_for_target` (and `torch.func.jvp` of its
 arrival time, whose traces replay captured within the transform), a
 ring's and a disc's fan profiles, and the adaptive sky's trace of 2N rays
 with their tangents (each copy's tangent bit for bit that of a trace of
-its own); and a `torch.func` transform around a captured loop raises.
+its own); the special traces' right-hand sides (charged, first-order
+Mino-time, radiative transfer, windings) and the shaped inner chart; and a
+`torch.func` transform around a captured loop raises.
 
     python -m pytest --noconftest -m cuda tests/test_torch_lockstep_graph.py
 """
@@ -377,3 +379,92 @@ def test_arrival_time_jvp_replays_captured_loops(dev):
     )
     assert torch.equal(t, t2) and torch.equal(dt, dt2)
     assert stats["captures"] == 3 and math.isfinite(float(dt)) and float(dt) < 0
+
+
+# --- the special traces' right-hand sides and the shaped chart ------------------
+
+
+@pytest.mark.cuda
+def test_captured_charged_trace_matches_uncaptured(dev):
+    """The charged right-hand side (the Lorentz force through the batched
+    `faraday_tensor`, two forward-mode passes inside the body) on 64
+    timelike particles near Kerr-Newman's charged circular orbits."""
+    from gradus_tpu_torch.orbits import charged_circular_orbit_omega
+
+    m = metrics.KerrNewmanMetric(1.0, 0.5, 0.3, device=dev)
+    r = torch.linspace(6.0, 20.0, 64, dtype=torch.float64, device=dev)
+    om = charged_circular_orbit_omega(m, r, q=0.3)
+    g = m.components(r, torch.full_like(r, math.pi / 2))
+    ut = 1.0 / torch.sqrt(-(g[:, 0] + 2 * om * g[:, 4] + om * om * g[:, 3]))
+    z = torch.zeros_like(r)
+    x = torch.stack([z, r, torch.full_like(r, math.pi / 2), z], -1)
+    v = torch.stack([ut, z + 1e-3, z + 1e-4, om * ut], -1)
+    got, want, stats = _trace_both(lambda: trace_geodesics(m, x, v, (0.0, 300.0), mu=1.0, q=0.3))
+    _equal(got, want)
+    assert stats["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_captured_first_order_trace_matches_uncaptured(dev):
+    """The Mino-time right-hand side (7 slots, the λ-limit terminate
+    function) on 256 flagship rays against ThinDisc(0, 50)."""
+    from gradus_tpu_torch.metrics import trace_geodesics_first_order
+
+    m, x, A, B, d = _flagship(dev, torch.float64, 256, seed=5)
+    v = map_impact_parameters(m, x, A, B)
+    mfo = metrics.KerrSpacetimeFirstOrder(1.0, 0.998, device=dev)
+    got, want, stats = _trace_both(lambda: trace_geodesics_first_order(mfo, x.expand_as(v), v, SPAN, geometry=d))
+    _equal(got, want)
+    assert stats["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_captured_radiative_transfer_and_windings_match_uncaptured(dev):
+    """The radiative-transfer right-hand side (10 slots, the crossing count
+    of an optically thick slab) and the winding count (9 slots), each on
+    256 flagship rays aimed at the slab, f32."""
+    from gradus_tpu_torch.integrate import trace_radiative_transfer, trace_windings
+
+    class Slab(td.AbstractThickAccretionDisc):
+        def __init__(self):
+            super().__init__()
+            self._buffers_from(torch.float32, dev, inner_r=8.0, outer_r=12.0)
+
+        def cross_section(self, rho):
+            return torch.where((rho > self.inner_r) & (rho < self.outer_r), 1.0, -1.0)
+
+        def emission_coefficient(self, x4, nu):
+            return torch.ones(x4.shape[:-1], dtype=x4.dtype, device=x4.device)
+
+    m, x, _, _, _ = _flagship(dev, torch.float32, 1)
+    rng = np.random.default_rng(6)
+    rho, phi = rng.uniform(8.0, 13.0, 256), rng.uniform(0, 2 * math.pi, 256)
+    A = torch.as_tensor(rho * np.cos(phi), dtype=torch.float32, device=dev)
+    B = torch.as_tensor(rho * np.sin(phi) * math.cos(math.radians(75.0)), dtype=torch.float32, device=dev)
+    v = map_impact_parameters(m, x, A, B)
+    xs = x.expand_as(v)
+    got, want, stats = _trace_both(lambda: trace_radiative_transfer(m, xs, v, SPAN, geometry=Slab(), max_steps=3000))
+    _equal(got, want)
+    assert torch.equal(got.aux, want.aux) and stats["captures"] == 1
+    assert bool((got.aux[:, 1] >= 2).any())
+    (gw, w), (gw2, w2), stats = _trace_both(lambda: trace_windings(m, xs, v, SPAN))
+    _equal(gw, gw2)
+    assert torch.equal(w, w2) and stats["captures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["KerrMetric", "JohannsenPsaltisMetric"])
+def test_captured_shaped_chart_matches_uncaptured(dev, name):
+    """`event_horizon_chart` as the inner chart (r_min interpolated at each
+    ray's θ in the body) on 256 flagship rays across the shadow."""
+    from gradus_tpu_torch.integrate import event_horizon_chart
+
+    m = _metric_cases()[name](dev)
+    _, x, A, B, d = _flagship(dev, torch.float64, 256, seed=7)
+    v = map_impact_parameters(m, x, A * 0.3, B * 0.3)
+    chart = event_horizon_chart(m)
+    got, want, stats = _trace_both(
+        lambda: trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d, chart_inner=chart, chart_outer=1100.0)
+    )
+    _equal(got, want)
+    assert stats["captures"] == 1 and bool((got.status == StatusCodes.WithinInnerBoundary).any())

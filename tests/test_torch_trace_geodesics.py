@@ -304,10 +304,15 @@ def test_unported_trace_paths_raise(rays):
     # the corona-model dispatch is ported (tests/test_torch_corona.py)
     gp = tracegeodesics(m, LampPostModel(), 1.0, n_samples=3)
     assert gp.x.shape == (3, 4) and bool(torch.isfinite(gp.x).all())
-    shape = types.SimpleNamespace(thetas=torch.linspace(0, math.pi, 5), rs=torch.full((5,), 2.5))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trace_geodesics(m, x, v, SPAN, chart_inner=shape)
-    with pytest.raises(NotImplementedError, match="charged"):
+    # a θ-dependent chart and charged traces are ported
+    # (tests/test_torch_shaped_chart.py, tests/test_torch_charged_orbits.py);
+    # a charge needs a metric with an electromagnetic potential
+    shape = types.SimpleNamespace(
+        thetas=torch.linspace(0, math.pi, 5, dtype=torch.float64), rs=torch.full((5,), 2.5, dtype=torch.float64)
+    )
+    gp = trace_geodesics(m, x, v, (0.0, 5.0), chart_inner=shape)
+    assert bool(torch.isfinite(gp.x).all())
+    with pytest.raises(AttributeError, match="electromagnetic_potential"):
         trace_geodesics(m, x, v, SPAN, q=0.1)
     # the positional front door is trace_geodesics
     gp = tracegeodesics(m, x, v, (0.0, 5.0))
