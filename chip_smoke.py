@@ -132,8 +132,12 @@ from gradus_tpu_torch.camera import (
 from gradus_tpu_torch.camera.render import _pixel_velocities
 from gradus_tpu_torch.geometry import (
     AbstractThickAccretionDisc,
+    CompositeGeometry,
     DatumPlane,
+    EllipticalDisc,
     MeshAccretionGeometry,
+    PolishDoughnut,
+    PrecessingDisc,
     ShakuraSunyaev,
     ThinDisc,
 )
@@ -254,12 +258,21 @@ SEGMENT_ITERS, TAIL_BUCKET = 128, 32768
 # roots and transcendental calls, one each) per ray start, per attempted step
 # and per hit it polishes (3 Newton iterations), counted by running
 # its C++ on a CPU with a counting scalar over 512 rays of each
-# configuration: `python -m gradus_tpu_torch.opcount`.
+# configuration: `python -m gradus_tpu_torch.opcount` (the flagship camera
+# against the generic geometries' cases as `kerr_<case>`).
 KERNEL_OPS = {
     "kerr": (427.0, 1431.2514095377364, 4351.0),
     "johannsen_psaltis": (675.0, 2175.2740566503276, 6831.0),
     "kerr_newman": (559.0, 1827.2608574427607, 5671.0),
     "kerr_datum_plane": (428.0, 1431.9918712674187, 4354.0),
+    "kerr_shakura_sunyaev": (447.0, 1452.4608245197498, 4411.0),
+    "kerr_shakura_sunyaev_sampled": (447.0, 1813.5959421541115, 4411.0),
+    "kerr_elliptical": (442.0, 1449.7060856908943, 4396.0),
+    "kerr_precessing_elliptical": (506.0, 1513.6654835458567, 4588.0),
+    "kerr_precessing_thin": (491.0, 1495.7654253598578, 4543.0),
+    "kerr_composite": (435.0, 1441.1087017186755, 4375.0),
+    "kerr_doughnut": (1257.0, 2290.3580878681973, 6841.0),
+    "kerr_doughnut_kerr": (2323.0, 3386.693584623065, 10039.0),
 }
 # NVIDIA H100 SXM data sheet, at its 700 W limit: FP32 and FP64 outside the
 # tensor cores, and HBM3
@@ -985,9 +998,10 @@ def phase_goldens(dev):
     _say("goldens", **sums)
 
 
-def _full_render(dev, m, side, name, ops_key, subset=True, **tracer_kw):
+def _full_render(dev, m, side, name, ops_key, subset=True, geometry=None, **tracer_kw):
     """A side² render, f32, at the flagship camera (r = 1000, i = 75°,
-    ThinDisc(0, 50), λ ∈ (0, 2200)) through the port's entry points, with
+    ThinDisc(0, 50) unless ``geometry`` is given, λ ∈ (0, 2200)) through
+    the port's entry points, with
     the metric's redshift point function; one warm-up and three timed
     renders, one kernel launch each (two with a tail pass, ``tracer_kw``'s
     ``segment_iters``), none of which may call the plain-torch polish; then
@@ -997,7 +1011,7 @@ def _full_render(dev, m, side, name, ops_key, subset=True, **tracer_kw):
     printed result, the last render's GeodesicPoint)."""
     dtype = torch.float32
     n = side * side
-    d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev)
+    d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev) if geometry is None else geometry
     x = torch.tensor(X_OBS, dtype=dtype, device=dev)
     pf = ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected()
     tracer = CudaTracer(m, geometry=d, **tracer_kw)
@@ -1105,6 +1119,7 @@ def _full_render(dev, m, side, name, ops_key, subset=True, **tracer_kw):
     # the kernel alone (both passes and the compaction, with a tail pass) on
     # every ray of the render; and its single pass without the polish
     y0_full = _constrained(tracer, m, x, A, B)
+    tracer._integrate(y0_full, SPAN)  # warm-up: the allocator's blocks for 1024² outputs
     out_full, full_ms = _timed(lambda: tracer._integrate(y0_full, SPAN))
     full_hits = _hits(out_full)
     full_bound_ms, _ = _bound(ops_key, n, int(out_full["attempts"].sum()), full_hits, dtype)
@@ -1171,8 +1186,258 @@ def phase_kerr_newman_render(dev, side=1024):
     return _full_render(dev, m, side, "kerr_newman_render", "kerr_newman")[0]
 
 
-def _sass_counts(lib_path, want=("geodesic_tsit5_kernelIf", "4KerrE")):
-    """Static SASS counts (cuobjdump -sass) of the Kerr f32 instantiation:
+def phase_thick_geometries_render(dev, side=1024):
+    """The flagship render (f32, Kerr a = 0.998, analytic redshift) against
+    ``ShakuraSunyaev.from_metric(m, 0.3)`` through the kernel's generic
+    instantiation (`_full_render`: the render's time, finite pixels,
+    attempted lane-steps, the kernel's time and bound, every 64th pixel
+    against the plain version)."""
+    m = KerrMetric(1.0, 0.998, dtype=torch.float32, device=dev)
+    geometry = ShakuraSunyaev.from_metric(m, 0.3)
+    return _full_render(dev, m, side, "thick_geometries_render", "kerr_shakura_sunyaev", geometry=geometry)[0]
+
+
+# --- the generic geometries (csrc/geometry.cuh) against the plain version --------
+
+# The cases of `phase_thick_geometries`, as the docs build them
+# (docs/examples.md, docs/getting-started.md); ShakuraSunyaev also with
+# sampled events.
+THICK_KINDS = (
+    "shakura_sunyaev",
+    "elliptical",
+    "precessing_elliptical",
+    "precessing_thin",
+    "composite",
+    "doughnut",
+    "doughnut_kerr",
+)
+# The kinds whose traces are held one iteration at a time from the plain
+# version's carry (`_stepwise`): where an event or a hit test depends on
+# the step sequence, which rounding in the controller's error estimate
+# separates (tests/test_torch_kernel_geometries.py), two correct
+# implementations' traces differ: the composite's |c| < 1e-6 hit test, and
+# the ellipse's (also precessed) events in a step that starts beyond its
+# semi-major axis (a NaN slope) or by its rim (a slope that diverges), and
+# their unconverged polish.
+STEPWISE_KINDS = ("elliptical", "precessing_elliptical", "composite")
+STEPWISE_ITERS = 400
+KINDS012_DIGESTS = Path(__file__).resolve().parent / "tests" / "data" / "kernel_kinds012_digests.json"
+
+
+def _thick_geometry(kind, m, dtype, dev):
+    kw = dict(dtype=dtype, device=dev)
+    ellipse = EllipticalDisc(0.0, 100.0, 60.0, **kw)
+    return {
+        "shakura_sunyaev": lambda: ShakuraSunyaev.from_metric(m, 0.3),
+        "elliptical": lambda: ellipse,
+        "precessing_elliptical": lambda: PrecessingDisc(ellipse, math.radians(10.0), math.radians(30.0), **kw),
+        "precessing_thin": lambda: PrecessingDisc(ThinDisc(0.0, 50.0, **kw), math.radians(20.0), math.radians(30.0), **kw),
+        "composite": lambda: CompositeGeometry([ThinDisc(20.0, 100.0, **kw), DatumPlane(3.0, **kw)]),
+        "doughnut": lambda: PolishDoughnut(**kw),
+        "doughnut_kerr": lambda: PolishDoughnut(metric=m),
+    }[kind]()
+
+
+def _full_trace(m, x, tracer, y0, dtype, ops_key):
+    """The kernel and its plain version on the same rays, each polishing its
+    hits: status agreement, the largest |Δ| of a hit's x and λ, the hits
+    past 1e-6, the median relative gap of the redshift of both versions'
+    hits, both versions' ms, and the kernel's bound (`KERNEL_OPS[ops_key]`,
+    from its attempted steps and hits)."""
+    kw = tracer._integrate_kwargs(dtype)
+    ok, kernel_ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **kw))
+    op, plain_ms = _timed(lambda: integrate_rays_plain(m, y0, SPAN, **kw))
+    gk, gp = tracer._finish(ok, y0, SPAN[0]), tracer._finish(op, y0, SPAN[0])
+    hit = (gk.status == HIT) & (gp.status == HIT)
+    gap = torch.cat([(gk.x[hit] - gp.x[hit]).abs(), (gk.lam_max[hit] - gp.lam_max[hit]).abs()[:, None]], dim=-1).amax(dim=-1)
+    pf = ConstPointFunctions.redshift(m, x)
+    g_k, g_p = pf(m, gk, SPAN[1])[hit], pf(m, gp, SPAN[1])[hit]
+    bound_ms, bound_by = _bound(ops_key, int(y0.shape[0]), int(ok["attempts"].sum()), _hits(ok), dtype)
+    return dict(
+        rays=int(y0.shape[0]),
+        hits=int(hit.sum()),
+        status_agree=float((gk.status == gp.status).double().mean()),
+        hit_max_abs_err=float(gap.nan_to_num(nan=math.inf).max()) if hit.any() else 0.0,
+        hits_past_1e6=int((gap.nan_to_num(nan=math.inf) > 1e-6).sum()),
+        g_median_rel=float(_rel(g_k, g_p).nanmedian()) if hit.any() else 0.0,
+        kernel_ms=kernel_ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+    )
+
+
+def _stepwise(m, tracer, y0, dtype, max_iters=STEPWISE_ITERS):
+    """The trace one loop iteration at a time: from the plain version's carry
+    after each iteration, one more iteration of the kernel and of the plain
+    version (uncaptured: a carry a call), no polish. Over every ray that
+    stepped: the share of identical statuses, step and failure counts; the
+    share of identical status codes, counting a step that ends in a hit in
+    one version only as alike; those steps and those whose acceptance
+    differs; and over the rays that agree the largest relative gap (to max(1, |value|);
+    a NaN where the other is not counts as infinite) of the state y and λ,
+    and of the event's indicator, slope and θ (in f32 these lose digits by
+    the ellipse's rim, where 1 − (r/a)² cancels). Not the next step size:
+    its error estimate is rounding far from the hole."""
+    kw = {**tracer._integrate_kwargs(dtype), "newton_iters": 0, "iter_cap": 1}
+    with cuda_graphs(False):
+        out = integrate_rays_plain(m, y0, SPAN, **kw)
+    same = codes = hit_flips = step_flips = stepped = 0
+    gaps = {part: torch.zeros((), dtype=torch.float64, device=y0.device) for part in ("state", "event")}
+    iters = 1
+    t0 = time.perf_counter()
+    while iters < max_iters and bool(cuda_solver._mid_flight(out, SPAN[1]).any()):
+        went = cuda_solver._mid_flight(out, SPAN[1])
+        state = {k: out[k] for k in cuda_solver._STATE_KEYS}
+        k = cuda_integrate_rays(m, out["y"], SPAN, state=state, **kw)
+        with cuda_graphs(False):
+            p = integrate_rays_plain(m, out["y"], SPAN, state=state, **kw)
+        agree = (k["status"] == p["status"]) & (k["steps"] == p["steps"]) & (k["failed"] == p["failed"])
+        flip = went & ((k["status"] == HIT) != (p["status"] == HIT))
+        same, stepped = same + (agree & went).sum(), stepped + went.sum()
+        codes = codes + (went & ((k["status"] == p["status"]) | flip)).sum()
+        hit_flips = hit_flips + flip.sum()
+        step_flips = step_flips + (went & (k["steps"] != p["steps"])).sum()
+        both = agree & went
+        for key in ("y", "lam", "c_prev", "dc_prev", "hit_theta"):
+            part = "state" if key in ("y", "lam") else "event"
+            a, b = k[key][both].double(), p[key][both].double()
+            rel = ((a - b).abs() / b.abs().clamp(min=1.0)).nan_to_num(nan=math.inf)
+            rel = torch.where(a.isnan() & b.isnan(), 0.0, rel)
+            if rel.numel():
+                gaps[part] = torch.maximum(gaps[part], rel.max())
+        out, iters = p, iters + 1
+    return dict(
+        iterations=iters,
+        ray_steps=int(stepped),
+        status_agree=float(same / max(int(stepped), 1)),
+        codes_agree_but_hits=float(codes / max(int(stepped), 1)),
+        hit_flips=int(hit_flips),
+        step_flips=int(step_flips),
+        state_max_rel=float(gaps["state"]),
+        event_max_rel=float(gaps["event"]),
+        seconds=time.perf_counter() - t0,
+    )
+
+
+def _stepwise_ok(step, dtype):
+    """`_stepwise`'s thresholds: f64 statuses, step and failure counts ≥
+    0.999 alike, state and event within 1e-9; f32 status codes ≥ 0.995
+    alike but for the steps that one version ends in a hit and the other
+    does not, and the state within 1e-4. In f32 the composite's |c| < 1e-6
+    is below the resolution of c = r cos θ − h (~1e-6 at r ~ 10), and an
+    error estimate near 1 decides a step's acceptance, on rounding in any
+    trace: those flips are counted."""
+    if dtype == torch.float64:
+        return step["status_agree"] >= 0.999 and max(step["state_max_rel"], step["event_max_rel"]) <= 1e-9
+    return step["codes_agree_but_hits"] >= 0.995 and step["state_max_rel"] <= 1e-4
+
+
+def _kinds012_outputs(dev):
+    """The kernel's outputs for geometry kinds 0-2: Kerr a = 0.998 and
+    Johannsen-Psaltis (a = 0.6, ε₃ = 2), 8,192 flagship rays each (seed 5),
+    without a geometry, against ThinDisc(0, 50) with cubic and sampled
+    events, and against DatumPlane(0.5), in f32 and f64: the sha256 of each
+    case's 13 outputs."""
+    import hashlib
+
+    rng = np.random.default_rng(5)
+    digests = {}
+    for dtype in (torch.float32, torch.float64):
+        kw = dict(dtype=dtype, device=dev)
+        x = torch.tensor(X_OBS, **kw)
+        for name, m in (("kerr", KerrMetric(1.0, 0.998, **kw)), ("jp", JohannsenPsaltisMetric(1.0, 0.6, 2.0, **kw))):
+            A = torch.as_tensor(rng.uniform(-28, 28, 8192), **kw)
+            B = torch.as_tensor(rng.uniform(-18, 18, 8192), **kw)
+            v = map_impact_parameters(m, x, A, B)
+            for geo, d, tkw in (
+                ("none", None, {}),
+                ("thin", ThinDisc(0.0, 50.0, **kw), {}),
+                ("thin_sampled", ThinDisc(0.0, 50.0, **kw), {"event_method": "sampled"}),
+                ("datum", DatumPlane(0.5, **kw), {}),
+            ):
+                tracer = CudaTracer(m, geometry=d, **tkw)
+                y0 = tracer._constrain(x.expand_as(v), v)
+                out = cuda_integrate_rays(m, y0, SPAN, **tracer._integrate_kwargs(dtype))
+                h = hashlib.sha256()
+                for key in cuda_solver._OUTPUT_KEYS:
+                    h.update(out[key].contiguous().cpu().numpy().tobytes())
+                digests[f"{name}_{geo}_{str(dtype)[6:]}"] = h.hexdigest()[:32]
+    return digests
+
+
+def phase_thick_geometries(dev, n=2048, n_trace=2048):
+    """The kernel's generic geometries against its plain version on the
+    same card tensors, ``n`` flagship rays (uniform over α ∈ [−28, 28], β ∈
+    [−18, 18]) a case, f64 and f32: every case of `THICK_KINDS` and
+    ShakuraSunyaev with sampled events traced whole (`_full_trace`), held
+    at `phase_kernel_vs_plain`'s thresholds (f64: statuses ≥ 0.999 alike,
+    hits within 1e-6; f32: ≥ 0.995, median redshift gap ≤ 1e-4), but the
+    `STEPWISE_KINDS`, whose whole traces are printed and held iteration by
+    iteration (`_stepwise`, its first `STEPWISE_ITERS` iterations, at
+    `_stepwise_ok`'s thresholds);
+    then the kernel against the captured `trace_geodesics` with
+    ShakuraSunyaev on ``n_trace`` rays (f64, statuses ≥ 0.99 alike), and
+    geometry kinds 0-2 bit for bit the kernel's before the generic
+    geometries came (`KINDS012_DIGESTS`)."""
+    rng = np.random.default_rng(21)
+    alpha, beta = rng.uniform(-28.0, 28.0, n), rng.uniform(-18.0, 18.0, n)
+    results, failed = {}, []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        kw = dict(dtype=dtype, device=dev)
+        m = KerrMetric(1.0, 0.998, **kw)
+        x = torch.tensor(X_OBS, **kw)
+        v = map_impact_parameters(m, x, torch.as_tensor(alpha, **kw), torch.as_tensor(beta, **kw))
+        for kind in THICK_KINDS + ("shakura_sunyaev_sampled",):
+            geometry = _thick_geometry(kind.replace("_sampled", ""), m, dtype, dev)
+            tracer = CudaTracer(m, geometry=geometry, event_method="sampled" if kind.endswith("_sampled") else "cubic")
+            y0 = tracer._constrain(x.expand_as(v), v)
+            res = _full_trace(m, x, tracer, y0, dtype, f"kerr_{kind}")
+            if kind in STEPWISE_KINDS:
+                res["stepwise"] = step = _stepwise(m, tracer, y0, dtype)
+                ok = _stepwise_ok(step, dtype)
+            elif dtype == torch.float64:
+                ok = res["status_agree"] >= 0.999 and res["hit_max_abs_err"] <= 1e-6
+            else:
+                ok = res["status_agree"] >= 0.995 and res["g_median_rel"] <= 1e-4
+            results[f"{kind}_{name}"] = res
+            if not ok:
+                failed.append(f"{kind}_{name}")
+    # the kernel against the lockstep solver's trace_geodesics
+    m = KerrMetric(1.0, 0.998, device=dev)
+    x = torch.tensor(X_OBS, dtype=torch.float64, device=dev)
+    geometry = ShakuraSunyaev.from_metric(m, 0.3)
+    v = map_impact_parameters(m, x, *(torch.as_tensor(a[:n_trace], device=dev) for a in (alpha, beta)))
+    steps = _Lockstep()
+    with steps:
+        gt = trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=geometry)
+    _require_captured("thick_geometries trace_geodesics", steps)
+    gk = CudaTracer(m, geometry=geometry)(x.expand_as(v), v, SPAN)
+    hit = (gk.status == HIT) & (gt.status == HIT)
+    results["trace_geodesics"] = dict(
+        rays=n_trace,
+        iterations=steps.iters,
+        status_agree=float((gk.status == gt.status).double().mean()),
+        hits=int(hit.sum()),
+        hit_max_abs_err=float((gk.x[hit] - gt.x[hit]).abs().max()) if hit.any() else 0.0,
+    )
+    if results["trace_geodesics"]["status_agree"] < 0.99:
+        failed.append("trace_geodesics")
+    want = json.loads(KINDS012_DIGESTS.read_text())["sha256"]
+    got = _kinds012_outputs(dev)
+    results["kinds012_bit_for_bit"] = {case: got[case] == want[case] for case in want}
+    if not all(results["kinds012_bit_for_bit"].values()):
+        failed.append("kinds012_bit_for_bit")
+    _say("thick_geometries", **results)
+    if failed:
+        raise AssertionError(f"thick_geometries: kernel and plain version disagree: {failed}")
+    return results
+
+
+def _sass_counts(lib_path, want=("geodesic_tsit5_kernelIf", "4KerrE", "Lb0E")):
+    """Static SASS counts (cuobjdump -sass) of the Kerr f32 instantiation
+    for geometry kinds 0-2 (``Lb0E``: kGeneric = false):
     its instructions, and those of its main loop, taken as the span of its
     longest backward branch, with the loop's most frequent opcodes. The
     loop's count holds the cubic event's 26 bisections and the other inner
@@ -3531,7 +3796,7 @@ WORKERS = {
     "ring_corona": (("ring_corona", {}),),
     "disc_corona": (("disc_corona", {}),),
     "traces_cpu": (("cpu_subsets", {}),),
-    "plain": (("kernel_vs_plain", {}),),
+    "plain": (("kernel_vs_plain", {}), ("thick_geometries", {})),
 }
 # The special traces' card work runs alone on the card, in the main process
 # before the workers start (`_run_traces`), or alone as ``--worker traces``:
@@ -3678,6 +3943,7 @@ def main():
     rendered, segmented = timed_phase("main_path", phase_main_path, dev)
     deformed = timed_phase("deformed_render", phase_deformed_render, dev)
     kerr_newman = timed_phase("kerr_newman_render", phase_kerr_newman_render, dev)
+    thick = timed_phase("thick_geometries_render", phase_thick_geometries_render, dev)
     chain = timed_phase("chain", phase_chain, dev)
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
@@ -3775,11 +4041,14 @@ def main():
             ("flagship", "kerr", rendered),
             ("deformed", "johannsen_psaltis", deformed),
             ("kerr_newman", "kerr_newman", kerr_newman),
+            ("thick", "kerr_shakura_sunyaev", thick),
         )
     }
     bound_ms, bound_by = bounds["flagship"]
     deformed_bound_ms, deformed_bound_by = bounds["deformed"]
     kn_bound_ms, kn_bound_by = bounds["kerr_newman"]
+    thick_bound_ms, thick_bound_by = bounds["thick"]
+    geometries = lags["thick_geometries"]
     print(
         json.dumps(
             {
@@ -3805,6 +4074,11 @@ def main():
                             "crossing_counter",
                             "timelike",
                             "polish_epilogue",
+                            "shakura_sunyaev",
+                            "elliptical_disc",
+                            "polish_doughnut",
+                            "precessing_disc",
+                            "composite_geometry",
                         ],
                         "metrics": [
                             "kerr",
@@ -3851,6 +4125,27 @@ def main():
                             "bound_ms": kn_bound_ms,
                             "bound_by": kn_bound_by,
                         },
+                        "thick_geometries_render": {
+                            "launches": thick["launches"],
+                            "ms": thick["subset_kernel_ms"],
+                            "plain_ms": thick["subset_plain_ms"],
+                            "bound_ms": thick_bound_ms,
+                            "bound_by": thick_bound_by,
+                            "full_kernel_ms": thick["full_kernel_ms"],
+                            "full_bound_ms": thick["full_bound_ms"],
+                        },
+                        "geometries_max_abs_err": {
+                            k: r["hit_max_abs_err"] for k, r in geometries.items() if k.endswith("_float64")
+                        },
+                        "geometries_kernel": {
+                            k: {f: r[f] for f in ("rays", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+                            for k, r in geometries.items()
+                            if "kernel_ms" in r
+                        },
+                        "geometries_stepwise_max_rel": {
+                            k: r["stepwise"]["state_max_rel"] for k, r in geometries.items() if "stepwise" in r
+                        },
+                        "kinds012_bit_for_bit": all(geometries["kinds012_bit_for_bit"].values()),
                         "flagship_render_segmented": {
                             "launches": segmented["launches"],
                             "full_kernel_ms": segmented["full_kernel_ms"],
@@ -3867,6 +4162,7 @@ def main():
                             "flagship_render_segmented": segmented["launches"],
                             "deformed_render": deformed["launches"],
                             "kerr_newman_render": kerr_newman["launches"],
+                            "thick_geometries_render": thick["launches"],
                             "ctf_lineprofile": ctf["launches"],
                             "binning_lineprofile": binned["launches"],
                             "reverberation_golden": lags["reverberation_golden"]["transfer_functions"]["launches"],

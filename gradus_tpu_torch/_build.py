@@ -135,6 +135,7 @@ def _declare(lib):
             i32, dbl, dbl,  # metric kind, M, a
             ctypes.POINTER(dbl),  # the metric's other parameters, double[5]
             i32, dbl, dbl, dbl,  # geometry kind, inner_r, outer_r, height
+            vp,  # kinds 3-7: the geometry's block on the device (csrc/geometry.cuh), or null
             dbl, dbl, dbl, dbl,  # abstol, reltol, r_inner, r_outer
             dbl, dbl, i32, dbl,  # lam0, lam1, max_steps (or the iteration cap), dt_min
             ctypes.POINTER(i32),  # modes: sampled, n_interp, bisect_iters, terminate_on_hit, newton_iters

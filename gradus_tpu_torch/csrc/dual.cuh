@@ -108,4 +108,80 @@ __device__ __forceinline__ T select(bool c, T a, T b) {
   return c ? a : b;
 }
 
+// Forward-mode dual numbers with one tangent: a geometry's crossing
+// indicator and its derivative along a direction in one pass (geometry.cuh),
+// the device counterpart of the jax.jvp of pallas_solver.py:178-179. Where a
+// function has a kink, the tangent is the one jax.jvp gives there, not the
+// mathematics': |x| has slope +1 at 0 (jnp.abs's select(x >= 0, t, -t)),
+// and a tie of jnp.maximum splits the tangent in half (jmax below).
+template <typename T>
+struct Dual1 {
+  T v, d;
+
+  friend __device__ __forceinline__ Dual1 operator-(Dual1 a) { return {-a.v, -a.d}; }
+
+  friend __device__ __forceinline__ Dual1 operator+(Dual1 a, Dual1 b) {
+    return {a.v + b.v, a.d + b.d};
+  }
+  friend __device__ __forceinline__ Dual1 operator+(Dual1 a, T b) { return {a.v + b, a.d}; }
+  friend __device__ __forceinline__ Dual1 operator-(Dual1 a, Dual1 b) {
+    return {a.v - b.v, a.d - b.d};
+  }
+  friend __device__ __forceinline__ Dual1 operator-(Dual1 a, T b) { return {a.v - b, a.d}; }
+  friend __device__ __forceinline__ Dual1 operator-(T a, Dual1 b) { return {a - b.v, -b.d}; }
+
+  friend __device__ __forceinline__ Dual1 operator*(Dual1 a, Dual1 b) {
+    return {a.v * b.v, a.d * b.v + a.v * b.d};
+  }
+  friend __device__ __forceinline__ Dual1 operator*(Dual1 a, T b) { return {a.v * b, a.d * b}; }
+  friend __device__ __forceinline__ Dual1 operator*(T a, Dual1 b) { return {a * b.v, a * b.d}; }
+
+  friend __device__ __forceinline__ Dual1 operator/(Dual1 a, T b) { return {a.v / b, a.d / b}; }
+  // d(a/b) = -(a/b) db / b
+  friend __device__ __forceinline__ Dual1 operator/(T a, Dual1 b) {
+    const T q = a / b.v;
+    return {q, -q * b.d / b.v};
+  }
+
+  friend __device__ __forceinline__ Dual1 sin(Dual1 a) { return {sin(a.v), cos(a.v) * a.d}; }
+  friend __device__ __forceinline__ Dual1 cos(Dual1 a) { return {cos(a.v), -sin(a.v) * a.d}; }
+  // jax: t * (0.5 / sqrt(x)), NaN for t = 0 at x = 0
+  friend __device__ __forceinline__ Dual1 sqrt(Dual1 a) {
+    const T s = sqrt(a.v);
+    return {s, a.d * (T(0.5) / s)};
+  }
+  // atan2(y, x): dy x / (x^2 + y^2) - dx y / (x^2 + y^2)
+  friend __device__ __forceinline__ Dual1 atan2(Dual1 y, Dual1 x) {
+    const T n = x.v * x.v + y.v * y.v;
+    return {atan2(y.v, x.v), y.d * (x.v / n) + x.d * (-y.v / n)};
+  }
+  friend __device__ __forceinline__ Dual1 fabs(Dual1 a) {
+    return {fabs(a.v), a.v >= T(0) ? a.d : -a.d};
+  }
+};
+
+// jnp.maximum(x, c) of a constant c: the value as tsit5.cuh's mx (a NaN
+// propagates), the tangent t times 1 above c, 0 below and 1/2 at a tie
+// (jax's _balanced_eq)
+template <typename T>
+__device__ __forceinline__ T jmax(T x, T c) {
+  return (x > c || x != x) ? x : c;
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jmax(Dual1<T> x, T c) {
+  const T v = jmax(x.v, c);
+  const T f = x.v == v ? (c == v ? T(0.5) : T(1)) : T(0);
+  return {v, x.d * f};
+}
+
+// the value of a scalar or a dual
+template <typename T>
+__device__ __forceinline__ T value(T x) {
+  return x;
+}
+template <typename T>
+__device__ __forceinline__ T value(Dual1<T> x) {
+  return x.v;
+}
+
 }  // namespace gradus

@@ -1,26 +1,30 @@
 // Adaptive Tsit5 geodesic integrator with disc-crossing events: one CUDA
 // thread integrates one ray from its initial state to its end. The kernel
-// itself is the template in tsit5.cuh; this file holds the Kerr right-hand
-// side and the library's C entry points.
+// itself is the template in tsit5.cuh; this file holds the library's C entry
+// points and Kerr's instantiation for geometry kinds 0-2 (its right-hand side
+// is in kerr.cuh; every metric's instantiation for kinds 3-7 is in a
+// geodesic_tsit5_generic_*.cu file).
 //
 // Replaces gradus_tpu/integrate/pallas_solver.py::_make_kernel (the Pallas TPU
 // kernel launched by pallas_integrate_rays) in every mode a caller of the JAX
 // package reaches with these geometries: cubic-Hermite or sampled events,
 // terminate on hit or count the crossings, a fresh start or the resumption
-// of a saved carry with a cap on the loop iterations, against one of three
-// geometry kinds
+// of a saved carry with a cap on the loop iterations, against a geometry
 //   0  none
 //   1  ThinDisc(inner_r, outer_r): crossings of theta = pi/2 inside the annulus
 //   2  DatumPlane(height): every crossing of the plane r cos(theta) = height
 //      (the Cunningham transfer-function solve; one height for all rays)
+//   3-7  ShakuraSunyaev, EllipticalDisc, PolishDoughnut, PrecessingDisc,
+//      CompositeGeometry of up to four parts (geometry.cuh; the kernel's
+//      generic instantiation)
 // and for every metric of gradus_tpu/metrics/: Kerr (kind 0, also the
 // first-order Kerr class), with the hand-derived components5_jac below, or
 // one of eleven metrics whose value and (d_r, d_theta) Jacobian come from one
 // forward-mode pass over dual numbers with two tangents (metrics.cuh,
 // dual.cuh; kinds 1-11, geodesic_tsit5_{deformed,exotic,minkowski}.cu), where
 // the TPU kernel inlines two jax.jvp passes through components5. The rest
-// of the TPU kernel's geometries (warped and thick discs, which carry a
-// Python callable) are not ported.
+// of the TPU kernel's geometries (WarpedThinDisc and ThickDisc, which carry
+// a Python callable that the TPU kernel inlines) are not ported.
 //
 // What bounds it on an H100: compute and instruction issue, and the serial
 // chain of one ray's steps. Each accepted or rejected step is 7 evaluations
@@ -63,112 +67,15 @@
 // comparison with the plain PyTorch version assume IEEE sin/cos/log/exp/sqrt
 // and IEEE division.
 
-#include "tsit5.cuh"
+#include "kerr.cuh"
 
 namespace gradus {
 namespace {
 
-// Kerr metric components and their r- and theta-derivatives
-// (gradus_tpu/metrics/kerr.py:45-101), then the geodesic acceleration
-// (gradus_tpu/geodesics/equation.py:94-134). f = (v, a).
-template <typename T>
-__device__ __forceinline__ void geodesic_rhs(const Params<T>& p, const T* y,
-                                             T* f) {
-  const T r = y[1], th = y[2];
-  const T vt = y[4], vr = y[5], vth = y[6], vph = y[7];
-  const T M = p.M, a = p.a;
-  const T R = T(2) * M;
-  const T s = sin(th);
-  const T c = cos(th);
-  const T sin2 = s * s;
-  const T ds2 = T(2) * s * c;
-  const T cos2 = T(1) - sin2;
-  const T a2 = a * a;
-  const T r2 = r * r;
-
-  const T sigma = r2 + a2 * cos2;
-  const T sig_r = T(2) * r;
-  const T sig_th = -a2 * ds2;
-  const T inv_sigma = T(1) / sigma;
-  const T inv_sig2 = inv_sigma * inv_sigma;
-  const T delta = r2 + a2 - R * r;
-  const T del_r = T(2) * r - R;
-  const T inv_delta = T(1) / delta;
-  const T gamma = sin2 * R * r * a;
-  const T gam_r = sin2 * R * a;
-  const T gam_th = ds2 * R * r * a;
-
-  const T tt = -(T(1) - (R * r) * inv_sigma);
-  const T tt_r = R * (sigma - r * sig_r) * inv_sig2;
-  const T tt_th = -(R * r) * sig_th * inv_sig2;
-
-  const T rr = sigma * inv_delta;
-  const T rr_r = (sig_r * delta - sigma * del_r) * inv_delta * inv_delta;
-  const T rr_th = sig_th * inv_delta;
-
-  const T hh = sigma;
-  const T hh_r = sig_r;
-  const T hh_th = sig_th;
-
-  const T u = gamma * a * inv_sigma;
-  const T u_r = a * (gam_r * sigma - gamma * sig_r) * inv_sig2;
-  const T u_th = a * (gam_th * sigma - gamma * sig_th) * inv_sig2;
-  const T w = r2 + a2 + u;
-  const T pp = sin2 * w;
-  const T pp_r = sin2 * (T(2) * r + u_r);
-  const T pp_th = ds2 * w + sin2 * u_th;
-
-  const T tp = -gamma * inv_sigma;
-  const T tp_r = -(gam_r * sigma - gamma * sig_r) * inv_sig2;
-  const T tp_th = -(gam_th * sigma - gamma * sig_th) * inv_sig2;
-
-  // inverse of the 5-component symmetric form
-  const T inv_det = T(1) / (tt * pp - tp * tp);
-  const T gi_tt = pp * inv_det;
-  const T gi_phph = tt * inv_det;
-  const T gi_tph = -tp * inv_det;
-  const T gi_rr = T(1) / rr;
-  const T gi_thth = T(1) / hh;
-
-  // (J v)_rho for J = d_r g and J = d_theta g
-  const T J1v_t = tt_r * vt + tp_r * vph;
-  const T J1v_r = rr_r * vr;
-  const T J1v_th = hh_r * vth;
-  const T J1v_ph = tp_r * vt + pp_r * vph;
-  const T q1 = vt * J1v_t + vr * J1v_r + vth * J1v_th + vph * J1v_ph;
-  const T J2v_t = tt_th * vt + tp_th * vph;
-  const T J2v_r = rr_th * vr;
-  const T J2v_th = hh_th * vth;
-  const T J2v_ph = tp_th * vt + pp_th * vph;
-  const T q2 = vt * J2v_t + vr * J2v_r + vth * J2v_th + vph * J2v_ph;
-
-  const T A_t = vr * J1v_t + vth * J2v_t;
-  const T A_r = vr * J1v_r + vth * J2v_r - T(0.5) * q1;
-  const T A_th = vr * J1v_th + vth * J2v_th - T(0.5) * q2;
-  const T A_ph = vr * J1v_ph + vth * J2v_ph;
-
-  f[0] = vt;
-  f[1] = vr;
-  f[2] = vth;
-  f[3] = vph;
-  f[4] = -(gi_tt * A_t + gi_tph * A_ph);
-  f[5] = -gi_rr * A_r;
-  f[6] = -gi_thth * A_th;
-  f[7] = -(gi_tph * A_t + gi_phph * A_ph);
-}
-
-struct Kerr {
-  template <typename T>
-  static __device__ __forceinline__ void rhs(const Params<T>& p, const T* y,
-                                             T* f) {
-    geodesic_rhs(p, y, f);
-  }
-};
-
 template <typename T>
 int launch_metric(const void* y0, int64_t n, int metric, double M, double a,
                   const double* q, int geometry, double inner_r, double outer_r,
-                  double height, double abstol, double reltol, double r_inner,
+                  double height, const void* geo, double abstol, double reltol, double r_inner,
                   double r_outer, double lam0, double lam1, int max_steps,
                   double dt_min, const int* modes, const void* const* carry,
                   void* const* out, void* stream) {
@@ -198,7 +105,7 @@ int launch_metric(const void* y0, int64_t n, int metric, double M, double a,
            static_cast<int32_t*>(out[12])};
   l.stream = stream;
 
-  DeformedParams<T> p;
+  GenericParams<T> p;
   p.M = T(M);
   p.a = T(a);
   p.geometry = geometry;
@@ -215,7 +122,8 @@ int launch_metric(const void* y0, int64_t n, int metric, double M, double a,
   p.max_steps = max_steps;
   p.dt_min = T(dt_min);
   for (int k = 0; k < kMetricParams; ++k) p.q[k] = T(q[k]);
-  if (metric == kMetricKerr) return launch<T, Kerr>(static_cast<const Params<T>&>(p), l);
+  p.geo = static_cast<const T*>(geo);
+  if (metric == kMetricKerr) return launch<T, Kerr, Params<T>>(p, l);
   if (metric <= kMetricDilatonAxion) return launch_deformed<T>(metric, p, l);
   if (metric <= kMetricKerrDarkMatter) return launch_exotic<T>(metric, p, l);
   return launch_minkowski<T>(metric, p, l);
@@ -225,22 +133,26 @@ int launch_metric(const void* y0, int64_t n, int metric, double M, double a,
 }  // namespace gradus
 
 // metric: the metric kind; q: its parameters (metrics.cuh), 5 doubles on the
-// host. modes: 5 ints on the host (sampled, n_interp, bisect_iters,
-// terminate_on_hit, newton_iters). carry: null for a fresh start, or the 11
-// device pointers of tsit5.cuh's Carry. out: the 13 device pointers of
-// Outputs.
+// host. geometry: its kind; inner_r, outer_r and height are those of kinds
+// 1-2; geo: for kinds 3-7 the device pointer of its block of
+// kGeometryValues values of T (geometry.cuh), else unread. modes: 5 ints on
+// the host (sampled, n_interp, bisect_iters, terminate_on_hit,
+// newton_iters). carry: null for a fresh start, or the 11 device pointers
+// of tsit5.cuh's Carry.
+// out: the 13 device pointers of Outputs.
 #define GEODESIC_TSIT5_ENTRY(NAME, T)                                           \
   extern "C" int NAME(const void* y0, int64_t n, int metric, double M,          \
                       double a, const double* q, int geometry, double inner_r,  \
-                      double outer_r, double height, double abstol,             \
-                      double reltol, double r_inner, double r_outer,            \
-                      double lam0, double lam1, int max_steps, double dt_min,   \
-                      const int* modes, const void* const* carry,               \
-                      void* const* out, void* stream) {                         \
+                      double outer_r, double height, const void* geo,           \
+                      double abstol, double reltol, double r_inner,             \
+                      double r_outer, double lam0, double lam1, int max_steps,  \
+                      double dt_min, const int* modes,                          \
+                      const void* const* carry, void* const* out,               \
+                      void* stream) {                                           \
     return gradus::launch_metric<T>(y0, n, metric, M, a, q, geometry, inner_r,  \
-                                    outer_r, height, abstol, reltol, r_inner,   \
-                                    r_outer, lam0, lam1, max_steps, dt_min,     \
-                                    modes, carry, out, stream);                 \
+                                    outer_r, height, geo, abstol, reltol,       \
+                                    r_inner, r_outer, lam0, lam1, max_steps,    \
+                                    dt_min, modes, carry, out, stream);         \
   }
 
 GEODESIC_TSIT5_ENTRY(geodesic_tsit5_f32, float)

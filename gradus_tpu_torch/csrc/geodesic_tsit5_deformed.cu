@@ -8,24 +8,24 @@
 namespace gradus {
 
 template <typename T>
-int launch_deformed(int metric, const DeformedParams<T>& p, const Launch<T>& l) {
+int launch_deformed(int metric, const GenericParams<T>& p, const Launch<T>& l) {
   switch (metric) {
     case kMetricJohannsen:
-      return launch<T, DualRhs<Johannsen>>(p, l);
+      return launch<T, DualRhs<Johannsen>, DeformedParams<T>>(p, l);
     case kMetricJohannsenPsaltis:
-      return launch<T, DualRhs<JohannsenPsaltis>>(p, l);
+      return launch<T, DualRhs<JohannsenPsaltis>, DeformedParams<T>>(p, l);
     case kMetricNoZ:
-      return launch<T, DualRhs<NoZ>>(p, l);
+      return launch<T, DualRhs<NoZ>, DeformedParams<T>>(p, l);
     case kMetricBumblebee:
-      return launch<T, DualRhs<Bumblebee>>(p, l);
+      return launch<T, DualRhs<Bumblebee>, DeformedParams<T>>(p, l);
     case kMetricDilatonAxion:
-      return launch<T, DualRhs<DilatonAxion>>(p, l);
+      return launch<T, DualRhs<DilatonAxion>, DeformedParams<T>>(p, l);
     default:
       return int(cudaErrorInvalidValue);
   }
 }
 
-template int launch_deformed<float>(int, const DeformedParams<float>&, const Launch<float>&);
-template int launch_deformed<double>(int, const DeformedParams<double>&, const Launch<double>&);
+template int launch_deformed<float>(int, const GenericParams<float>&, const Launch<float>&);
+template int launch_deformed<double>(int, const GenericParams<double>&, const Launch<double>&);
 
 }  // namespace gradus

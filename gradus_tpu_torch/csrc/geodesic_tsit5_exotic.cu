@@ -8,22 +8,22 @@
 namespace gradus {
 
 template <typename T>
-int launch_exotic(int metric, const DeformedParams<T>& p, const Launch<T>& l) {
+int launch_exotic(int metric, const GenericParams<T>& p, const Launch<T>& l) {
   switch (metric) {
     case kMetricKerrNewman:
-      return launch<T, DualRhs<KerrNewman>>(p, l);
+      return launch<T, DualRhs<KerrNewman>, DeformedParams<T>>(p, l);
     case kMetricMorrisThorne:
-      return launch<T, DualRhs<MorrisThorne>>(p, l);
+      return launch<T, DualRhs<MorrisThorne>, DeformedParams<T>>(p, l);
     case kMetricKerrRefractive:
-      return launch<T, DualRhs<KerrRefractive>>(p, l);
+      return launch<T, DualRhs<KerrRefractive>, DeformedParams<T>>(p, l);
     case kMetricKerrDarkMatter:
-      return launch<T, DualRhs<KerrDarkMatter>>(p, l);
+      return launch<T, DualRhs<KerrDarkMatter>, DeformedParams<T>>(p, l);
     default:
       return int(cudaErrorInvalidValue);
   }
 }
 
-template int launch_exotic<float>(int, const DeformedParams<float>&, const Launch<float>&);
-template int launch_exotic<double>(int, const DeformedParams<double>&, const Launch<double>&);
+template int launch_exotic<float>(int, const GenericParams<float>&, const Launch<float>&);
+template int launch_exotic<double>(int, const GenericParams<double>&, const Launch<double>&);
 
 }  // namespace gradus

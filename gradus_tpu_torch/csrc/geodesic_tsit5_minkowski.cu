@@ -7,18 +7,18 @@
 namespace gradus {
 
 template <typename T>
-int launch_minkowski(int metric, const DeformedParams<T>& p, const Launch<T>& l) {
+int launch_minkowski(int metric, const GenericParams<T>& p, const Launch<T>& l) {
   switch (metric) {
     case kMetricSpherical:
-      return launch<T, DualRhs<Spherical>>(p, l);
+      return launch<T, DualRhs<Spherical>, DeformedParams<T>>(p, l);
     case kMetricCartesian:
-      return launch<T, DualRhs<Cartesian>>(p, l);
+      return launch<T, DualRhs<Cartesian>, DeformedParams<T>>(p, l);
     default:
       return int(cudaErrorInvalidValue);
   }
 }
 
-template int launch_minkowski<float>(int, const DeformedParams<float>&, const Launch<float>&);
-template int launch_minkowski<double>(int, const DeformedParams<double>&, const Launch<double>&);
+template int launch_minkowski<float>(int, const GenericParams<float>&, const Launch<float>&);
+template int launch_minkowski<double>(int, const GenericParams<double>&, const Launch<double>&);
 
 }  // namespace gradus

@@ -360,6 +360,18 @@ struct DualRhs {
     Components::components5(p, r, th, g);
     geodesic_acceleration(g, y, f);
   }
+
+  // the values of the components at (r, th) for the parameters (M, a, q):
+  // a PolishDoughnut's potential (geometry.cuh)
+  template <typename T>
+  static __device__ __forceinline__ void components(T M, T a, const T* q, T r, T th, T* g) {
+    DeformedParams<T> p;
+    p.M = M;
+    p.a = a;
+#pragma unroll
+    for (int k = 0; k < kMetricParams; ++k) p.q[k] = q[k];
+    Components::components5(p, r, th, g);
+  }
 };
 
 }  // namespace gradus

@@ -27,11 +27,20 @@
 //   - the Newton polish of the hits (gradus_tpu/integrate/solver.py::
 //     _polish_hits, which the TPU tracer runs after its kernel): here as a
 //     hit ray's last loop iterations, newton_iters > 0, or not at all, 0.
+// The geometry is a runtime argument too. None, ThinDisc and a one-height
+// DatumPlane (kinds 0-2) run the kernel with their closed forms; the other
+// geometries the TPU kernel takes with numbers only (kinds 3-7:
+// ShakuraSunyaev, EllipticalDisc, PolishDoughnut, PrecessingDisc and
+// CompositeGeometry, geometry.cuh) run its generic instantiation, which
+// evaluates the geometry's indicator with one-tangent dual numbers where the
+// TPU kernel takes its jvp, and interpolates phi for the events as well.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "geometry.cuh"
 
 namespace gradus {
 
@@ -51,8 +60,9 @@ constexpr int kWithinInnerBoundary = 2;
 constexpr int kIntersectedWithGeometry = 3;
 
 // Geometry kind 2 (kinds 0 and 1, none and ThinDisc, are told apart by
-// geometry != 0)
+// geometry != 0); kinds from 3 on run the generic instantiation
 constexpr int kDatumPlane = 2;
+constexpr int kGenericGeometry = 3;
 
 // Metric kinds (integrate/cuda_solver.py::_KERNEL_METRICS)
 constexpr int kMetricKerr = 0;
@@ -90,7 +100,7 @@ constexpr double BT1 = -0.00178001105222577714, BT2 = -0.0008164344596567469,
 template <typename T>
 struct Params {
   T M, a;
-  int geometry;  // 0 = none, 1 = ThinDisc, 2 = DatumPlane
+  int geometry;  // 0 = none, 1 = ThinDisc, 2 = DatumPlane, 3-7 geometry.cuh
   T inner_r, outer_r;  // ThinDisc
   T height;            // DatumPlane
   T abstol, reltol;
@@ -105,6 +115,13 @@ struct Params {
 template <typename T>
 struct DeformedParams : Params<T> {
   T q[kMetricParams];
+};
+
+// The generic instantiation's parameters: those and a geometry of kinds
+// 3-7, its block of kGeometryValues values on the device (geometry.cuh)
+template <typename T>
+struct GenericParams : DeformedParams<T> {
+  const T* geo;
 };
 
 // How a launch runs, beside the physics of Params.
@@ -208,18 +225,29 @@ __device__ __forceinline__ T crossing_value(const Params<T>& p, T r, T th) {
   return p.geometry == kDatumPlane ? c - p.height : c;
 }
 
-// The cubic Hermite interpolant of r and theta over a step
-// (pallas_solver.py:136-147, the two components the events read).
-template <typename T>
-__device__ __forceinline__ void hermite_rth(T t, const T* y, const T* y_new,
-                                            const T* f0, const T* f1, T dt,
-                                            T& r, T& th) {
+// The cubic Hermite interpolant of the position components 1 to kLast over
+// a step (pallas_solver.py:136-147): r and theta, which the thin disc's
+// events read, and phi for the generic geometries.
+template <int kLast, typename T>
+__device__ __forceinline__ void hermite_pos(T t, const T* y, const T* y_new,
+                                            const T* f0, const T* f1, T dt, T* pos) {
   const T h00 = (T(1) + T(2) * t) * ((T(1) - t) * (T(1) - t));
   const T h10 = t * ((T(1) - t) * (T(1) - t));
   const T h01 = t * t * (T(3) - T(2) * t);
   const T h11 = t * t * (t - T(1));
-  r = h00 * y[1] + h10 * dt * f0[1] + h01 * y_new[1] + h11 * dt * f1[1];
-  th = h00 * y[2] + h10 * dt * f0[2] + h01 * y_new[2] + h11 * dt * f1[2];
+#pragma unroll
+  for (int i = 1; i <= kLast; ++i)
+    pos[i] = h00 * y[i] + h10 * dt * f0[i] + h01 * y_new[i] + h11 * dt * f1[i];
+}
+
+template <typename T>
+__device__ __forceinline__ void hermite_rth(T t, const T* y, const T* y_new,
+                                            const T* f0, const T* f1, T dt,
+                                            T& r, T& th) {
+  T pos[3];
+  hermite_pos<2>(t, y, y_new, f0, f1, dt, pos);
+  r = pos[1];
+  th = pos[2];
 }
 
 // theta_k = k / n_interp as numpy.linspace(0, 1, n_interp + 1) gives it.
@@ -230,20 +258,17 @@ __device__ __forceinline__ T theta_at(const Modes& md, int k) {
 
 // The sampled event of pallas_solver.py:358-399: the first sign change of
 // the indicator among n_interp Hermite samples over the step, narrowed by
-// bisect_iters bisections. Returns whether a sign change was found, its
-// theta, and the indicator at the step end (the next step's c_prev).
-template <typename T>
-__device__ __forceinline__ bool sampled_crossing(const Params<T>& p, const Modes& md,
-                                                 T c_prev, const T* y, const T* y_new,
-                                                 const T* f0, const T* f1, T dt,
+// bisect_iters bisections; c_at(theta) is the indicator on the step's
+// interpolant. Returns whether a sign change was found, its theta, and the
+// indicator at the step end (the next step's c_prev).
+template <typename T, class CrossingAt>
+__device__ __forceinline__ bool sampled_crossing(const Modes& md, T c_prev, CrossingAt c_at,
                                                  T& theta, T& c_end) {
   bool found = false;
   T th_lo = T(0), th_hi = T(1), c_lo = c_prev, c_left = c_prev;
   for (int k = 0; k < md.n_interp; ++k) {
     const T th_r = theta_at<T>(md, k + 1);
-    T r, th;
-    hermite_rth(th_r, y, y_new, f0, f1, dt, r, th);
-    const T c_right = crossing_value(p, r, th);
+    const T c_right = c_at(th_r);
     if (((c_left < T(0)) != (c_right < T(0))) && !found) {
       th_lo = theta_at<T>(md, k);
       th_hi = th_r;
@@ -256,9 +281,7 @@ __device__ __forceinline__ bool sampled_crossing(const Params<T>& p, const Modes
   if (found) {
     for (int it = 0; it < md.bisect_iters; ++it) {
       const T mid = T(0.5) * (th_lo + th_hi);
-      T r, th;
-      hermite_rth(mid, y, y_new, f0, f1, dt, r, th);
-      const T cm = crossing_value(p, r, th);
+      const T cm = c_at(mid);
       if ((cm < T(0)) == (c_lo < T(0))) {
         th_lo = mid;
         c_lo = cm;
@@ -269,6 +292,25 @@ __device__ __forceinline__ bool sampled_crossing(const Params<T>& p, const Modes
   }
   theta = T(0.5) * (th_lo + th_hi);
   return found;
+}
+
+// A generic geometry's hit test at an event's theta, on the step's Hermite
+// position (r, theta, phi).
+template <class Metric, typename T>
+__device__ __forceinline__ bool hit_at(const T* g, T theta, const T* y, const T* y_new,
+                                       const T* f0, const T* f1, T dt) {
+  T pos[4];
+  hermite_pos<3>(theta, y, y_new, f0, f1, dt, pos);
+  return geometry_hit<Metric>(g, pos[1], pos[2], pos[3]);
+}
+
+// A generic geometry's indicator c at pos and its derivative dc along vel
+// (positions t, r, theta, phi)
+template <class Metric, typename T>
+__device__ __forceinline__ void generic_jvp(const T* g, const T* pos, const T* vel, T& c, T& dc) {
+  const Dual1<T> d = geometry_jvp<Metric>(g, pos[1], pos[2], pos[3], vel[1], vel[2], vel[3]);
+  c = d.v;
+  dc = d.d;
 }
 
 // First sign change in (0, 1] of the Hermite cubic with c(0)=c0, c'(0)=m0,
@@ -403,8 +445,9 @@ __device__ __forceinline__ T initial_dt(const P& p, const T* y, T* f0) {
 // registers) and 2 in f64 (255). Without the f32 minimum ptxas holds some
 // f32 instantiations under what they need, and Morris-Thorne's spills at 96
 // registers; with it none spills, and NoZ takes 131 registers (3 blocks an
-// SM, where 128 gave 4).
-template <typename T, class Metric, class P>
+// SM, where 128 gave 4). kGeneric: the geometry is one of kinds 3-7, in
+// p.geo (P is GenericParams<T>); else the closed forms of kinds 0-2.
+template <typename T, class Metric, class P, bool kGeneric>
 __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
     geodesic_tsit5_kernel(P p, Modes md, Carry<T> in, const T* __restrict__ y0,
                           int64_t n, T* __restrict__ y_out, T* __restrict__ k1_out,
@@ -460,7 +503,11 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
     dc_prev = T(0);
     hit_th = T(0);
     if (disc) {
-      crossing_jvp(p, y, k1, c_prev, dc_prev);
+      if constexpr (kGeneric) {
+        generic_jvp<Metric>(p.geo, y, k1, c_prev, dc_prev);
+      } else {
+        crossing_jvp(p, y, k1, c_prev, dc_prev);
+      }
       if (md.sampled) dc_prev = T(0);  // the sampled events read no slope
     }
   }
@@ -497,7 +544,11 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
         polish_it = -1;
       } else {
         T c, dc;
-        crossing_jvp(p, y_new, y_new + 4, c, dc);
+        if constexpr (kGeneric) {
+          generic_jvp<Metric>(p.geo, y_new, y_new + 4, c, dc);
+        } else {
+          crossing_jvp(p, y_new, y_new + 4, c, dc);
+        }
         if (fabs(dc) < T(1e-30)) dc = T(1);
         theta = clip(theta - c / (dc * dt), T(0), T(1));
         ++polish_it;
@@ -548,10 +599,17 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
     if (disc && accept && !md.sampled) {
       // on the cubic model of the indicator
       T c1v, dc1v, th_c;
-      crossing_jvp(p, y_new, k7, c1v, dc1v);
+      if constexpr (kGeneric) {
+        generic_jvp<Metric>(p.geo, y_new, k7, c1v, dc1v);
+      } else {
+        crossing_jvp(p, y_new, k7, c1v, dc1v);
+      }
       const bool found =
           cubic_first_crossing(c_prev, dt_eff * dc_prev, c1v, dt_eff * dc1v, th_c);
-      if (found && p.geometry == kDatumPlane) {
+      if constexpr (kGeneric) {
+        hit_now = found && hit_at<Metric>(p.geo, th_c, y, y_new, k1, k7, dt_eff);
+        if (hit_now) hit_th = th_c;
+      } else if (found && p.geometry == kDatumPlane) {
         // every crossing of the plane is a hit (discs.py:173-174)
         hit_now = true;
         hit_th = th_c;
@@ -566,13 +624,28 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
       dc_prev = dc1v;
     } else if (disc && accept) {
       // on n_interp samples of the indicator's interpolant
+      const auto c_at = [&](T t) {
+        if constexpr (kGeneric) {
+          T pos[4];
+          hermite_pos<3>(t, y, y_new, k1, k7, dt_eff, pos);
+          return geometry_value<Metric>(p.geo, pos[1], pos[2], pos[3]);
+        } else {
+          T r, th;
+          hermite_rth(t, y, y_new, k1, k7, dt_eff, r, th);
+          return crossing_value(p, r, th);
+        }
+      };
       T th_c, c_end;
-      if (sampled_crossing(p, md, c_prev, y, y_new, k1, k7, dt_eff, th_c, c_end)) {
-        hit_now = true;
-        if (p.geometry != kDatumPlane) {
-          T rc, thc;
-          hermite_rth(th_c, y, y_new, k1, k7, dt_eff, rc, thc);
-          hit_now = thin_disc_hit(p, rc, thc);
+      if (sampled_crossing(md, c_prev, c_at, th_c, c_end)) {
+        if constexpr (kGeneric) {
+          hit_now = hit_at<Metric>(p.geo, th_c, y, y_new, k1, k7, dt_eff);
+        } else {
+          hit_now = true;
+          if (p.geometry != kDatumPlane) {
+            T rc, thc;
+            hermite_rth(th_c, y, y_new, k1, k7, dt_eff, rc, thc);
+            hit_now = thin_disc_hit(p, rc, thc);
+          }
         }
         if (hit_now) hit_th = th_c;
       }
@@ -632,16 +705,31 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
   crossings_out[i] = crossings;
 }
 
-template <typename T, class Metric, class P>
-int launch(const P& p, const Launch<T>& l) {
+template <typename T, class Metric, class P, bool kGeneric>
+int launch_kernel(const P& p, const Launch<T>& l) {
   const int threads = 128;
   const int64_t blocks = (l.n + threads - 1) / threads;
   const Outputs<T>& o = l.out;
-  geodesic_tsit5_kernel<T, Metric, P><<<dim3(unsigned(blocks)), dim3(threads), 0,
-                                         static_cast<cudaStream_t>(l.stream)>>>(
+  geodesic_tsit5_kernel<T, Metric, P, kGeneric><<<dim3(unsigned(blocks)), dim3(threads), 0,
+                                                  static_cast<cudaStream_t>(l.stream)>>>(
       p, l.modes, l.carry, l.y0, l.n, o.y, o.k1, o.lam, o.dt, o.ln_qold, o.status,
       o.steps, o.failed, o.c_prev, o.dc_prev, o.hit_theta, o.attempts, o.crossings);
   return int(cudaGetLastError());
+}
+
+// The generic instantiation of a metric, for kinds 3-7: declared here,
+// defined in generic.cuh and instantiated by the geodesic_tsit5_generic_*.cu
+// files, so that each is compiled beside the others.
+template <typename T, class Metric>
+int launch_generic(const GenericParams<T>& p, const Launch<T>& l);
+
+// The instantiation for the launch's geometry: the generic one for kinds
+// 3-7; for kinds 0-2 the closed forms, with the metric's own parameter
+// struct P (Params<T> for Kerr, DeformedParams<T> for the others).
+template <typename T, class Metric, class P>
+int launch(const GenericParams<T>& p, const Launch<T>& l) {
+  if (p.geometry >= kGenericGeometry) return launch_generic<T, Metric>(p, l);
+  return launch_kernel<T, Metric, P, false>(p, l);
 }
 
 // The launches for the dual-number metric kinds, each defined in the file of
@@ -650,10 +738,10 @@ int launch(const P& p, const Launch<T>& l) {
 // geodesic_tsit5_minkowski.cu (10-11). Each returns cudaErrorInvalidValue
 // for a kind it does not hold.
 template <typename T>
-int launch_deformed(int metric, const DeformedParams<T>& p, const Launch<T>& l);
+int launch_deformed(int metric, const GenericParams<T>& p, const Launch<T>& l);
 template <typename T>
-int launch_exotic(int metric, const DeformedParams<T>& p, const Launch<T>& l);
+int launch_exotic(int metric, const GenericParams<T>& p, const Launch<T>& l);
 template <typename T>
-int launch_minkowski(int metric, const DeformedParams<T>& p, const Launch<T>& l);
+int launch_minkowski(int metric, const GenericParams<T>& p, const Launch<T>& l);
 
 }  // namespace gradus

@@ -85,6 +85,29 @@ def _gtol_error(gtol, x4):
     return gtol * torch.abs(x4[..., 1])
 
 
+# The crossing indicators' kinks take the JAX package's forward-mode
+# tangents, which the integrators' events and Newton polish read: |x| has
+# slope +1 at 0 (jnp.abs's, where torch.abs's is 0), and jnp.maximum splits
+# the tangent of a tie in half (torch.maximum does; torch.clamp gives it
+# whole).
+
+
+def _abs(x):
+    """|x|, whose tangent at 0 is the input's (``+ 0.0`` makes -0.0 +0.0)."""
+    return torch.where(x >= 0, x, -x) + 0.0
+
+
+def _maximum(x, c):
+    """jnp.maximum(x, c) of a number ``c``."""
+    return torch.maximum(x, torch.full_like(x, c))
+
+
+def _rho_z(x4):
+    """(ρ, z) = (r |sin θ|, r |cos θ|) with `_abs`'s tangents."""
+    r, th = x4[..., 1], x4[..., 2]
+    return r * _abs(torch.sin(th)), r * _abs(torch.cos(th))
+
+
 class ThinDisc(AbstractAccretionGeometry):
     """Geometrically-thin equatorial annulus; ``inner_r`` and ``outer_r`` are
     registered 0-d buffers (on the card unless ``device`` says otherwise)."""
@@ -132,7 +155,7 @@ class WarpedThinDisc(AbstractAccretionGeometry):
         return torch.where(inside, d, torch.ones_like(d))
 
     def crossing_indicator(self, x4):
-        rho = equatorial_project(x4)
+        rho, _ = _rho_z(x4)
         return spinaxis_project(x4, signed=True) - self.f(rho)
 
     def is_hit(self, x4, gtol=1e-2):
@@ -183,8 +206,8 @@ class AbstractThickAccretionDisc(AbstractAccretionGeometry):
     def crossing_indicator(self, x4):
         # |z| − h has a sign change entering the disc volume; outside the
         # defined region, |z| − 0
-        h = self.cross_section(equatorial_project(x4))
-        return spinaxis_project(x4) - torch.clamp(h, min=0.0)
+        rho, z = _rho_z(x4)
+        return z - _maximum(self.cross_section(rho), 0.0)
 
     def is_hit(self, x4, gtol=1e-2):
         return self.cross_section(equatorial_project(x4)) > 0.0
@@ -262,7 +285,7 @@ class ShakuraSunyaev(AbstractThickAccretionDisc):
         return ShakuraSunyaev(eddington_ratio, 1.0 / eta, r_isco, dtype=dtype, device=r_isco.device)
 
     def cross_section(self, rho):
-        h = 3.0 * self.inv_eta * self.mdot_over_edd * (1.0 - torch.sqrt(self.inner_r / torch.clamp(rho, min=1e-12)))
+        h = 3.0 * self.inv_eta * self.mdot_over_edd * (1.0 - torch.sqrt(self.inner_r / _maximum(rho, 1e-12)))
         return torch.where(rho < self.inner_r, -0.0, h)
 
 
@@ -274,7 +297,7 @@ class EllipticalDisc(AbstractAccretionGeometry):
         self._buffers_from(dtype, device, inner_r=inner_r, semi_major=semi_major, semi_minor=semi_minor)
 
     def _half_height(self, r):
-        arg = torch.clamp(1.0 - (r / self.semi_major) ** 2, min=0.0)
+        arg = _maximum(1.0 - (r / self.semi_major) ** 2, 0.0)
         return torch.sqrt(arg * self.semi_minor**2)
 
     def distance_to_disc(self, x4, gtol=1e-2):
@@ -286,7 +309,7 @@ class EllipticalDisc(AbstractAccretionGeometry):
 
     def crossing_indicator(self, x4):
         r = x4[..., 1]
-        return torch.abs(r * torch.cos(x4[..., 2])) - self._half_height(r)
+        return _abs(r * torch.cos(x4[..., 2])) - self._half_height(r)
 
     def is_hit(self, x4, gtol=1e-2):
         r = x4[..., 1]
@@ -378,8 +401,9 @@ class PolishDoughnut(AbstractThickAccretionDisc):
     def cross_section(self, rho):
         W_s = self._potential(self.r_cusp, torch.zeros_like(self.r_cusp))
         in_disc = self._potential(rho, torch.zeros_like(rho)) < W_s
+        # in ρ's dtype, as jnp.full_like(ρ, z_max)
         a = torch.zeros_like(rho)
-        b = torch.broadcast_to(self.z_max, rho.shape)
+        b = self.z_max.to(rho.dtype).expand(rho.shape)
         for _ in range(40):
             mid = 0.5 * (a + b)
             below = self._potential(rho, mid) < W_s

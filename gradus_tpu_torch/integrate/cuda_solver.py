@@ -20,7 +20,9 @@ runs the loop and then `_polish_hits`.
 Per-ray semantics match `pallas_solver._make_kernel`: HNW initial step, FSAL
 Tsit5, RMS error norm, log-space PI controller, cubic-Hermite or sampled
 crossing events against no geometry, a `ThinDisc` or a `DatumPlane` of one
-height, chart exits at step end, hit rays that do not commit their step (or,
+height, or the geometries of `_KERNEL_GEOMETRIES` beside them
+(`csrc/geometry.cuh`: their indicators' slopes with jax.jvp's rules at
+kinks, the events interpolating φ too), chart exits at step end, hit rays that do not commit their step (or,
 with ``terminate_on_hit=False``, crossings counted and the flight going on),
 and a resumable carry. Divergences: a ray that is done keeps its outputs,
 where the TPU kernel's lockstep tile kept rewriting the finished rays'
@@ -40,7 +42,18 @@ import torch
 
 from gradus_tpu_torch import config as _config
 from gradus_tpu_torch.geodesics.equation import constrain_all, geodesic_acceleration
-from gradus_tpu_torch.geometry.discs import DatumPlane, ThinDisc
+from gradus_tpu_torch.geometry.discs import (
+    CompositeGeometry,
+    DatumPlane,
+    EllipticalDisc,
+    PolishDoughnut,
+    PolishDoughnutFW,
+    PrecessingDisc,
+    ShakuraSunyaev,
+    ThickDisc,
+    ThinDisc,
+    WarpedThinDisc,
+)
 from gradus_tpu_torch.integrate.events import cubic_first_crossing
 from gradus_tpu_torch.integrate.points import unpack_solution
 from gradus_tpu_torch.integrate.solver import (
@@ -53,6 +66,7 @@ from gradus_tpu_torch.integrate.solver import (
     _QMIN_FACTOR,
     _QOLD_INIT,
     _polish_hits,
+    _run_loop,
 )
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs
@@ -234,7 +248,10 @@ def integrate_rays_plain(
     ``iter_cap`` (else ``max_steps``) iterations have run. With ``state``
     (the `_STATE_KEYS` of a capped pass, ``y0`` its ``y``) the rays resume
     where that pass stopped. With ``newton_iters > 0``, `_polish_hits`
-    then polishes the hits this call made, as the kernel does.
+    then polishes the hits this call made, as the kernel does. On a CUDA
+    tensor the loop body is captured once as a CUDA graph and replayed an
+    iteration (`solver._run_loop`; `cuda_graphs(False)` runs it
+    uncaptured, with the same outputs bit for bit).
     Returns the kernel's 13 outputs, ``warp_iters`` and ``polished``."""
     lam0, lam1 = float(lam_span[0]), float(lam_span[1])
     if event_method not in _EVENT_METHODS:
@@ -277,10 +294,11 @@ def integrate_rays_plain(
     attempts = torch.zeros_like(y[0], dtype=torch.int32)
     theta_grid = [torch.tensor(t, dtype=y[0].dtype, device=y[0].device) for t in np.linspace(0.0, 1.0, n_interp + 1)]
 
-    for it in range(max_steps if iter_cap is None else iter_cap):
-        # the any() is a device→host sync: check it every 8 iterations
-        if it % 8 == 0 and not bool(alive.any()):
-            break
+    def step(c):
+        y = tuple(c[f"y{i}"] for i in range(8))
+        k1 = tuple(c[f"k{i}"] for i in range(8))
+        lam, dt, ln_qold, alive, failed = c["lam"], c["dt"], c["ln_qold"], c["alive"], c["failed"]
+        c_prev, dc_prev, hit_th = c["c_prev"], c["dc_prev"], c["hit_theta"]
         dt_eff = torch.minimum(torch.clamp(lam1 - lam, min=dt_min), dt)
         y_new, err_vec, k7 = _tsit5_step_cm(f, y, dt_eff, k1)
         err = torch.clamp(_error_norm_cm(err_vec, y, y_new, abstol, reltol), min=1e-12)
@@ -350,9 +368,9 @@ def integrate_rays_plain(
         inner = accept & ~hit_now & (r_new <= r_inner)
         outer = accept & ~hit_now & (r_new > r_outer)
         finished = accept & (lam_new >= lam1 - 1e-12)
-        status = torch.where(inner, StatusCodes.WithinInnerBoundary, status)
+        status = torch.where(inner, StatusCodes.WithinInnerBoundary, c["status"])
         status = torch.where(outer, StatusCodes.OutOfDomain, status)
-        crossings = crossings + hit_now.to(torch.int32)
+        crossings = c["crossings"] + hit_now.to(torch.int32)
 
         # a hit that ends the ray does not commit: (y, k1, lam) stay at the
         # step start and dt records the step span; rays that are done keep
@@ -360,42 +378,79 @@ def integrate_rays_plain(
         stop_at_hit = hit_now & terminate_on_hit
         status = torch.where(stop_at_hit, StatusCodes.IntersectedWithGeometry, status)
         sel = accept & ~stop_at_hit
-        dt = torch.where(stop_at_hit, dt_eff, torch.where(alive, dt_next, dt))
-        y = tuple(torch.where(sel, a, b) for a, b in zip(y_new, y))
-        k1 = tuple(torch.where(sel, a, b) for a, b in zip(k7, k1))
-        lam = torch.where(sel, lam_new, lam)
-        steps = steps + accept.to(torch.int32)
-        attempts = attempts + alive.to(torch.int32)
-        alive = alive & ~(stop_at_hit | inner | outer | finished | failed)
+        out = dict(
+            lam=torch.where(sel, lam_new, lam),
+            dt=torch.where(stop_at_hit, dt_eff, torch.where(alive, dt_next, dt)),
+            ln_qold=ln_qold,
+            status=status,
+            steps=c["steps"] + accept.to(torch.int32),
+            crossings=crossings,
+            failed=failed,
+            c_prev=c_prev,
+            dc_prev=dc_prev,
+            hit_theta=hit_th,
+            attempts=c["attempts"] + alive.to(torch.int32),
+            alive=alive & ~(stop_at_hit | inner | outer | finished | failed),
+        )
+        for i in range(8):
+            out[f"y{i}"] = torch.where(sel, y_new[i], y[i])
+            out[f"k{i}"] = torch.where(sel, k7[i], k1[i])
+        return out
 
-    out = dict(
-        y=torch.stack(y, dim=-1),
-        k1=torch.stack(k1, dim=-1),
+    carry = dict(
         lam=lam,
         dt=dt,
         ln_qold=ln_qold,
         status=status,
         steps=steps,
-        failed=failed.to(torch.int32),
+        crossings=crossings,
+        failed=failed,
         c_prev=c_prev,
         dc_prev=dc_prev,
         hit_theta=hit_th,
-        warp_iters=_warp_iters(attempts),
         attempts=attempts,
-        crossings=crossings,
+        alive=alive,
+    )
+    for i in range(8):
+        carry[f"y{i}"], carry[f"k{i}"] = y[i], k1[i]
+    cf = _run_loop(step, carry, max_steps if iter_cap is None else iter_cap)
+
+    out = dict(
+        y=torch.stack([cf[f"y{i}"] for i in range(8)], dim=-1),
+        k1=torch.stack([cf[f"k{i}"] for i in range(8)], dim=-1),
+        lam=cf["lam"],
+        dt=cf["dt"],
+        ln_qold=cf["ln_qold"],
+        status=cf["status"],
+        steps=cf["steps"],
+        failed=cf["failed"].to(torch.int32),
+        c_prev=cf["c_prev"],
+        dc_prev=cf["dc_prev"],
+        hit_theta=cf["hit_theta"],
+        warp_iters=_warp_iters(cf["attempts"]),
+        attempts=cf["attempts"],
+        crossings=cf["crossings"],
         polished=torch.tensor(newton_iters > 0),
     )
     if newton_iters > 0 and geometry is not None:
-        # the hits of this call: a carry that arrived with a hit took no step
-        here = (status == StatusCodes.IntersectedWithGeometry) & (attempts > 0)
-        problem = _Problem(
-            f=make_geodesic_rhs(m),
-            crossing_fn=lambda ys: geometry.crossing_indicator(ys[..., 0:4]),
-            newton_iters=newton_iters,
-        )
-        cf = {**out, "status": torch.where(here, status, StatusCodes.NoStatus)}
-        out["y"], out["lam"] = _polish_hits(problem, cf, out["y"], out["lam"])
+        out = _polish_plain(m, geometry, out, newton_iters)
     return out
+
+
+def _polish_plain(m, geometry, out, newton_iters):
+    """``out`` (`integrate_rays_plain`'s outputs without the polish) with
+    the hits that call made polished by `_polish_hits`, ``newton_iters``
+    Newton iterations: a carry that arrived with a hit took no step."""
+    status = out["status"]
+    here = (status == StatusCodes.IntersectedWithGeometry) & (out["attempts"] > 0)
+    problem = _Problem(
+        f=make_geodesic_rhs(m),
+        crossing_fn=lambda ys: geometry.crossing_indicator(ys[..., 0:4]),
+        newton_iters=newton_iters,
+    )
+    cf = {**out, "status": torch.where(here, status, StatusCodes.NoStatus)}
+    y, lam = _polish_hits(problem, cf, out["y"], out["lam"])
+    return {**out, "y": y, "lam": lam, "polished": torch.tensor(True)}
 
 
 # --- the kernel -----------------------------------------------------------------
@@ -430,26 +485,123 @@ def _metric_args(m):
     return kind, M, a, (ctypes.c_double * _N_METRIC_PARAMS)(*q)
 
 
+# The kernel's geometry kinds (csrc/geometry.cuh): a geometry, or a part of
+# a CompositeGeometry (kinds 1-6, at most _MAX_PARTS of them)
+_KERNEL_GEOMETRIES = {
+    ThinDisc: 1,
+    DatumPlane: 2,
+    ShakuraSunyaev: 3,
+    EllipticalDisc: 4,
+    PolishDoughnut: 5,
+    PrecessingDisc: 6,
+    CompositeGeometry: 7,
+}
+_PRECESSED = (ThinDisc, ShakuraSunyaev, EllipticalDisc, PolishDoughnut)
+_MAX_PARTS = 4
+_PART_VALUES = 20
+_GEOMETRY_VALUES = 2 + _MAX_PARTS * (2 + _PART_VALUES)
+
+
+def _check_geometry(m, g, composite_ok=True):
+    """Raises `NotImplementedError` unless the kernel takes the geometry
+    ``g`` (a part of a CompositeGeometry when not ``composite_ok``)."""
+    kind = type(g)
+    if kind in (WarpedThinDisc, ThickDisc):
+        raise NotImplementedError(
+            f"the CUDA integrator does not take a {kind.__name__}: its cross-section is a Python "
+            "callable, which the TPU kernel inlines into its trace and nvcc-built code cannot "
+            "(ROADMAP queue B); trace_geodesics takes it"
+        )
+    if kind is PolishDoughnutFW or (kind is DatumPlane and g.height.dim() != 0):
+        what = "a PolishDoughnutFW" if kind is PolishDoughnutFW else "a DatumPlane of per-ray heights"
+        raise NotImplementedError(
+            f"the CUDA integrator does not take {what}: it holds arrays, which the TPU kernel "
+            "refuses too (a captured constant); trace_geodesics and "
+            "cunningham_transfer_function(backend='xla') take it"
+        )
+    if kind not in _KERNEL_GEOMETRIES or (kind is CompositeGeometry and not composite_ok):
+        raise NotImplementedError(
+            "the CUDA integrator takes no geometry, ThinDisc, DatumPlane, ShakuraSunyaev, "
+            "EllipticalDisc, PolishDoughnut, PrecessingDisc or a CompositeGeometry of up to "
+            f"{_MAX_PARTS} of the others, not {kind.__name__} here; trace_geodesics takes every geometry"
+        )
+    if kind is PolishDoughnut and g.metric is not None and type(g.metric) is not type(m):
+        raise NotImplementedError(
+            "the CUDA integrator evaluates a PolishDoughnut's potential with the traced metric's "
+            f"components: its metric is a {type(g.metric).__name__}, the traced one a {type(m).__name__}"
+        )
+    if kind is PrecessingDisc:
+        if type(g.disc) not in _PRECESSED:
+            raise NotImplementedError(
+                "the CUDA integrator takes a PrecessingDisc of a ThinDisc, ShakuraSunyaev, "
+                f"EllipticalDisc or PolishDoughnut, not of a {type(g.disc).__name__}"
+            )
+        _check_geometry(m, g.disc, False)
+    if kind is CompositeGeometry:
+        if not 1 <= len(g.geometries) <= _MAX_PARTS:
+            raise NotImplementedError(
+                f"the CUDA integrator takes a CompositeGeometry of 1 to {_MAX_PARTS} parts, not {len(g.geometries)}"
+            )
+        for part in g.geometries:
+            _check_geometry(m, part, False)
+
+
 def _check_kernel_config(m, geometry, dtype):
     if type(m) not in _KERNEL_METRICS:
         raise NotImplementedError(
             f"the CUDA integrator takes the metrics of gradus_tpu_torch.metrics, "
             f"not {type(m).__name__}"
         )
-    if geometry is not None and type(geometry) not in (ThinDisc, DatumPlane):
-        raise NotImplementedError(
-            f"the CUDA integrator takes no geometry, ThinDisc or DatumPlane, not "
-            f"{type(geometry).__name__}: the other geometries' component forms are a design "
-            "question in ROADMAP queue B; trace_geodesics takes every geometry"
-        )
-    if type(geometry) is DatumPlane and geometry.height.dim() != 0:
-        raise NotImplementedError(
-            "the CUDA integrator takes a DatumPlane of one height; per-ray heights "
-            "(the thick-disc transfer functions) run on the lockstep solver, through "
-            "cunningham_transfer_function(backend='xla'); their kernel form is in ROADMAP queue B"
-        )
+    if geometry is not None:
+        _check_geometry(m, geometry)
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"the CUDA integrator takes f32 or f64, not {dtype}")
+
+
+def _part_values(g):
+    """A part's values in the kernel's order (csrc/geometry.cuh), the
+    constants folded as the plain version folds them: in the geometry's
+    buffers."""
+    if type(g) is ThinDisc:
+        return [g.inner_r, g.outer_r]
+    if type(g) is DatumPlane:
+        return [g.height]
+    if type(g) is ShakuraSunyaev:
+        return [3.0 * g.inv_eta * g.mdot_over_edd, g.inner_r]
+    if type(g) is EllipticalDisc:
+        return [g.inner_r, g.semi_major, g.semi_minor**2]
+    if type(g) is PolishDoughnut:
+        w_s = g._potential(g.r_cusp, torch.zeros_like(g.r_cusp))
+        metric = [0.0] * (3 + _N_METRIC_PARAMS)
+        if g.metric is not None:
+            _, M, a, q = _metric_args(g.metric)
+            metric = [1.0, M, a, *q]
+        return [2.0 * g.M, 2.2 * g.M, 0.0, g.ell**2, 2.0 * g.ell, g.z_max, w_s, *metric]
+    # a PrecessingDisc: its disc's values, then cos(-β), sin(-β) and γ at 17-19
+    values = _part_values(g.disc)
+    b = -g.beta
+    return values + [0.0] * (17 - len(values)) + [torch.cos(b), torch.sin(b), g.gamma]
+
+
+def _geometry_args(geometry):
+    """The kernel's geometry arguments: (kind, inner_r, outer_r, height, and
+    for kinds 3-7 its block, the ``_GEOMETRY_VALUES`` numbers of
+    csrc/geometry.cuh, else None)."""
+    if geometry is None:
+        return 0, 0.0, 0.0, 0.0, None
+    kind = _KERNEL_GEOMETRIES[type(geometry)]
+    if kind == 1:
+        return 1, float(geometry.inner_r), float(geometry.outer_r), 0.0, None
+    if kind == 2:
+        return 2, 0.0, 0.0, float(geometry.height), None
+    parts = list(geometry.geometries) if kind == 7 else [geometry]
+    block = [float(kind), float(len(parts))]
+    for g in parts:
+        inner = _KERNEL_GEOMETRIES[type(g.disc)] if type(g) is PrecessingDisc else 0
+        values = [float(v) for v in _part_values(g)]
+        block += [float(_KERNEL_GEOMETRIES[type(g)]), float(inner)] + values + [0.0] * (_PART_VALUES - len(values))
+    block += [0.0] * (_GEOMETRY_VALUES - len(block))
+    return kind, 0.0, 0.0, 0.0, block
 
 
 def _launch_kernel(m, y0, lam_span, geometry, kw):
@@ -490,13 +642,10 @@ def _launch_kernel(m, y0, lam_span, geometry, kw):
             if any(t.device != y0.device or t.shape[-1] != n for t in carry_t):
                 raise ValueError("state must hold one value per ray of y0, on its device")
             carry = (ctypes.c_void_p * len(_STATE_KEYS))(*(t.data_ptr() for t in carry_t))
-        inner_r = outer_r = height = 0.0
-        if geometry is None:
-            kind = 0
-        elif type(geometry) is ThinDisc:
-            kind, inner_r, outer_r = 1, float(geometry.inner_r), float(geometry.outer_r)
-        else:
-            kind, height = 2, float(geometry.height)
+        kind, inner_r, outer_r, height, block = _geometry_args(geometry)
+        # the block on the device, in the rays' dtype; the stream orders its
+        # copy before the launch and its reuse after it
+        geo = None if block is None else torch.tensor(block, dtype=y0.dtype, device=y0.device)
         metric_kind, M, a, q = _metric_args(m)
         modes = (ctypes.c_int * 5)(
             int(kw["event_method"] == "sampled"),
@@ -519,6 +668,7 @@ def _launch_kernel(m, y0, lam_span, geometry, kw):
                 inner_r,
                 outer_r,
                 height,
+                None if geo is None else geo.data_ptr(),
                 float(kw["abstol"]),
                 float(kw["reltol"]),
                 float(kw["r_inner"]),

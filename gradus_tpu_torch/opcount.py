@@ -16,7 +16,11 @@ start, per attempted step and per polished hit, and their split by kind.
 
     python -m gradus_tpu_torch.opcount
 
-Needs g++; builds into ``build/gradus_tpu_torch/opcount/``.
+Needs g++; builds into ``build/gradus_tpu_torch/opcount/``. The same host
+build, instantiated with float and double, is the kernel's library with
+its C entry points (`host_library`): `cuda_solver._launch_kernel` runs it
+on CPU tensors, a rehearsal of an edited kernel against its plain version
+before a card runs it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ _STUB = r"""
 #define __global__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3 { unsigned x, y, z; };
@@ -57,6 +62,7 @@ struct Counted {
   double x;
   Counted() = default;
   Counted(double v) : x(v) {}
+  explicit operator int() const { return int(x); }
 };
 inline Counted operator+(Counted a, Counted b) { ++op_counts[0]; return a.x + b.x; }
 inline Counted operator-(Counted a, Counted b) { ++op_counts[0]; return a.x - b.x; }
@@ -75,11 +81,12 @@ inline Counted cos(Counted a) { ++op_counts[4]; return std::cos(a.x); }
 inline Counted log(Counted a) { ++op_counts[4]; return std::log(a.x); }
 inline Counted exp(Counted a) { ++op_counts[4]; return std::exp(a.x); }
 inline Counted atan(Counted a) { ++op_counts[4]; return std::atan(a.x); }
+inline Counted atan2(Counted a, Counted b) { ++op_counts[4]; return std::atan2(a.x, b.x); }
 inline Counted pow(Counted a, Counted b) { ++op_counts[4]; return std::pow(a.x, b.x); }
 inline Counted fabs(Counted a) { return std::fabs(a.x); }
 inline bool isfinite(Counted a) { return std::isfinite(a.x); }
 using std::sin; using std::cos; using std::sqrt; using std::fabs; using std::log;
-using std::exp; using std::pow; using std::isfinite; using std::atan;
+using std::exp; using std::pow; using std::isfinite; using std::atan; using std::atan2;
 """
 
 _HARNESS = r"""
@@ -88,7 +95,7 @@ HARNESS_INCLUDES
 
 extern "C" int count_ops(const double* y0, int64_t n, int metric, double M, double a,
                          const double* q, int geometry, double inner_r, double outer_r,
-                         double height, double abstol, double reltol, double r_inner,
+                         double height, const double* geo, double abstol, double reltol, double r_inner,
                          double r_outer, double lam0, double lam1, int max_steps,
                          double dt_min, const int* modes, long long* counts,
                          int32_t* status, int32_t* attempts) {
@@ -100,9 +107,11 @@ extern "C" int count_ops(const double* y0, int64_t n, int metric, double M, doub
       f8a.data(), f8b.data(), f[0].data(), f[1].data(), f[2].data(), status,
       i4[0].data(), i4[1].data(), f[3].data(), f[4].data(), f[5].data(), attempts,
       i4[2].data()};
+  std::vector<Counted> g(geo, geo + (geo != nullptr ? gradus::kGeometryValues : 0));
   for (auto& c : op_counts) c = 0;
   const int rc = gradus::launch_metric<Counted>(
-      y.data(), n, metric, M, a, q, geometry, inner_r, outer_r, height, abstol,
+      y.data(), n, metric, M, a, q, geometry, inner_r, outer_r, height,
+      geo != nullptr ? g.data() : nullptr, abstol,
       reltol, r_inner, r_outer, lam0, lam1, max_steps, dt_min, modes, nullptr, out,
       nullptr);
   for (int k = 0; k < 5; ++k) counts[k] = op_counts[k];
@@ -111,19 +120,20 @@ extern "C" int count_ops(const double* y0, int64_t n, int metric, double M, doub
 """
 
 
-def build() -> ctypes.CDLL:
-    """Build the counting library from the sources of `csrc/` and load it."""
+def _host_sources():
+    """The sources of `csrc/` for the host, in ``_BUILD``: the launch a loop
+    over blocks and threads, `cuda_runtime.h` a stub."""
     _BUILD.mkdir(parents=True, exist_ok=True)
     for src in list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")):
         text = src.read_text()
         if src.name == "tsit5.cuh":
-            launch = re.compile(r"geodesic_tsit5_kernel<T, Metric, P><<<.*?>>>\((.*?)\);", re.S)
+            launch = re.compile(r"geodesic_tsit5_kernel<T, Metric, P, kGeneric><<<.*?>>>\((.*?)\);", re.S)
             text, n = launch.subn(
                 lambda m: (
                     "for (unsigned b_ = 0; b_ < unsigned(blocks); ++b_)"
                     " for (unsigned t_ = 0; t_ < unsigned(threads); ++t_) {"
                     " blockIdx.x = b_; threadIdx.x = t_; blockDim.x = threads;"
-                    f" geodesic_tsit5_kernel<T, Metric, P>({m.group(1)}); }}"
+                    f" geodesic_tsit5_kernel<T, Metric, P, kGeneric>({m.group(1)}); }}"
                 ),
                 text,
             )
@@ -131,17 +141,38 @@ def build() -> ctypes.CDLL:
                 raise RuntimeError("the kernel launch in tsit5.cuh was not found")
         (_BUILD / src.name).write_text(text)
     (_BUILD / "cuda_runtime.h").write_text(_STUB)
-    includes = "\n".join(f'#include "{src.name}"' for src in sorted(_CSRC.glob("*.cu")))
-    (_BUILD / "harness.cpp").write_text(_HARNESS.replace("HARNESS_INCLUDES", includes))
-    lib = _BUILD / "libopcount.so"
+    return "\n".join(f'#include "{src.name}"' for src in sorted(_CSRC.glob("*.cu")))
+
+
+def _gxx(source: str, name: str, opt: str) -> Path:
+    (_BUILD / f"{name}.cpp").write_text(source)
+    lib = _BUILD / f"lib{name}.so"
     subprocess.run(
-        ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(_BUILD), "-o", str(lib), str(_BUILD / "harness.cpp")],
+        ["g++", "-std=c++17", opt, "-shared", "-fPIC", "-I", str(_BUILD), "-o", str(lib), str(_BUILD / f"{name}.cpp")],
         check=True,
     )
-    so = ctypes.CDLL(str(lib))
+    return lib
+
+
+def host_library() -> ctypes.CDLL:
+    """The kernel's library built for the host (g++, no FMA contraction),
+    with `_build`'s C entry points; ``_build._lib = host_library()`` and
+    `torch.cuda.device`/`current_stream` stubbed let `_launch_kernel` run
+    it on CPU tensors."""
+    from gradus_tpu_torch import _build
+
+    so = ctypes.CDLL(str(_gxx(_host_sources(), "host_kernel", "-O2")))
+    _build._declare(so)
+    return so
+
+
+def build() -> ctypes.CDLL:
+    """Build the counting library from the sources of `csrc/` and load it."""
+    includes = _host_sources()
+    so = ctypes.CDLL(str(_gxx(_HARNESS.replace("HARNESS_INCLUDES", includes), "opcount", "-O1")))
     vp, dbl, i32, i64 = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int64
     so.count_ops.argtypes = [
-        vp, i64, i32, dbl, dbl, ctypes.POINTER(dbl), i32, dbl, dbl, dbl,
+        vp, i64, i32, dbl, dbl, ctypes.POINTER(dbl), i32, dbl, dbl, dbl, ctypes.POINTER(dbl),
         dbl, dbl, dbl, dbl, dbl, dbl, i32, dbl, ctypes.POINTER(i32), vp, vp, vp,
     ]
     so.count_ops.restype = ctypes.c_int
@@ -160,18 +191,14 @@ def count(so, m, geometry, y0, lam_span, **tracer_kw):
     """(operations per ray start, per attempted step and per polished hit,
     the split of each by kind, rays, attempts, hits) for the rays ``y0`` of
     a `CudaTracer`."""
-    from gradus_tpu_torch.integrate.cuda_solver import CudaTracer, _metric_args
+    from gradus_tpu_torch.integrate.cuda_solver import CudaTracer, _geometry_args, _metric_args
     from gradus_tpu_torch.integrate.status import StatusCodes
 
     tracer = CudaTracer(m, geometry=geometry, **tracer_kw)
     kw = tracer._integrate_kwargs(torch.float64)
     kind, M, a, q = _metric_args(m)
-    if geometry is None:
-        geo, inner_r, outer_r, height = 0, 0.0, 0.0, 0.0
-    elif hasattr(geometry, "height"):
-        geo, inner_r, outer_r, height = 2, 0.0, 0.0, float(geometry.height)
-    else:
-        geo, inner_r, outer_r, height = 1, float(geometry.inner_r), float(geometry.outer_r), 0.0
+    geo, inner_r, outer_r, height, block = _geometry_args(geometry)
+    block = None if block is None else (ctypes.c_double * len(block))(*block)
     y = np.ascontiguousarray(y0.t().numpy())
     n = y0.shape[0]
     results = []
@@ -183,7 +210,7 @@ def count(so, m, geometry, y0, lam_span, **tracer_kw):
         status = np.zeros(n, np.int32)
         attempts = np.zeros(n, np.int32)
         rc = so.count_ops(
-            y.ctypes.data, n, kind, M, a, q, geo, inner_r, outer_r, height,
+            y.ctypes.data, n, kind, M, a, q, geo, inner_r, outer_r, height, block,
             kw["abstol"], kw["reltol"], kw["r_inner"], kw["r_outer"], float(lam_span[0]),
             float(lam_span[1]), max_steps, 1e-10, modes, counts.ctypes.data, status.ctypes.data,
             attempts.ctypes.data,
@@ -204,6 +231,26 @@ def count(so, m, geometry, y0, lam_span, **tracer_kw):
         start_by_kind=dict(zip(KINDS, (start / n).tolist())),
         step_by_kind=dict(zip(KINDS, per_step.tolist())),
         hit_by_kind=dict(zip(KINDS, per_hit.tolist())),
+    )
+
+
+def _generic_cases(m):
+    """(name, geometry, tracer keywords) of chip_smoke.py's generic
+    geometries (`THICK_KINDS`), as the docs build them."""
+    from gradus_tpu_torch import geometry as G
+
+    cpu = dict(device="cpu")
+    ellipse = G.EllipticalDisc(0.0, 100.0, 60.0, **cpu)
+    ss = G.ShakuraSunyaev.from_metric(m, 0.3)
+    return (
+        ("shakura_sunyaev", ss, {}),
+        ("shakura_sunyaev_sampled", ss, dict(event_method="sampled")),
+        ("elliptical", ellipse, {}),
+        ("precessing_elliptical", G.PrecessingDisc(ellipse, math.radians(10.0), math.radians(30.0), **cpu), {}),
+        ("precessing_thin", G.PrecessingDisc(G.ThinDisc(0.0, 50.0, **cpu), math.radians(20.0), math.radians(30.0), **cpu), {}),
+        ("composite", G.CompositeGeometry([G.ThinDisc(20.0, 100.0, **cpu), G.DatumPlane(3.0, **cpu)]), {}),
+        ("doughnut", G.PolishDoughnut(**cpu), {}),
+        ("doughnut_kerr", G.PolishDoughnut(metric=m), {}),
     )
 
 
@@ -238,6 +285,10 @@ def main(n: int = 512):
             (alpha, beta),
             (0.0, 2200.0),
             {},
+        ),
+        *(
+            (f"kerr_{kind}", KerrMetric(1.0, 0.998, **cpu), geometry, flagship, (alpha, beta), (0.0, 2200.0), tkw)
+            for kind, geometry, tkw in _generic_cases(KerrMetric(1.0, 0.998, **cpu))
         ),
         (
             "kerr_datum_plane",

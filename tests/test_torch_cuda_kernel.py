@@ -455,3 +455,91 @@ def test_lifted_jvp_matches_torch_func_jvp_on_the_card(dev):
         b = jvp(trace, (B,), (torch.ones_like(B),))
     for u, w in zip(a[0] + a[1], b[0] + b[1]):
         assert torch.equal(u.isnan(), w.isnan()) and torch.equal(u.nan_to_num(), w.nan_to_num())
+
+
+# --- the generic geometries (csrc/geometry.cuh) ----------------------------------
+
+
+def _chip_smoke():
+    """chip_smoke.py (at the root of the checkout), for its cases and checks."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize(
+    "kind",
+    ["shakura_sunyaev", "shakura_sunyaev_sampled", "elliptical", "precessing_elliptical", "precessing_thin", "composite", "doughnut", "doughnut_kerr"],
+)
+def test_generic_geometry_kernel_matches_plain_version(dev, kind, dtype):
+    """Each geometry of kinds 3-7 on 512 flagship rays, kernel against plain
+    version, at chip_smoke.py's thresholds (`phase_thick_geometries`): whole
+    traces (f64: statuses ≥ 0.999 alike, hits within 1e-6; f32: ≥ 0.995,
+    median redshift gap ≤ 1e-4), or, for the ellipse (also precessed) and
+    the composite, whose events the step sequence decides, one iteration at
+    a time from the plain version's carry (`_stepwise_ok`: statuses as
+    above, in f32 the status codes but for the hit decisions, which the
+    composite takes below f32's resolution; the state within 1e-9 in f64
+    and 1e-4 in f32, the event's values within 1e-9 in f64)."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(22)
+    kw = dict(dtype=dtype, device=dev)
+    m = KerrMetric(1.0, 0.998, **kw)
+    x = torch.tensor([0.0, 1000.0, math.radians(75.0), 0.0], **kw)
+    v = map_impact_parameters(
+        m, x, torch.as_tensor(rng.uniform(-28, 28, 512), **kw), torch.as_tensor(rng.uniform(-18, 18, 512), **kw)
+    )
+    geometry = cs._thick_geometry(kind.replace("_sampled", ""), m, dtype, dev)
+    tracer = CudaTracer(m, geometry=geometry, event_method="sampled" if kind.endswith("_sampled") else "cubic")
+    y0 = tracer._constrain(x.expand_as(v), v)
+    before = cuda_solver.KERNEL_LAUNCHES
+    res = cs._full_trace(m, x, tracer, y0, dtype, f"kerr_{kind}")
+    assert cuda_solver.KERNEL_LAUNCHES == before + 1
+    f64 = dtype == torch.float64
+    if kind in cs.STEPWISE_KINDS:
+        step = cs._stepwise(m, tracer, y0, dtype)
+        assert cs._stepwise_ok(step, dtype), step
+    elif f64:
+        assert res["status_agree"] >= 0.999 and res["hit_max_abs_err"] <= 1e-6, res
+    else:
+        assert res["status_agree"] >= 0.995 and res["g_median_rel"] <= 1e-4, res
+
+
+def test_kinds012_kernel_unchanged_bit_for_bit(dev):
+    """Geometry kinds 0-2 (none, ThinDisc, DatumPlane) give the outputs the
+    kernel gave before the generic geometries came, bit for bit
+    (tests/data/kernel_kinds012_digests.json; chip_smoke.py's
+    `_kinds012_outputs`)."""
+    import json
+
+    cs = _chip_smoke()
+    want = json.loads(cs.KINDS012_DIGESTS.read_text())["sha256"]
+    assert cs._kinds012_outputs(dev) == want
+
+
+def test_kernel_refuses_the_geometries_it_does_not_take(dev):
+    """Callables, per-ray heights and PolishDoughnutFW raise on the card,
+    with no launch and no fall back to the plain version."""
+    from gradus_tpu_torch import geometry as G
+
+    m, xs, v = _rays(dev, torch.float64, n=8)
+    y0 = torch.cat([xs, v], dim=-1)
+    kw = dict(abstol=1e-9, reltol=1e-9, r_inner=1.07, r_outer=12000.0)
+    rs = np.linspace(6.0, 20.0, 16)
+    before = cuda_solver.KERNEL_LAUNCHES
+    for g in (
+        G.WarpedThinDisc(lambda rho: 2.0 * torch.sin(rho / 10.0), 0.0, 100.0, device=dev),
+        G.ThickDisc(lambda rho: rho - 10.0, device=dev),
+        G.DatumPlane([0.0] * 8, device=dev),
+        G.PolishDoughnutFW(rs, rs - 6.0, device=dev),
+    ):
+        with pytest.raises(NotImplementedError):
+            cuda_integrate_rays(m, y0, SPAN, geometry=g, **kw)
+        with pytest.raises(NotImplementedError):
+            CudaTracer(m, geometry=g)(xs, v, SPAN)
+    assert cuda_solver.KERNEL_LAUNCHES == before
