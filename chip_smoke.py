@@ -15,7 +15,15 @@ through their entry points, none of which may call the plain-torch polish:
   must give the same image;
 - the same camera in Johannsen-Psaltis (a=0.6, ε₃=2) and in Kerr-Newman
   (a=0.5, Q=0.3), through the kernel's dual-number path and the
-  dot-product redshift with the generic ISCO;
+  dot-product redshift with the generic ISCO; against
+  ShakuraSunyaev.from_metric(m, 0.3) (`thick_geometries_render`, the
+  kernel's generic instantiation) and against the docs'
+  WarpedThinDisc(lambda r: 2 sin(r/10), 0, 100) (`callable_geometries_render`:
+  its cross-section compiled into a unit that `phase_build` builds with the
+  library); the other geometries, the callable ones among them
+  (`callable_geometries`: the warped disc, ShakuraSunyaev's cross-section as
+  a ThickDisc, both precessed or in a composite, and a precessed
+  DatumPlane), against the plain version in the worker `plain`;
 - the flagship render's longest chain of steps: its slowest ray launched
   alone, and the kernel's static SASS counts;
 - the Gradus.jl line-profile edge goldens (Kerr a=0.6, i=60°), f64, through
@@ -63,7 +71,7 @@ through their entry points, none of which may call the plain-torch polish:
   solver, the default backend) at full size: `ctf_xla` (`bench_ctf`'s thin
   disc: m1, and against the `cuda` backend) and `thick_disc` (a
   `ShakuraSunyaev` disc against `lineprofile(method=BinningMethod())`),
-  at 6 and 4 golden-section steps, not 15 and 10, so that the script ends
+  at 5 and 4 golden-section steps, not 15 and 10, so that the script ends
   inside its time limit,
   and `thick_disc_golden` (tests/test_transfer.py's thick-disc golden in
   f64, its samples against the JAX package's and the port's CPU runs);
@@ -102,6 +110,7 @@ Needs one CUDA device and the CUDA toolkit (nvcc). Imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -139,7 +148,9 @@ from gradus_tpu_torch.geometry import (
     PolishDoughnut,
     PrecessingDisc,
     ShakuraSunyaev,
+    ThickDisc,
     ThinDisc,
+    WarpedThinDisc,
 )
 from gradus_tpu_torch.integrate import StatusCodes, cuda_solver
 from gradus_tpu_torch.integrate.cuda_solver import (
@@ -259,7 +270,8 @@ SEGMENT_ITERS, TAIL_BUCKET = 128, 32768
 # and per hit it polishes (3 Newton iterations), counted by running
 # its C++ on a CPU with a counting scalar over 512 rays of each
 # configuration: `python -m gradus_tpu_torch.opcount` (the flagship camera
-# against the generic geometries' cases as `kerr_<case>`).
+# against the generic geometries' cases and the callable ones as
+# `kerr_<case>`).
 KERNEL_OPS = {
     "kerr": (427.0, 1431.2514095377364, 4351.0),
     "johannsen_psaltis": (675.0, 2175.2740566503276, 6831.0),
@@ -273,6 +285,11 @@ KERNEL_OPS = {
     "kerr_composite": (435.0, 1441.1087017186755, 4375.0),
     "kerr_doughnut": (1257.0, 2290.3580878681973, 6841.0),
     "kerr_doughnut_kerr": (2323.0, 3386.693584623065, 10039.0),
+    "kerr_warped": (443.0, 1448.1206381883685, 4399.0),
+    "kerr_thick_shakura_sunyaev": (449.0, 1454.4562918195554, 4417.0),
+    "kerr_precessing_warped": (507.0, 1512.227447636084, 4591.0),
+    "kerr_composite_callable": (447.0, 1453.8120760557824, 4411.0),
+    "kerr_precessing_datum": (492.0, 1496.86964026354, 4546.0),
 }
 # NVIDIA H100 SXM data sheet, at its 700 W limit: FP32 and FP64 outside the
 # tensor cores, and HBM3
@@ -378,15 +395,25 @@ def phase_device():
     )
 
 
-def phase_build():
-    _build.load_library()
+def phase_build(dev=None):
+    """The library and the generated units of the callable phases
+    (`_callable_units`), their nvcc runs started together."""
+    units = [] if dev is None else _callable_units()
+    _build.load_library(units)
     info = _build.build_info()
     ptxas = [
         line.strip()
         for line in info["ptxas"].splitlines()
         if "Compiling entry" in line or "spill" in line or "Used" in line
     ]
-    _say("build", seconds=info["seconds"], built=info["built"], path=info["path"], ptxas=ptxas)
+    _say(
+        "build",
+        seconds=info["seconds"],
+        built=info["built"],
+        path=info["path"],
+        ptxas=ptxas,
+        callables={k: {f: c.get(f) for f in ("entry", "built", "seconds", "registers", "spills")} for k, c in info["callables"].items()},
+    )
 
 
 def _datum_plane_group(dev, n=8192, n_raised=2048):
@@ -998,11 +1025,13 @@ def phase_goldens(dev):
     _say("goldens", **sums)
 
 
-def _full_render(dev, m, side, name, ops_key, subset=True, geometry=None, **tracer_kw):
+def _full_render(dev, m, side, name, ops_key, subset=True, geometry=None, range_rho_min=None, **tracer_kw):
     """A side² render, f32, at the flagship camera (r = 1000, i = 75°,
     ThinDisc(0, 50) unless ``geometry`` is given, λ ∈ (0, 2200)) through
     the port's entry points, with
-    the metric's redshift point function; one warm-up and three timed
+    the metric's redshift point function, whose finite values must lie in
+    (0, 2) (with ``range_rho_min``, those of hits at ρ ≥ it; the others
+    outside are counted); one warm-up and three timed
     renders, one kernel launch each (two with a tail pass, ``tracer_kw``'s
     ``segment_iters``), none of which may call the plain-torch polish; then
     one render split by CUDA events into camera + constraint, the kernel
@@ -1046,7 +1075,11 @@ def _full_render(dev, m, side, name, ops_key, subset=True, geometry=None, **trac
         raise AssertionError(f"{name}: {int(aux['unfinished'])} rays unfinished")
     finite = torch.isfinite(img)
     g = img[finite]
-    if finite.sum() == 0 or not bool(((g > 0) & (g < 2)).all()) or float(g.max()) <= 1.0:
+    held = finite
+    if range_rho_min is not None:
+        held = finite & (equatorial_project(last["gp"].x) >= range_rho_min)
+    out_of_range = finite & ~((img > 0) & (img < 2))
+    if finite.sum() == 0 or bool((out_of_range & held).any()) or float(g.max()) <= 1.0:
         raise AssertionError(f"{name}: redshift image out of range")
     dt = statistics.median(times)
     executed = int(aux["warp_iters"].sum())
@@ -1061,6 +1094,7 @@ def _full_render(dev, m, side, name, ops_key, subset=True, geometry=None, **trac
         finite_pixels=int(finite.sum()),
         g_min=float(g.min()),
         g_max=float(g.max()),
+        g_out_of_range_below_rho_min=int(out_of_range.sum()),
         launches=launches,
         torch_polish_calls=polish.calls,
         unfinished=int(aux["unfinished"]),
@@ -1219,7 +1253,7 @@ THICK_KINDS = (
 # the ellipse's (also precessed) events in a step that starts beyond its
 # semi-major axis (a NaN slope) or by its rim (a slope that diverges), and
 # their unconverged polish.
-STEPWISE_KINDS = ("elliptical", "precessing_elliptical", "composite")
+STEPWISE_KINDS = ("elliptical", "precessing_elliptical", "composite", "composite_callable")
 STEPWISE_ITERS = 400
 KINDS012_DIGESTS = Path(__file__).resolve().parent / "tests" / "data" / "kernel_kinds012_digests.json"
 
@@ -1432,6 +1466,150 @@ def phase_thick_geometries(dev, n=2048, n_trace=2048):
     _say("thick_geometries", **results)
     if failed:
         raise AssertionError(f"thick_geometries: kernel and plain version disagree: {failed}")
+    return results
+
+
+# --- the cross-section callables (geometry kinds 8-9, geometry/codegen.py) ----------
+
+# The cases of `phase_callable_geometries`: the docs' warped disc
+# (docs/examples.md), ShakuraSunyaev's cross-section written as a callable
+# (held also against kind 3 on the same rays), the warped disc precessed, a
+# composite with a callable part, and a precessed DatumPlane (kind 2 inside
+# kind 6, which needs no generated unit)
+CALLABLE_KINDS = ("warped", "thick_shakura_sunyaev", "precessing_warped", "composite_callable", "precessing_datum")
+
+
+def _docs_warp(rho):
+    return 2.0 * torch.sin(rho / 10.0)
+
+
+@functools.lru_cache(maxsize=1)
+def _shakura_sunyaev_numbers():
+    """(Ṁ/Ṁ_Edd, 1/η, r_isco) of ShakuraSunyaev.from_metric(m, 0.3) for
+    Kerr a = 0.998, in f64 on the CPU: the same numbers, and so the same
+    generated unit, whatever the device and dtype of the rays."""
+    d = ShakuraSunyaev.from_metric(KerrMetric(1.0, 0.998, device="cpu"), 0.3)
+    return float(d.mdot_over_edd), float(d.inv_eta), float(d.inner_r)
+
+
+def _shakura_sunyaev_disc(dev):
+    """That disc as kind 3, ShakuraSunyaev."""
+    mdot, inv_eta, r_in = _shakura_sunyaev_numbers()
+    return ShakuraSunyaev(mdot, inv_eta, r_in, device=dev)
+
+
+def _shakura_sunyaev_callable():
+    """That disc's cross-section (discs.py:279-283) as a callable of its
+    numbers, for a ThickDisc."""
+    mdot, inv_eta, r_in = _shakura_sunyaev_numbers()
+    h0 = 3.0 * inv_eta * mdot
+
+    def cross_section(rho):
+        return torch.where(rho < r_in, -0.0, h0 * (1.0 - torch.sqrt(r_in / rho.clamp(min=1e-12))))
+
+    return cross_section
+
+
+def _callable_geometry(kind, dtype, dev):
+    kw = dict(dtype=dtype, device=dev)
+    warp = lambda: WarpedThinDisc(_docs_warp, 0.0, 100.0, **kw)  # noqa: E731
+    return {
+        "warped": warp,
+        "thick_shakura_sunyaev": lambda: ThickDisc(_shakura_sunyaev_callable(), **kw),
+        "precessing_warped": lambda: PrecessingDisc(warp(), 0.17, 0.5, **kw),
+        "composite_callable": lambda: CompositeGeometry([ThinDisc(0.0, 20.0, **kw), ThickDisc(lambda rho: 0.1 * rho - 2.0, **kw)]),
+        "precessing_datum": lambda: PrecessingDisc(DatumPlane(1.0, **kw), 0.1, 0.2, **kw),
+    }[kind]()
+
+
+def _callable_units():
+    """The generated units that the callable phases launch: the render's
+    (f32) and each case's in f64 and f32, for `phase_build` (their text
+    does not depend on the device)."""
+    m = KerrMetric(1.0, 0.998, device="cpu")
+    units = []
+    for dtype in (torch.float64, torch.float32):
+        for kind in CALLABLE_KINDS:
+            unit = cuda_solver._kernel_unit(m, _callable_geometry(kind, dtype, "cpu"), dtype)
+            if unit is not None:
+                units.append(unit)
+    return units
+
+
+def _callable_build(geometry, m, dtype):
+    """The build of a geometry's generated unit (`_build.build_info()`)."""
+    key = _build.callable_key(cuda_solver._kernel_unit(m, geometry, dtype).source)
+    return {"key": key, **_build.build_info()["callables"][key]}
+
+
+def phase_callable_geometries_render(dev, side=1024):
+    """The flagship render (f32, Kerr a = 0.998, analytic redshift) against
+    the docs' ``WarpedThinDisc(lambda r: 2 sin(r / 10), 0, 100)``, its
+    cross-section compiled into the kernel (`_full_render`: the render's
+    time, finite pixels, attempted lane-steps, the kernel's time and bound,
+    every 64th pixel against the plain version), and the build of its
+    generated unit."""
+    m = KerrMetric(1.0, 0.998, dtype=torch.float32, device=dev)
+    geometry = _callable_geometry("warped", torch.float32, dev)
+    # the analytic redshift's plunging four-velocity is the equatorial one:
+    # off the plane, inside the ISCO (the warped disc reaches the horizon
+    # at z ~ 0.2), g leaves (0, 2) on ~40 pixels, in the plain version and
+    # in f64 alike; the range is held outside the ISCO
+    result = _full_render(
+        dev, m, side, "callable_geometries_render", "kerr_warped", geometry=geometry, range_rho_min=float(m.isco())
+    )[0]
+    result["build"] = _callable_build(geometry, m, torch.float32)
+    _say("callable_geometries_build", **result["build"])
+    return result
+
+
+def phase_callable_geometries(dev, n=2048):
+    """The cross-section callables compiled into the kernel against its
+    plain version on the same card tensors, ``n`` flagship rays (uniform
+    over α ∈ [−28, 28], β ∈ [−18, 18]) a case of `CALLABLE_KINDS`, f64 and
+    f32, at `phase_thick_geometries`' thresholds (whole traces; the
+    composite, whose hit test the step sequence decides, iteration by
+    iteration); and ShakuraSunyaev's cross-section as a callable against
+    kind 3 (the same kernel's closed form of it) on the same rays: statuses
+    alike and hits within 1e-6 in f64 (printed)."""
+    rng = np.random.default_rng(24)
+    alpha, beta = rng.uniform(-28.0, 28.0, n), rng.uniform(-18.0, 18.0, n)
+    results, failed = {}, []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        kw = dict(dtype=dtype, device=dev)
+        m = KerrMetric(1.0, 0.998, **kw)
+        x = torch.tensor(X_OBS, **kw)
+        v = map_impact_parameters(m, x, torch.as_tensor(alpha, **kw), torch.as_tensor(beta, **kw))
+        for kind in CALLABLE_KINDS:
+            geometry = _callable_geometry(kind, dtype, dev)
+            tracer = CudaTracer(m, geometry=geometry)
+            y0 = tracer._constrain(x.expand_as(v), v)
+            res = _full_trace(m, x, tracer, y0, dtype, f"kerr_{kind}")
+            if kind in STEPWISE_KINDS:
+                res["stepwise"] = step = _stepwise(m, tracer, y0, dtype)
+                ok = _stepwise_ok(step, dtype)
+            elif dtype == torch.float64:
+                ok = res["status_agree"] >= 0.999 and res["hit_max_abs_err"] <= 1e-6
+            else:
+                ok = res["status_agree"] >= 0.995 and res["g_median_rel"] <= 1e-4
+            if kind != "precessing_datum":
+                res["build"] = _callable_build(geometry, m, dtype)
+            results[f"{kind}_{name}"] = res
+            if not ok:
+                failed.append(f"{kind}_{name}")
+            if kind == "thick_shakura_sunyaev":
+                tk = CudaTracer(m, geometry=_shakura_sunyaev_disc(dev))
+                ga, gb = tracer(x.expand_as(v), v, SPAN), tk(x.expand_as(v), v, SPAN)
+                hit = (ga.status == HIT) & (gb.status == HIT)
+                results[f"callable_vs_kind3_{name}"] = dict(
+                    status_agree=float((ga.status == gb.status).double().mean()),
+                    hits=int(hit.sum()),
+                    hit_max_abs_err=float((ga.x[hit] - gb.x[hit]).abs().max()) if hit.any() else 0.0,
+                )
+    _say("callable_geometries", **results)
+    if failed:
+        raise AssertionError(f"callable_geometries: kernel and plain version disagree: {failed}")
     return results
 
 
@@ -3790,13 +3968,14 @@ WORKERS = {
     "binflux": (("binflux_golden", {}), ("lagtransfer_semianalytic", {}), ("trace_api", {})),
     "corona": (("emissivity", {}), ("profiled_lineprofile", {})),
     "graph": (("lockstep_graph", {}),),
-    "xla_thin": (("ctf_xla", {"N_extrema": 6}),),
+    "xla_thin": (("ctf_xla", {"N_extrema": 5}),),
     "xla_thick": (("thick_disc", {"N_extrema": 4}),),
     "thick_golden": (("thick_disc_golden", {}),),
     "ring_corona": (("ring_corona", {}),),
     "disc_corona": (("disc_corona", {}),),
     "traces_cpu": (("cpu_subsets", {}),),
-    "plain": (("kernel_vs_plain", {}), ("thick_geometries", {})),
+    "plain": (("kernel_vs_plain", {}), ("callable_geometries", {})),
+    "geometries": (("thick_geometries", {}),),
 }
 # The special traces' card work runs alone on the card, in the main process
 # before the workers start (`_run_traces`), or alone as ``--worker traces``:
@@ -3937,13 +4116,14 @@ def main():
     timed_phase("device", phase_device)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    timed_phase("build", phase_build)
+    timed_phase("build", phase_build, dev)
     # the phases that time kernels, alone on the card
     timed_phase("goldens", phase_goldens, dev)
     rendered, segmented = timed_phase("main_path", phase_main_path, dev)
     deformed = timed_phase("deformed_render", phase_deformed_render, dev)
     kerr_newman = timed_phase("kerr_newman_render", phase_kerr_newman_render, dev)
     thick = timed_phase("thick_geometries_render", phase_thick_geometries_render, dev)
+    warped = timed_phase("callable_geometries_render", phase_callable_geometries_render, dev)
     chain = timed_phase("chain", phase_chain, dev)
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
@@ -4042,13 +4222,16 @@ def main():
             ("deformed", "johannsen_psaltis", deformed),
             ("kerr_newman", "kerr_newman", kerr_newman),
             ("thick", "kerr_shakura_sunyaev", thick),
+            ("warped", "kerr_warped", warped),
         )
     }
     bound_ms, bound_by = bounds["flagship"]
     deformed_bound_ms, deformed_bound_by = bounds["deformed"]
     kn_bound_ms, kn_bound_by = bounds["kerr_newman"]
     thick_bound_ms, thick_bound_by = bounds["thick"]
+    warped_bound_ms, warped_bound_by = bounds["warped"]
     geometries = lags["thick_geometries"]
+    callables = lags["callable_geometries"]
     print(
         json.dumps(
             {
@@ -4079,6 +4262,9 @@ def main():
                             "polish_doughnut",
                             "precessing_disc",
                             "composite_geometry",
+                            "warped_thin_disc",
+                            "thick_disc",
+                            "precessing_datum_plane",
                         ],
                         "metrics": [
                             "kerr",
@@ -4134,6 +4320,30 @@ def main():
                             "full_kernel_ms": thick["full_kernel_ms"],
                             "full_bound_ms": thick["full_bound_ms"],
                         },
+                        "callable_geometries_render": {
+                            "launches": warped["launches"],
+                            "ms": warped["subset_kernel_ms"],
+                            "plain_ms": warped["subset_plain_ms"],
+                            "bound_ms": warped_bound_ms,
+                            "bound_by": warped_bound_by,
+                            "full_kernel_ms": warped["full_kernel_ms"],
+                            "full_bound_ms": warped["full_bound_ms"],
+                            "build_seconds": warped["build"]["seconds"],
+                            "build_registers": warped["build"]["registers"],
+                            "build_spills": warped["build"]["spills"],
+                        },
+                        "callables_max_abs_err": {
+                            k: r["hit_max_abs_err"] for k, r in callables.items() if k.endswith("_float64")
+                        },
+                        "callables_kernel": {
+                            k: {f: r[f] for f in ("rays", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+                            for k, r in callables.items()
+                            if "kernel_ms" in r
+                        },
+                        "callables_stepwise_max_rel": {
+                            k: r["stepwise"]["state_max_rel"] for k, r in callables.items() if "stepwise" in r
+                        },
+                        "callable_vs_kind3": {k: r for k, r in callables.items() if k.startswith("callable_vs_kind3")},
                         "geometries_max_abs_err": {
                             k: r["hit_max_abs_err"] for k, r in geometries.items() if k.endswith("_float64")
                         },
@@ -4163,6 +4373,7 @@ def main():
                             "deformed_render": deformed["launches"],
                             "kerr_newman_render": kerr_newman["launches"],
                             "thick_geometries_render": thick["launches"],
+                            "callable_geometries_render": warped["launches"],
                             "ctf_lineprofile": ctf["launches"],
                             "binning_lineprofile": binned["launches"],
                             "reverberation_golden": lags["reverberation_golden"]["transfer_functions"]["launches"],

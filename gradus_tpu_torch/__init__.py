@@ -40,7 +40,15 @@ Module paths and public names mirror `gradus_tpu`. This package imports
   `is_naked_singularity`), the first-order Mino-time Kerr tracer
   (`trace_geodesics_first_order`), `trace_radiative_transfer`,
   `trace_windings`, triangle meshes (`MeshAccretionGeometry` and the
-  polygon utilities) and the orbit solvers of `orbits/solving.py`.
+  polygon utilities) and the orbit solvers of `orbits/solving.py`;
+- the reference's public names beside these: every metric class, the
+  geodesic equation and its constraints, the tetrads and the LNRF frame,
+  the metric's free functions, the redshift interpolations and
+  `unpack_solution`. Not here: `enable_x64`, which has no torch meaning
+  (a tensor's dtype is its own; pass ``dtype=torch.float64``), and the
+  forward-mode AD helpers of `gradus_tpu/diff.py` (`grad_fwd`,
+  `value_and_grad_fwd`, `fwd_adjoint`) and `Tracer`, still to port
+  (ROADMAP A11, A13).
 """
 
 from gradus_tpu_torch.camera import (
@@ -62,6 +70,7 @@ from gradus_tpu_torch.camera import (
     adaptive_sky,
     apply,
     fill_sky_values,
+    local_momentum,
     map_impact_parameters,
     prerendergeodesics,
     rendergeodesics,
@@ -87,7 +96,20 @@ from gradus_tpu_torch.corona import (
     ring_corona_profile_hybrid,
     tracecorona,
 )
-from gradus_tpu_torch.geodesics import metric_jacobian
+from gradus_tpu_torch.geodesics import (
+    constrain,
+    constrain_all,
+    constrain_time,
+    dotproduct,
+    geodesic_equation,
+    lnrbasis,
+    lnrframe,
+    lowerindices,
+    metric_jacobian,
+    propernorm,
+    raiseindices,
+    tetradframe,
+)
 from gradus_tpu_torch.geometry import (
     AbstractAccretionGeometry,
     CompositeGeometry,
@@ -123,6 +145,7 @@ from gradus_tpu_torch.integrate import (
     trace_radiative_transfer,
     trace_windings,
     tracegeodesics,
+    unpack_solution,
 )
 from gradus_tpu_torch.lineprofile import (
     BinningMethod,
@@ -132,23 +155,42 @@ from gradus_tpu_torch.lineprofile import (
 )
 from gradus_tpu_torch.metrics import (
     AbstractMetric,
+    BumblebeeMetric,
+    CartesianMetric,
+    DilatonAxion,
+    JohannsenMetric,
+    JohannsenPsaltisMetric,
+    KerrDarkMatter,
     KerrMetric,
     KerrNewmanMetric,
+    KerrRefractive,
     KerrSpacetimeFirstOrder,
+    MorrisThorneWormhole,
+    NoZMetric,
+    SchwarzschildMetric,
+    SphericalMetric,
+    inner_radius,
+    inverse_metric_components,
     kerr_isco,
+    metric_4x4,
+    metric_components,
     trace_geodesics_first_order,
 )
 from gradus_tpu_torch.orbits import (
     CircularOrbits,
+    PlungingInterpolation,
     charged_circular_orbit_omega,
     ergosphere,
     event_horizon,
+    interpolate_plunging_velocities,
     is_naked_singularity,
     isco,
     solve_equatorial_circular_orbit,
     solve_orbit_theta,
 )
-from gradus_tpu_torch.redshift import redshift_pointfunction
+from gradus_tpu_torch import redshift_analytic
+from gradus_tpu_torch.redshift import interpolate_redshift, keplerian_velocity_projector, redshift_pointfunction
+from gradus_tpu_torch.redshift_analytic import analytic_redshift_pointfunction
 from gradus_tpu_torch.reverberation import binflux, continuum_time, lag_frequency, lagtransfer
 from gradus_tpu_torch.utils import (
     cartesian_distance,

@@ -124,6 +124,7 @@ struct Dual1 {
     return {a.v + b.v, a.d + b.d};
   }
   friend __device__ __forceinline__ Dual1 operator+(Dual1 a, T b) { return {a.v + b, a.d}; }
+  friend __device__ __forceinline__ Dual1 operator+(T a, Dual1 b) { return {a + b.v, b.d}; }
   friend __device__ __forceinline__ Dual1 operator-(Dual1 a, Dual1 b) {
     return {a.v - b.v, a.d - b.d};
   }
@@ -158,6 +159,25 @@ struct Dual1 {
   friend __device__ __forceinline__ Dual1 fabs(Dual1 a) {
     return {fabs(a.v), a.v >= T(0) ? a.d : -a.d};
   }
+  // the unary functions of the cross-section generator's whitelist
+  // (geometry/codegen.py), with jax.jvp's rules: exp t e^x, log t / x,
+  // tan t (1 + tan^2), tanh (t + t tanh) (1 - tanh), atan t / (1 + x^2)
+  friend __device__ __forceinline__ Dual1 exp(Dual1 a) {
+    const T e = exp(a.v);
+    return {e, a.d * e};
+  }
+  friend __device__ __forceinline__ Dual1 log(Dual1 a) { return {log(a.v), a.d / a.v}; }
+  friend __device__ __forceinline__ Dual1 tan(Dual1 a) {
+    const T t = tan(a.v);
+    return {t, a.d * (T(1) + t * t)};
+  }
+  friend __device__ __forceinline__ Dual1 tanh(Dual1 a) {
+    const T t = tanh(a.v);
+    return {t, (a.d + a.d * t) * (T(1) - t)};
+  }
+  friend __device__ __forceinline__ Dual1 atan(Dual1 a) {
+    return {atan(a.v), a.d / (T(1) + a.v * a.v)};
+  }
 };
 
 // jnp.maximum(x, c) of a constant c: the value as tsit5.cuh's mx (a NaN
@@ -172,6 +192,146 @@ __device__ __forceinline__ Dual1<T> jmax(Dual1<T> x, T c) {
   const T v = jmax(x.v, c);
   const T f = x.v == v ? (c == v ? T(0.5) : T(1)) : T(0);
   return {v, x.d * f};
+}
+
+// jnp.minimum(x, c) of a constant c, as jmax
+template <typename T>
+__device__ __forceinline__ T jmin(T x, T c) {
+  return (x < c || x != x) ? x : c;
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jmin(Dual1<T> x, T c) {
+  const T v = jmin(x.v, c);
+  const T f = x.v == v ? (c == v ? T(0.5) : T(1)) : T(0);
+  return {v, x.d * f};
+}
+
+// --- the rest of the cross-section generator's whitelist (geometry/codegen.py),
+// for a scalar T and a Dual1<T>, with jax.jvp's rules where a rule is not the
+// obvious one. A number beside a dual is a literal: it carries no tangent, as
+// a Python number does in jax.jvp.
+
+// jax's _balanced_eq(x, z, y): the share of a tangent that min/max give x
+template <typename T>
+__device__ __forceinline__ T balanced_eq(T x, T z, T y) {
+  return (x == z ? T(1) : T(0)) / (y == z ? T(2) : T(1));
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jmax(T c, Dual1<T> x) {
+  return jmax(x, c);
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jmax(Dual1<T> x, Dual1<T> y) {
+  const T v = jmax(x.v, y.v);
+  return {v, x.d * balanced_eq(x.v, v, y.v) + y.d * balanced_eq(y.v, v, x.v)};
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jmin(T c, Dual1<T> x) {
+  return jmin(x, c);
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jmin(Dual1<T> x, Dual1<T> y) {
+  const T v = jmin(x.v, y.v);
+  return {v, x.d * balanced_eq(x.v, v, y.v) + y.d * balanced_eq(y.v, v, x.v)};
+}
+
+// lax.integer_pow(x, n): binary exponentiation, 1 / x^|n| for n < 0; the
+// tangent t (n x^(n-1)), 0 for n = 0
+template <typename T>
+__device__ __forceinline__ T ipow(T x, int n) {
+  if (n == 0) return T(1);
+  int m = n < 0 ? -n : n;
+  T acc = x;
+  bool first = true;
+  while (m > 0) {
+    if (m & 1) {
+      acc = first ? x : acc * x;
+      first = false;
+    }
+    m >>= 1;
+    if (m > 0) x = x * x;
+  }
+  return n < 0 ? T(1) / acc : acc;
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> ipow(Dual1<T> x, int n) {
+  return {ipow(x.v, n), n == 0 ? T(0) : x.d * (T(n) * ipow(x.v, n - 1))};
+}
+
+// lax.pow(x, y): the x tangent t (y x^(y-1)), the y tangent t (log(x) x^y)
+// with log(0) read as log(1)
+template <typename T>
+__device__ __forceinline__ T jpow(T x, T y) {
+  return pow(x, y);
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jpow(Dual1<T> x, T y) {
+  return {pow(x.v, y), x.d * (y * pow(x.v, y - T(1)))};
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jpow(T x, Dual1<T> y) {
+  const T ans = pow(x, y.v);
+  return {ans, y.d * (log(x == T(0) ? T(1) : x) * ans)};
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jpow(Dual1<T> x, Dual1<T> y) {
+  const T ans = pow(x.v, y.v);
+  return {ans, x.d * (y.v * pow(x.v, y.v - T(1))) + y.d * (log(x.v == T(0) ? T(1) : x.v) * ans)};
+}
+
+// lax.div(x, y): the x tangent t / y, the y tangent (-t x) y^-2
+template <typename T>
+__device__ __forceinline__ T jdiv(T x, T y) {
+  return x / y;
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jdiv(Dual1<T> x, T y) {
+  return {x.v / y, x.d / y};
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jdiv(T x, Dual1<T> y) {
+  return {x / y.v, (-y.d * x) * ipow(y.v, -2)};
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jdiv(Dual1<T> x, Dual1<T> y) {
+  return {x.v / y.v, x.d / y.v + (-y.d * x.v) * ipow(y.v, -2)};
+}
+
+// lax.square: t (2 x); lax.rsqrt: t (-0.5 (rsqrt(x) / x))
+template <typename T>
+__device__ __forceinline__ T jsquare(T x) {
+  return x * x;
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jsquare(Dual1<T> x) {
+  return {x.v * x.v, x.d * (T(2) * x.v)};
+}
+template <typename T>
+__device__ __forceinline__ T jrsqrt(T x) {
+  return T(1) / sqrt(x);
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jrsqrt(Dual1<T> x) {
+  const T ans = T(1) / sqrt(x.v);
+  return {ans, x.d * (T(-0.5) * (ans / x.v))};
+}
+
+// lax.atan2(y, x) with one side a literal
+template <typename T>
+__device__ __forceinline__ T jatan2(T y, T x) {
+  return atan2(y, x);
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jatan2(Dual1<T> y, Dual1<T> x) {
+  return atan2(y, x);
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jatan2(Dual1<T> y, T x) {
+  return {atan2(y.v, x), y.d * (x / (y.v * y.v + x * x))};
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jatan2(T y, Dual1<T> x) {
+  return {atan2(y, x.v), x.d * (-y / (y * y + x.v * x.v))};
 }
 
 // the value of a scalar or a dual

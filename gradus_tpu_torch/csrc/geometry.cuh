@@ -15,14 +15,21 @@
 //                       (r_cusp, 0), 1 if the potential reads the traced
 //                       metric's components else 0 (Schwarzschild's closed
 //                       form), that metric's M, a and 5 parameters)
-//   6  PrecessingDisc   of a part of kind 1, 3, 4 or 5 (`inner`), with that
+//   6  PrecessingDisc   of a part of kind 1-5, 8 or 9 (`inner`), with that
 //                       part's values and v[17..19] = (cos(-beta),
 //                       sin(-beta), gamma)
+//   8  WarpedThinDisc   v = (inner_r, outer_r), and its height f(rho)
+//   9  ThickDisc        v = (), and its cross-section f(rho)
+// The f of kinds 8 and 9 is a user's torch callable, compiled into a device
+// function by geometry/codegen.py: a Policy class (below) holds them, one
+// per part, and the kernel that reads them is built for that Policy at
+// first use (_build.py). The default Policy, NoCallables, holds none and
+// compiles kinds 8 and 9 out.
 // The constants are folded on the host in f64, where the plain version
 // folds them in its f64 buffers. A geometry of kind 7, a CompositeGeometry,
 // takes the indicator of the part with the least |c| (the first of a tie,
 // or the first NaN, as jnp.argmin) and is hit where a part is hit with
-// |c| < 1e-6 (discs.py:453-471); kinds 3-6 are one part.
+// |c| < 1e-6 (discs.py:453-471); kinds 3-6, 8 and 9 are one part.
 //
 // A Metric is the kernel's (tsit5.cuh) with
 //   static __device__ void components(T M, T a, const T* q, T r, T th, T* g);
@@ -47,10 +54,24 @@ constexpr int kEllipticalDisc = 4;
 constexpr int kPolishDoughnut = 5;
 constexpr int kPrecessingDisc = 6;
 constexpr int kComposite = 7;
+constexpr int kWarpedThinDisc = 8;
+constexpr int kThickDisc = 9;
 // The geometry's block on the device, in the launch's scalar: its kind and
 // part count, then each part's kind, inner kind and kPartValues values.
 constexpr int kPartStride = 2 + kPartValues;
 constexpr int kGeometryValues = 2 + kMaxParts * kPartStride;
+
+// A Policy holds the cross-sections of the parts of kinds 8 and 9:
+//   static constexpr bool kCallables;
+//   template <typename T, class S> static S cross_section(int part, S rho);
+// NoCallables, the default, holds none.
+struct NoCallables {
+  static constexpr bool kCallables = false;
+  template <typename T, class S>
+  static __device__ __forceinline__ S cross_section(int, S rho) {
+    return rho;
+  }
+};
 
 // ρ = r |sin θ| and z = r |cos θ| (equatorial_project, spinaxis_project)
 template <typename S>
@@ -102,11 +123,17 @@ __device__ __noinline__ T doughnut_h(const T* v, T rho) {
   return in_disc ? T(0.5) * (a + b) : T(-1);
 }
 
-// The indicator of a part of kind 1-5 at (r, θ) (discs.py: ThinDisc and
-// DatumPlane :113-171, the thick discs' |z| - max(h(ρ), 0) :192-196,
-// EllipticalDisc :302-306).
-template <class Metric, typename T, class S>
-__device__ __forceinline__ S disc_indicator(int kind, const T* v, S r, S th) {
+// The indicator of a part of kind 1-5, 8 or 9 at (r, θ) (discs.py: ThinDisc
+// and DatumPlane :113-171, WarpedThinDisc's z - f(ρ) :144-147, the thick
+// discs' |z| - max(h(ρ), 0) :192-196, EllipticalDisc :302-306); ``k`` is
+// the part's index, which names its cross-section in the Policy.
+template <class Metric, class Policy, typename T, class S>
+__device__ __forceinline__ S disc_indicator(int kind, int k, const T* v, S r, S th) {
+  if constexpr (Policy::kCallables) {
+    if (kind == kWarpedThinDisc) return r * cos(th) - Policy::template cross_section<T>(k, rho_of(r, th));
+    if (kind == kThickDisc)
+      return r * fabs(cos(th)) - jmax(Policy::template cross_section<T>(k, rho_of(r, th)), T(0));
+  }
   switch (kind) {
     case kThinDisc:
       return r * cos(th);
@@ -125,10 +152,15 @@ __device__ __forceinline__ S disc_indicator(int kind, const T* v, S r, S th) {
   }
 }
 
-// A part's is_hit at (r, θ) (discs.py:116-118, 173-174, 198-199, 308-310)
-template <class Metric, typename T>
-__device__ __forceinline__ bool disc_hit(int kind, const T* v, T r, T th) {
+// A part's is_hit at (r, θ) (discs.py:116-118, 149-151, 173-174, 198-199,
+// 308-310)
+template <class Metric, class Policy, typename T>
+__device__ __forceinline__ bool disc_hit(int kind, int k, const T* v, T r, T th) {
   const T rho = rho_of(r, th);
+  if constexpr (Policy::kCallables) {
+    if (kind == kWarpedThinDisc) return rho >= v[0] && rho <= v[1];
+    if (kind == kThickDisc) return Policy::template cross_section<T>(k, rho) > T(0);
+  }
   switch (kind) {
     case kThinDisc:
       return rho >= v[0] && rho <= v[1];
@@ -158,45 +190,45 @@ __device__ __forceinline__ void precessed(const T* v, S th, S ph, S& th_p, S& ph
   ph_p = atan2(y_, px);
 }
 
-// A part of the block: its kind, the wrapped kind of a PrecessingDisc, and
-// its values.
+// A part of the block: its kind, the wrapped kind of a PrecessingDisc, its
+// index and its values.
 template <typename T>
 struct Part {
-  int kind, inner;
+  int kind, inner, index;
   const T* v;
 };
 
 template <typename T>
 __device__ __forceinline__ Part<T> part(const T* g, int k) {
   const T* p = g + 2 + k * kPartStride;
-  return {int(p[0]), int(p[1]), p + 2};
+  return {int(p[0]), int(p[1]), k, p + 2};
 }
 
-template <class Metric, typename T, class S>
+template <class Metric, class Policy, typename T, class S>
 __device__ __forceinline__ S part_indicator(const Part<T>& p, S r, S th, S ph) {
-  if (p.kind != kPrecessingDisc) return disc_indicator<Metric>(p.kind, p.v, r, th);
+  if (p.kind != kPrecessingDisc) return disc_indicator<Metric, Policy>(p.kind, p.index, p.v, r, th);
   S th_p, ph_p;
   precessed(p.v, th, ph, th_p, ph_p);
-  return disc_indicator<Metric>(p.inner, p.v, r, th_p);
+  return disc_indicator<Metric, Policy>(p.inner, p.index, p.v, r, th_p);
 }
 
-template <class Metric, typename T>
+template <class Metric, class Policy, typename T>
 __device__ __forceinline__ bool part_hit(const Part<T>& p, T r, T th, T ph) {
-  if (p.kind != kPrecessingDisc) return disc_hit<Metric>(p.kind, p.v, r, th);
+  if (p.kind != kPrecessingDisc) return disc_hit<Metric, Policy>(p.kind, p.index, p.v, r, th);
   T th_p, ph_p;
   precessed(p.v, th, ph, th_p, ph_p);
-  return disc_hit<Metric>(p.inner, p.v, r, th_p);
+  return disc_hit<Metric, Policy>(p.inner, p.index, p.v, r, th_p);
 }
 
 // The geometry's crossing_indicator_c at (r, θ, φ): a part's, or a
 // composite's part of least |c|
-template <class Metric, typename T, class S>
+template <class Metric, class Policy, typename T, class S>
 __device__ __forceinline__ S indicator(const T* g, S r, S th, S ph) {
-  S best = part_indicator<Metric>(part(g, 0), r, th, ph);
+  S best = part_indicator<Metric, Policy>(part(g, 0), r, th, ph);
   const int n_parts = int(g[1]);
 #pragma unroll 1
   for (int k = 1; k < n_parts; ++k) {
-    const S c = part_indicator<Metric>(part(g, k), r, th, ph);
+    const S c = part_indicator<Metric, Policy>(part(g, k), r, th, ph);
     const T cv = fabs(value(c)), bv = fabs(value(best));
     if (bv == bv && (cv != cv || cv < bv)) best = c;
   }
@@ -207,26 +239,26 @@ __device__ __forceinline__ S indicator(const T* g, S r, S th, S ph) {
 // instantiation rather than inlined where the kernel reads it: the
 // indicator's value, its value and derivative along (dr, dθ, dφ) (the jvp
 // of pallas_solver.py:178-179), and the hit test.
-template <class Metric, typename T>
+template <class Metric, class Policy, typename T>
 __device__ __noinline__ T geometry_value(const T* g, T r, T th, T ph) {
-  return indicator<Metric>(g, r, th, ph);
+  return indicator<Metric, Policy>(g, r, th, ph);
 }
 
-template <class Metric, typename T>
+template <class Metric, class Policy, typename T>
 __device__ __noinline__ Dual1<T> geometry_jvp(const T* g, T r, T th, T ph, T dr, T dth, T dph) {
-  return indicator<Metric>(g, Dual1<T>{r, dr}, Dual1<T>{th, dth}, Dual1<T>{ph, dph});
+  return indicator<Metric, Policy>(g, Dual1<T>{r, dr}, Dual1<T>{th, dth}, Dual1<T>{ph, dph});
 }
 
 // The geometry's is_hit_c at (r, θ, φ)
-template <class Metric, typename T>
+template <class Metric, class Policy, typename T>
 __device__ __noinline__ bool geometry_hit(const T* g, T r, T th, T ph) {
-  if (int(g[0]) != kComposite) return part_hit<Metric>(part(g, 0), r, th, ph);
+  if (int(g[0]) != kComposite) return part_hit<Metric, Policy>(part(g, 0), r, th, ph);
   bool hit = false;
   const int n_parts = int(g[1]);
 #pragma unroll 1
   for (int k = 0; k < n_parts; ++k) {
     const Part<T> p = part(g, k);
-    hit = hit || (part_hit<Metric>(p, r, th, ph) && fabs(part_indicator<Metric>(p, r, th, ph)) < T(1e-6));
+    hit = hit || (part_hit<Metric, Policy>(p, r, th, ph) && fabs(part_indicator<Metric, Policy>(p, r, th, ph)) < T(1e-6));
   }
   return hit;
 }

@@ -34,6 +34,10 @@
 // CompositeGeometry, geometry.cuh) run its generic instantiation, which
 // evaluates the geometry's indicator with one-tangent dual numbers where the
 // TPU kernel takes its jvp, and interpolates phi for the events as well.
+// WarpedThinDisc and ThickDisc (kinds 8-9), whose cross-section is a user's
+// callable that the TPU kernel inlines into its trace, run the generic
+// instantiation built at first use with that callable compiled in
+// (callable.cuh, geometry/codegen.py).
 
 #pragma once
 
@@ -100,7 +104,7 @@ constexpr double BT1 = -0.00178001105222577714, BT2 = -0.0008164344596567469,
 template <typename T>
 struct Params {
   T M, a;
-  int geometry;  // 0 = none, 1 = ThinDisc, 2 = DatumPlane, 3-7 geometry.cuh
+  int geometry;  // 0 = none, 1 = ThinDisc, 2 = DatumPlane, 3-9 geometry.cuh
   T inner_r, outer_r;  // ThinDisc
   T height;            // DatumPlane
   T abstol, reltol;
@@ -118,9 +122,12 @@ struct DeformedParams : Params<T> {
 };
 
 // The generic instantiation's parameters: those and a geometry of kinds
-// 3-7, its block of kGeometryValues values on the device (geometry.cuh)
+// 3-9, its block of kGeometryValues values on the device (geometry.cuh),
+// and the Policy that holds the cross-sections of its parts of kinds 8-9:
+// none here, a generated one in CallableParams (callable.cuh).
 template <typename T>
 struct GenericParams : DeformedParams<T> {
+  using Policy = NoCallables;
   const T* geo;
 };
 
@@ -296,19 +303,19 @@ __device__ __forceinline__ bool sampled_crossing(const Modes& md, T c_prev, Cros
 
 // A generic geometry's hit test at an event's theta, on the step's Hermite
 // position (r, theta, phi).
-template <class Metric, typename T>
+template <class Metric, class Policy, typename T>
 __device__ __forceinline__ bool hit_at(const T* g, T theta, const T* y, const T* y_new,
                                        const T* f0, const T* f1, T dt) {
   T pos[4];
   hermite_pos<3>(theta, y, y_new, f0, f1, dt, pos);
-  return geometry_hit<Metric>(g, pos[1], pos[2], pos[3]);
+  return geometry_hit<Metric, Policy>(g, pos[1], pos[2], pos[3]);
 }
 
 // A generic geometry's indicator c at pos and its derivative dc along vel
 // (positions t, r, theta, phi)
-template <class Metric, typename T>
+template <class Metric, class Policy, typename T>
 __device__ __forceinline__ void generic_jvp(const T* g, const T* pos, const T* vel, T& c, T& dc) {
-  const Dual1<T> d = geometry_jvp<Metric>(g, pos[1], pos[2], pos[3], vel[1], vel[2], vel[3]);
+  const Dual1<T> d = geometry_jvp<Metric, Policy>(g, pos[1], pos[2], pos[3], vel[1], vel[2], vel[3]);
   c = d.v;
   dc = d.d;
 }
@@ -445,8 +452,9 @@ __device__ __forceinline__ T initial_dt(const P& p, const T* y, T* f0) {
 // registers) and 2 in f64 (255). Without the f32 minimum ptxas holds some
 // f32 instantiations under what they need, and Morris-Thorne's spills at 96
 // registers; with it none spills, and NoZ takes 131 registers (3 blocks an
-// SM, where 128 gave 4). kGeneric: the geometry is one of kinds 3-7, in
-// p.geo (P is GenericParams<T>); else the closed forms of kinds 0-2.
+// SM, where 128 gave 4). kGeneric: the geometry is one of kinds 3-9, in
+// p.geo (P is GenericParams<T> or CallableParams<T, Policy>, whose Policy
+// the geometry code reads); else the closed forms of kinds 0-2.
 template <typename T, class Metric, class P, bool kGeneric>
 __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
     geodesic_tsit5_kernel(P p, Modes md, Carry<T> in, const T* __restrict__ y0,
@@ -504,7 +512,7 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
     hit_th = T(0);
     if (disc) {
       if constexpr (kGeneric) {
-        generic_jvp<Metric>(p.geo, y, k1, c_prev, dc_prev);
+        generic_jvp<Metric, typename P::Policy>(p.geo, y, k1, c_prev, dc_prev);
       } else {
         crossing_jvp(p, y, k1, c_prev, dc_prev);
       }
@@ -545,7 +553,7 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
       } else {
         T c, dc;
         if constexpr (kGeneric) {
-          generic_jvp<Metric>(p.geo, y_new, y_new + 4, c, dc);
+          generic_jvp<Metric, typename P::Policy>(p.geo, y_new, y_new + 4, c, dc);
         } else {
           crossing_jvp(p, y_new, y_new + 4, c, dc);
         }
@@ -600,14 +608,14 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
       // on the cubic model of the indicator
       T c1v, dc1v, th_c;
       if constexpr (kGeneric) {
-        generic_jvp<Metric>(p.geo, y_new, k7, c1v, dc1v);
+        generic_jvp<Metric, typename P::Policy>(p.geo, y_new, k7, c1v, dc1v);
       } else {
         crossing_jvp(p, y_new, k7, c1v, dc1v);
       }
       const bool found =
           cubic_first_crossing(c_prev, dt_eff * dc_prev, c1v, dt_eff * dc1v, th_c);
       if constexpr (kGeneric) {
-        hit_now = found && hit_at<Metric>(p.geo, th_c, y, y_new, k1, k7, dt_eff);
+        hit_now = found && hit_at<Metric, typename P::Policy>(p.geo, th_c, y, y_new, k1, k7, dt_eff);
         if (hit_now) hit_th = th_c;
       } else if (found && p.geometry == kDatumPlane) {
         // every crossing of the plane is a hit (discs.py:173-174)
@@ -628,7 +636,7 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
         if constexpr (kGeneric) {
           T pos[4];
           hermite_pos<3>(t, y, y_new, k1, k7, dt_eff, pos);
-          return geometry_value<Metric>(p.geo, pos[1], pos[2], pos[3]);
+          return geometry_value<Metric, typename P::Policy>(p.geo, pos[1], pos[2], pos[3]);
         } else {
           T r, th;
           hermite_rth(t, y, y_new, k1, k7, dt_eff, r, th);
@@ -638,7 +646,7 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 3 : 2)
       T th_c, c_end;
       if (sampled_crossing(md, c_prev, c_at, th_c, c_end)) {
         if constexpr (kGeneric) {
-          hit_now = hit_at<Metric>(p.geo, th_c, y, y_new, k1, k7, dt_eff);
+          hit_now = hit_at<Metric, typename P::Policy>(p.geo, th_c, y, y_new, k1, k7, dt_eff);
         } else {
           hit_now = true;
           if (p.geometry != kDatumPlane) {
@@ -717,7 +725,8 @@ int launch_kernel(const P& p, const Launch<T>& l) {
   return int(cudaGetLastError());
 }
 
-// The generic instantiation of a metric, for kinds 3-7: declared here,
+// The generic instantiation of a metric, for kinds 3-7 (kinds 8-9 need a
+// generated Policy: callable.cuh): declared here,
 // defined in generic.cuh and instantiated by the geodesic_tsit5_generic_*.cu
 // files, so that each is compiled beside the others.
 template <typename T, class Metric>
@@ -728,6 +737,7 @@ int launch_generic(const GenericParams<T>& p, const Launch<T>& l);
 // struct P (Params<T> for Kerr, DeformedParams<T> for the others).
 template <typename T, class Metric, class P>
 int launch(const GenericParams<T>& p, const Launch<T>& l) {
+  if (p.geometry == kWarpedThinDisc || p.geometry == kThickDisc) return int(cudaErrorInvalidValue);
   if (p.geometry >= kGenericGeometry) return launch_generic<T, Metric>(p, l);
   return launch_kernel<T, Metric, P, false>(p, l);
 }

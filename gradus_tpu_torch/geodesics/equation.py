@@ -20,6 +20,7 @@ from gradus_tpu_torch.metrics.base import AbstractMetric
 
 __all__ = [
     "metric_jacobian",
+    "metric_jacobian5",
     "geodesic_equation",
     "geodesic_acceleration",
     "constrain_time",
@@ -49,6 +50,14 @@ def metric_jacobian(m: AbstractMetric, r, theta):
     g, dg_dr = torch.func.jvp(m.components, (r, theta), (ones, zeros))
     _, dg_dtheta = torch.func.jvp(m.components, (r, theta), (zeros, ones))
     return g, dg_dr, dg_dtheta
+
+
+def metric_jacobian5(m: AbstractMetric, r, theta):
+    """Component-tuple form of `metric_jacobian`: three 5-tuples of tensors
+    (values, ∂_r, ∂_θ), from the metric's own (possibly hand-derived)
+    `components5_jac`."""
+    r, theta = _float_rtheta(r, theta)
+    return m.components5_jac(r, theta)
 
 
 def metric_jacobian_r(m: AbstractMetric, r, theta):

@@ -22,6 +22,10 @@ __all__ = [
     "tetradframe_matrix",
     "lnrbasis",
     "lnrbasis_matrix",
+    "lnrframe",
+    "lnrframe_matrix",
+    "lowerindices",
+    "raiseindices",
 ]
 
 
@@ -109,3 +113,32 @@ def lnrbasis(m: AbstractMetric, x):
 
 def lnrbasis_matrix(m: AbstractMetric, x):
     return torch.stack(lnrbasis(m, x), dim=-1)
+
+
+def lnrframe(m: AbstractMetric, x):
+    """LNRF tetrad vectors (indices up): the zero-angular-momentum
+    observer's frame (Bardeen 1972; reference `lnrframe`,
+    orthonormalization.jl:108-115)."""
+    g = m.metric(x)
+    omega, alpha, g_rr, g_hh, g_pp, _ = _lnrf_quantities(g)
+    z = torch.zeros_like(alpha)
+    et = torch.stack([1.0 / alpha, z, z, omega / alpha], dim=-1)
+    er = torch.stack([z, 1.0 / torch.sqrt(g_rr), z, z], dim=-1)
+    eh = torch.stack([z, z, 1.0 / torch.sqrt(g_hh), z], dim=-1)
+    ep = torch.stack([z, z, z, 1.0 / torch.sqrt(g_pp)], dim=-1)
+    return et, er, eh, ep
+
+
+def lnrframe_matrix(m: AbstractMetric, x):
+    """Columns are the LNRF legs."""
+    return torch.stack(lnrframe(m, x), dim=-1)
+
+
+def lowerindices(m: AbstractMetric, x, v):
+    """g_{μν} v^ν at ``x``."""
+    return (m.metric(x) * v[..., None, :]).sum(dim=-1)
+
+
+def raiseindices(m: AbstractMetric, x, v):
+    """g^{μν} v_ν at ``x``."""
+    return (m.inverse_metric(x) * v[..., None, :]).sum(dim=-1)

@@ -1,0 +1,425 @@
+"""The cross-section of a `WarpedThinDisc` or a `ThickDisc`, a torch
+callable ``f(ρ)``, as a C++ device function for the integrator kernel
+(counterpart of the TPU kernel's trace, into which JAX inlines the
+callable: `gradus_tpu/integrate/pallas_solver.py:178-179`,
+`gradus_tpu/geometry/discs.py:73-77`).
+
+`cross_section_source` traces ``f`` with `torch.fx.symbolic_trace` and
+emits ``template <typename T, class S> S name(S rho)``, templated over the
+scalar: ``S`` is ``T`` for a value, ``Dual1<T>`` (csrc/dual.cuh) for the
+value and its tangent, which the kernel's events and polish read with
+jax.jvp's rules at the kinks. The ops it takes (`WHITELIST`):
+
+- arithmetic: ``+ - * /``, negation, ``pow`` with a number or a
+  ρ-expression as exponent (a Python int exponent as `lax.integer_pow`
+  does, by products), ``reciprocal``, ``square``;
+- functions: ``abs``, ``sqrt``, ``rsqrt``, ``exp``, ``log``, ``sin``,
+  ``cos``, ``tan``, ``tanh``, ``atan``, ``atan2``;
+- choices: ``minimum``, ``maximum``, ``clamp``/``clip`` with number bounds,
+  ``where`` on a comparison of ρ-expressions.
+
+Python and numpy numbers are literals, ``T(...)`` with 17 digits, so an f32
+kernel computes in f32. Any other op, a Python branch on ρ or ``math.*`` of
+ρ raises `NotImplementedError`; a captured tensor, of any shape, raises
+`ValueError` (the reference's refusal of captured constants). Both happen
+on the host, before any build or launch.
+
+`kernel_unit` writes the CUDA unit of a launch: the cross-sections of the
+geometry's parts, the Policy holding them (csrc/geometry.cuh), and the C
+entry point for the traced metric's class and the launch's dtype
+(csrc/callable.cuh); `_build.load_callable_library` builds it.
+"""
+
+from __future__ import annotations
+
+import math
+import numbers
+import operator
+import weakref
+from dataclasses import dataclass
+
+import torch
+import torch.fx
+
+__all__ = ["WHITELIST", "cross_section_source", "callable_parts", "kernel_unit", "KernelUnit"]
+
+# The C++ class of each kernel metric kind (csrc/tsit5.cuh, kMetric*)
+METRIC_CLASSES = (
+    "Kerr",
+    "DualRhs<Johannsen>",
+    "DualRhs<JohannsenPsaltis>",
+    "DualRhs<NoZ>",
+    "DualRhs<Bumblebee>",
+    "DualRhs<DilatonAxion>",
+    "DualRhs<KerrNewman>",
+    "DualRhs<MorrisThorne>",
+    "DualRhs<KerrRefractive>",
+    "DualRhs<KerrDarkMatter>",
+    "DualRhs<Spherical>",
+    "DualRhs<Cartesian>",
+)
+
+
+def _targets(name, *functions):
+    """The fx targets of an op: its torch functions and its method name."""
+    return [(f, name) for f in functions] + [(name, name)]
+
+
+# fx target (a function, or a method's name) -> the op's name
+_OPS = dict(
+    [
+        (operator.add, "add"),
+        (operator.sub, "sub"),
+        (operator.mul, "mul"),
+        (operator.truediv, "div"),
+        (operator.neg, "neg"),
+        (operator.pow, "pow"),
+        (operator.abs, "abs"),
+        (operator.gt, "gt"),
+        (operator.lt, "lt"),
+        (operator.ge, "ge"),
+        (operator.le, "le"),
+        (operator.eq, "eq"),
+        (operator.ne, "ne"),
+        ("true_divide", "div"),
+        ("negative", "neg"),
+        ("absolute", "abs"),
+        ("arctan", "atan"),
+        ("arctan2", "atan2"),
+        ("clip", "clamp"),
+        ("greater", "gt"),
+        ("less", "lt"),
+        ("greater_equal", "ge"),
+        ("less_equal", "le"),
+        ("not_equal", "ne"),
+    ]
+    + _targets("add", torch.add)
+    + _targets("sub", torch.sub, torch.subtract)
+    + _targets("mul", torch.mul, torch.multiply)
+    + _targets("div", torch.div, torch.true_divide, torch.divide)
+    + _targets("neg", torch.neg, torch.negative)
+    + _targets("pow", torch.pow)
+    + _targets("reciprocal", torch.reciprocal)
+    + _targets("square", torch.square)
+    + _targets("abs", torch.abs, torch.absolute)
+    + _targets("sqrt", torch.sqrt)
+    + _targets("rsqrt", torch.rsqrt)
+    + _targets("exp", torch.exp)
+    + _targets("log", torch.log)
+    + _targets("sin", torch.sin)
+    + _targets("cos", torch.cos)
+    + _targets("tan", torch.tan)
+    + _targets("tanh", torch.tanh)
+    + _targets("atan", torch.atan, torch.arctan)
+    + _targets("atan2", torch.atan2, torch.arctan2)
+    + _targets("minimum", torch.minimum)
+    + _targets("maximum", torch.maximum)
+    + _targets("clamp", torch.clamp, torch.clip)
+    + _targets("clamp_min", torch.clamp_min)
+    + _targets("clamp_max", torch.clamp_max)
+    + _targets("where", torch.where)
+    + _targets("gt", torch.gt, torch.greater)
+    + _targets("lt", torch.lt, torch.less)
+    + _targets("ge", torch.ge, torch.greater_equal)
+    + _targets("le", torch.le, torch.less_equal)
+    + _targets("eq", torch.eq)
+    + _targets("ne", torch.ne, torch.not_equal)
+)
+WHITELIST = tuple(sorted(set(_OPS.values())))
+
+# the device function of each op on one argument (dual.cuh, or the scalar's)
+_UNARY = dict(
+    abs="fabs",
+    sqrt="sqrt",
+    rsqrt="jrsqrt",
+    exp="exp",
+    log="log",
+    sin="sin",
+    cos="cos",
+    tan="tan",
+    tanh="tanh",
+    atan="atan",
+    square="jsquare",
+)
+_COMPARISONS = dict(gt=">", lt="<", ge=">=", le="<=", eq="==", ne="!=")
+_ARITY = dict(
+    add=2, sub=2, mul=2, div=2, pow=2, atan2=2, minimum=2, maximum=2, neg=1, reciprocal=1,
+    **{k: 1 for k in _UNARY}, **{k: 2 for k in _COMPARISONS},
+)  # fmt: skip
+
+
+def _literal(x):
+    """A Python or numpy number as the launch's scalar, 17 digits (a double
+    literal: -0.0 keeps its sign)."""
+    x = float(x)
+    if math.isnan(x):
+        return "T(NAN)"
+    if math.isinf(x):
+        return "T(INFINITY)" if x > 0 else "T(-INFINITY)"
+    text = f"{x:.17g}"
+    if text.lstrip("-").isdigit():
+        text += ".0"
+    return f"T({text})"
+
+
+def _is_number(x):
+    return isinstance(x, numbers.Real) and not isinstance(x, bool)
+
+
+def _dtype_name(t):
+    """torch.float64 as f64, torch.int32 as i32."""
+    return str(t.dtype).replace("torch.float", "f").replace("torch.int", "i")
+
+
+def _refuse(what):
+    raise NotImplementedError(
+        f"the CUDA integrator does not take {what} in a cross-section: it compiles the ops "
+        f"{', '.join(WHITELIST)} of ρ and numbers (trace_geodesics takes any torch callable)"
+    )
+
+
+def _trace(f):
+    try:
+        return torch.fx.symbolic_trace(f)
+    except torch.fx.proxy.TraceError as e:
+        _refuse(f"a Python branch on ρ ({e})")
+    except NotImplementedError:
+        raise
+    except Exception as e:  # noqa: BLE001 - any failure to trace is a refusal
+        _refuse(f"a callable that torch.fx cannot trace ({type(e).__name__}: {e})")
+
+
+def _captured(gm, graph):
+    """The captured tensors, as the reference names them (f64[11])."""
+    shapes = []
+    for node in graph.nodes:
+        if node.op == "get_attr":
+            t = getattr(gm, node.target)
+            dims = ",".join(str(d) for d in getattr(t, "shape", ()))
+            shapes.append(f"{_dtype_name(t)}[{dims}]" if isinstance(t, torch.Tensor) else repr(t))
+    return shapes
+
+
+def _op_name(node):
+    """The op's name, or None where it is not on the whitelist (a method is
+    looked up by its name, a function by itself: never by its name, so
+    math.sin is not torch.sin)."""
+    target = node.target
+    if (node.op == "call_method") != isinstance(target, str):
+        return None
+    try:
+        return _OPS.get(target)
+    except TypeError:
+        return None
+
+
+def _describe(node):
+    t = node.target
+    if node.op == "call_method":
+        return f"the method .{t}()"
+    module = getattr(t, "__module__", None) or ""
+    name = getattr(t, "__name__", repr(t))
+    if module == "math":
+        return f"math.{name} of ρ (write torch.{name})"
+    return f"{module + '.' if module else ''}{name}"
+
+
+_SOURCES = weakref.WeakKeyDictionary()
+
+
+def _body(f):
+    """The statements of ``f``'s device function (a list of lines), cached
+    by the callable, as the reference's trace is."""
+    try:
+        cached = _SOURCES.get(f)
+    except TypeError:
+        cached = None
+    if cached is not None:
+        return cached
+    gm = _trace(f)
+    graph = gm.graph
+    captured = _captured(gm, graph)
+    if captured:
+        raise ValueError(
+            f"the cross-section {f!r} captures constants {captured}: the integrator kernel takes "
+            "numbers only, as the reference's kernel does (pallas_solver.py:181); write them as "
+            "Python numbers, or trace it with trace_geodesics"
+        )
+    placeholders = [n for n in graph.nodes if n.op == "placeholder"]
+    if len(placeholders) != 1:
+        _refuse(f"a callable of {len(placeholders)} arguments (it takes ρ alone)")
+    names, kinds, lines = {placeholders[0]: "rho"}, {placeholders[0]: "S"}, []
+
+    def arg(a):
+        """(C++ expression, kind: 'S' a ρ-expression, 'B' a comparison, 'N' a number)."""
+        if isinstance(a, torch.fx.Node):
+            return names[a], kinds[a]
+        if _is_number(a):
+            return _literal(a), "N"
+        _refuse(f"an argument {a!r}")
+
+    def value_of(a):
+        expr, kind = arg(a)
+        if kind == "B":
+            _refuse("a comparison used as a number")
+        return expr, kind
+
+    def as_s(a):
+        expr, kind = value_of(a)
+        return expr if kind == "S" else f"S{{{expr}}}"
+
+    for i, node in enumerate(graph.nodes):
+        if node.op in ("placeholder", "output"):
+            continue
+        if node.op not in ("call_function", "call_method"):
+            _refuse(f"a {node.op} node ({node.target})")
+        op = _op_name(node)
+        if op is None:
+            _refuse(_describe(node))
+        args, kw = list(node.args), dict(node.kwargs)
+        if op in ("clamp", "clamp_min", "clamp_max"):
+            if op == "clamp_max":
+                lo, hi = None, args[1] if len(args) > 1 else kw.pop("max", None)
+            else:
+                lo = args[1] if len(args) > 1 else kw.pop("min", None)
+                hi = args[2] if len(args) > 2 else kw.pop("max", None)
+            if kw or not all(b is None or _is_number(b) for b in (lo, hi)):
+                _refuse(f"{op} with bounds other than numbers")
+            expr, _ = value_of(args[0])
+            if lo is not None:
+                expr = f"jmax({expr}, {_literal(lo)})"
+            if hi is not None:
+                expr = f"jmin({expr}, {_literal(hi)})"
+            kind = "S"
+        elif op == "where":
+            if node.op == "call_method":  # x.where(cond, other)
+                args = [args[1], args[0], args[2]] if len(args) == 3 else args
+            if kw or len(args) != 3 or arg(args[0])[1] != "B":
+                _refuse("where other than on a comparison of ρ-expressions, with both branches")
+            expr, kind = f"select({arg(args[0])[0]}, {as_s(args[1])}, {as_s(args[2])})", "S"
+        else:
+            if kw or len(args) != _ARITY[op]:
+                _refuse(f"{op} with arguments {node.args} {node.kwargs}")
+            if op in _COMPARISONS:
+                a, b = (e if k == "N" else f"value({e})" for e, k in map(value_of, args))
+                expr, kind = f"{a} {_COMPARISONS[op]} {b}", "B"
+            elif op == "neg":
+                expr, kind = f"-{value_of(args[0])[0]}", "S"
+            elif op == "reciprocal":
+                expr, kind = f"ipow({value_of(args[0])[0]}, -1)", "S"
+            elif op in _UNARY:
+                expr, kind = f"{_UNARY[op]}({value_of(args[0])[0]})", "S"
+            elif op == "pow":
+                (a, ka), y = value_of(args[0]), args[1]
+                if ka == "S" and isinstance(y, numbers.Integral) and not isinstance(y, bool):
+                    expr = f"ipow({a}, {int(y)})"
+                else:
+                    expr = f"jpow({a}, {value_of(y)[0]})"
+                kind = "S"
+            else:
+                (a, _), (b, _) = value_of(args[0]), value_of(args[1])
+                expr = {
+                    "add": f"{a} + {b}",
+                    "sub": f"{a} - {b}",
+                    "mul": f"{a} * {b}",
+                    "div": f"jdiv({a}, {b})",
+                    "atan2": f"jatan2({a}, {b})",
+                    "minimum": f"jmin({a}, {b})",
+                    "maximum": f"jmax({a}, {b})",
+                }[op]
+                kind = "S"
+        name = f"v{i}"
+        names[node], kinds[node] = name, kind
+        lines.append(f"  const {'bool' if kind == 'B' else 'S'} {name} = {expr};")
+    (out,) = (n for n in graph.nodes if n.op == "output")
+    result = out.args[0]
+    if isinstance(result, (tuple, list)):
+        _refuse("a callable of several outputs")
+    lines.append(f"  return {as_s(result)};")
+    try:
+        _SOURCES[f] = lines
+    except TypeError:
+        pass
+    return lines
+
+
+def cross_section_source(f, name="h_0"):
+    """The device function ``name`` that computes ``f(ρ)``: its text."""
+    body = _body(f)
+    return (
+        f"// {getattr(f, '__qualname__', type(f).__name__)}\n"
+        "template <typename T, class S>\n"
+        f"__device__ __forceinline__ S {name}(S rho) {{\n" + "\n".join(body) + "\n}\n"
+    )
+
+
+def callable_parts(geometry):
+    """[(part index, cross-section)] of a geometry's parts of kinds 8-9 (a
+    `WarpedThinDisc` or `ThickDisc`, alone, precessed or in a
+    `CompositeGeometry`), in the part order of the kernel's block."""
+    from gradus_tpu_torch.geometry.discs import CompositeGeometry, PrecessingDisc, ThickDisc, WarpedThinDisc
+
+    if geometry is None:
+        return []
+    parts = list(geometry.geometries) if isinstance(geometry, CompositeGeometry) else [geometry]
+    out = []
+    for k, g in enumerate(parts):
+        g = g.disc if type(g) is PrecessingDisc else g
+        if type(g) in (WarpedThinDisc, ThickDisc):
+            out.append((k, g.f))
+    return out
+
+
+@dataclass(frozen=True)
+class KernelUnit:
+    """The generated CUDA unit of a launch: ``body`` (the cross-sections and
+    their Policy), and ``source``, the body and the C entry point ``entry``
+    for the launch's scalar and the metric class ``metric`` of kind
+    ``metric_kind``."""
+
+    body: str
+    source: str
+    entry: str
+    metric: str
+    metric_kind: int
+
+    def launch(self, scalar):
+        """The unit's launch function for the scalar type ``scalar``."""
+        return _launch(scalar, self.metric, self.metric_kind)
+
+
+def _launch(scalar, metric, metric_kind):
+    return f"(gradus::launch_callable<{scalar}, gradus::{metric}, gradus::generated::CrossSections, {metric_kind}>)"
+
+
+def kernel_unit(metric_kind, geometry, dtype):
+    """The unit for a launch of the kernel against ``geometry`` with metric
+    kind ``metric_kind`` in ``dtype``, or None when the geometry has no
+    cross-section callable. Raises as `cross_section_source` does."""
+    parts = callable_parts(geometry)
+    if not parts:
+        return None
+    functions = "".join(cross_section_source(f, f"h_{k}") for k, f in parts)
+    cases = "".join(f"      case {k}: return h_{k}<T>(rho);\n" for k, _ in parts)
+    body = (
+        "// Generated by gradus_tpu_torch/geometry/codegen.py: the cross-sections of\n"
+        f"// a {type(geometry).__name__}'s parts {[k for k, _ in parts]}, compiled into the\n"
+        "// integrator kernel (csrc/callable.cuh).\n"
+        '#include "callable.cuh"\n\n'
+        "namespace gradus {\nnamespace generated {\n\n"
+        f"{functions}\n"
+        "struct CrossSections {\n"
+        "  static constexpr bool kCallables = true;\n"
+        "  template <typename T, class S>\n"
+        "  static __device__ __forceinline__ S cross_section(int k, S rho) {\n"
+        "    switch (k) {\n"
+        f"{cases}"
+        "      default: return S{T(NAN)};\n"
+        "    }\n  }\n};\n\n"
+        "}  // namespace generated\n}  // namespace gradus\n"
+    )
+    f64 = dtype == torch.float64
+    entry, scalar = ("geodesic_tsit5_f64", "double") if f64 else ("geodesic_tsit5_f32", "float")
+    metric = METRIC_CLASSES[metric_kind]
+    source = body + f"\nGEODESIC_TSIT5_ENTRY({entry}, {scalar}, {_launch(scalar, metric, metric_kind)})\n"
+    return KernelUnit(body, source, entry, metric, metric_kind)

@@ -22,7 +22,9 @@ Tsit5, RMS error norm, log-space PI controller, cubic-Hermite or sampled
 crossing events against no geometry, a `ThinDisc` or a `DatumPlane` of one
 height, or the geometries of `_KERNEL_GEOMETRIES` beside them
 (`csrc/geometry.cuh`: their indicators' slopes with jax.jvp's rules at
-kinks, the events interpolating φ too), chart exits at step end, hit rays that do not commit their step (or,
+kinks, the events interpolating φ too; a `WarpedThinDisc`'s or
+`ThickDisc`'s cross-section callable compiled into a kernel built at its
+first use, `geometry/codegen.py`), chart exits at step end, hit rays that do not commit their step (or,
 with ``terminate_on_hit=False``, crossings counted and the flight going on),
 and a resumable carry. Divergences: a ray that is done keeps its outputs,
 where the TPU kernel's lockstep tile kept rewriting the finished rays'
@@ -42,6 +44,7 @@ import torch
 
 from gradus_tpu_torch import config as _config
 from gradus_tpu_torch.geodesics.equation import constrain_all, geodesic_acceleration
+from gradus_tpu_torch.geometry import codegen
 from gradus_tpu_torch.geometry.discs import (
     CompositeGeometry,
     DatumPlane,
@@ -495,8 +498,10 @@ _KERNEL_GEOMETRIES = {
     PolishDoughnut: 5,
     PrecessingDisc: 6,
     CompositeGeometry: 7,
+    WarpedThinDisc: 8,
+    ThickDisc: 9,
 }
-_PRECESSED = (ThinDisc, ShakuraSunyaev, EllipticalDisc, PolishDoughnut)
+_PRECESSED = (ThinDisc, DatumPlane, ShakuraSunyaev, EllipticalDisc, PolishDoughnut, WarpedThinDisc, ThickDisc)
 _MAX_PARTS = 4
 _PART_VALUES = 20
 _GEOMETRY_VALUES = 2 + _MAX_PARTS * (2 + _PART_VALUES)
@@ -506,12 +511,6 @@ def _check_geometry(m, g, composite_ok=True):
     """Raises `NotImplementedError` unless the kernel takes the geometry
     ``g`` (a part of a CompositeGeometry when not ``composite_ok``)."""
     kind = type(g)
-    if kind in (WarpedThinDisc, ThickDisc):
-        raise NotImplementedError(
-            f"the CUDA integrator does not take a {kind.__name__}: its cross-section is a Python "
-            "callable, which the TPU kernel inlines into its trace and nvcc-built code cannot "
-            "(ROADMAP queue B); trace_geodesics takes it"
-        )
     if kind is PolishDoughnutFW or (kind is DatumPlane and g.height.dim() != 0):
         what = "a PolishDoughnutFW" if kind is PolishDoughnutFW else "a DatumPlane of per-ray heights"
         raise NotImplementedError(
@@ -522,8 +521,9 @@ def _check_geometry(m, g, composite_ok=True):
     if kind not in _KERNEL_GEOMETRIES or (kind is CompositeGeometry and not composite_ok):
         raise NotImplementedError(
             "the CUDA integrator takes no geometry, ThinDisc, DatumPlane, ShakuraSunyaev, "
-            "EllipticalDisc, PolishDoughnut, PrecessingDisc or a CompositeGeometry of up to "
-            f"{_MAX_PARTS} of the others, not {kind.__name__} here; trace_geodesics takes every geometry"
+            "EllipticalDisc, PolishDoughnut, WarpedThinDisc, ThickDisc, PrecessingDisc or a "
+            f"CompositeGeometry of up to {_MAX_PARTS} of the others, not {kind.__name__} here; "
+            "trace_geodesics takes every geometry"
         )
     if kind is PolishDoughnut and g.metric is not None and type(g.metric) is not type(m):
         raise NotImplementedError(
@@ -533,8 +533,8 @@ def _check_geometry(m, g, composite_ok=True):
     if kind is PrecessingDisc:
         if type(g.disc) not in _PRECESSED:
             raise NotImplementedError(
-                "the CUDA integrator takes a PrecessingDisc of a ThinDisc, ShakuraSunyaev, "
-                f"EllipticalDisc or PolishDoughnut, not of a {type(g.disc).__name__}"
+                "the CUDA integrator takes a PrecessingDisc of a ThinDisc, DatumPlane, ShakuraSunyaev, "
+                f"EllipticalDisc, PolishDoughnut, WarpedThinDisc or ThickDisc, not of a {type(g.disc).__name__}"
             )
         _check_geometry(m, g.disc, False)
     if kind is CompositeGeometry:
@@ -556,6 +556,13 @@ def _check_kernel_config(m, geometry, dtype):
         _check_geometry(m, geometry)
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"the CUDA integrator takes f32 or f64, not {dtype}")
+    _kernel_unit(m, geometry, dtype)  # traces the cross-sections: raises for what it cannot compile
+
+
+def _kernel_unit(m, geometry, dtype):
+    """The generated unit of a launch against a geometry with cross-section
+    callables (`geometry.codegen.kernel_unit`), else None."""
+    return codegen.kernel_unit(_KERNEL_METRICS[type(m)][0], geometry, dtype)
 
 
 def _part_values(g):
@@ -566,6 +573,10 @@ def _part_values(g):
         return [g.inner_r, g.outer_r]
     if type(g) is DatumPlane:
         return [g.height]
+    if type(g) is WarpedThinDisc:
+        return [g.inner_r, g.outer_r]
+    if type(g) is ThickDisc:
+        return []
     if type(g) is ShakuraSunyaev:
         return [3.0 * g.inv_eta * g.mdot_over_edd, g.inner_r]
     if type(g) is EllipticalDisc:
@@ -606,12 +617,16 @@ def _geometry_args(geometry):
 
 def _launch_kernel(m, y0, lam_span, geometry, kw):
     global KERNEL_LAUNCHES
-    from gradus_tpu_torch._build import load_library
+    from gradus_tpu_torch._build import load_callable_library, load_library
 
     if y0.dim() != 2 or y0.shape[1] != 8:
         raise ValueError(f"y0 must be (N, 8), got {tuple(y0.shape)}")
-    lib = load_library()
-    fn = lib.geodesic_tsit5_f64 if y0.dtype == torch.float64 else lib.geodesic_tsit5_f32
+    unit = _kernel_unit(m, geometry, y0.dtype)
+    if unit is None:
+        lib = load_library()
+        fn = lib.geodesic_tsit5_f64 if y0.dtype == torch.float64 else lib.geodesic_tsit5_f32
+    else:
+        fn = getattr(load_callable_library(unit), unit.entry)
     n = y0.shape[0]
     y0t = y0.t().contiguous()
     ints = dict(dtype=torch.int32, device=y0.device)

@@ -1,4 +1,11 @@
-from gradus_tpu_torch.metrics.base import AbstractMetric, unpack_rtheta
+from gradus_tpu_torch.metrics.base import (
+    AbstractMetric,
+    inner_radius,
+    inverse_metric_components,
+    metric_4x4,
+    metric_components,
+    unpack_rtheta,
+)
 from gradus_tpu_torch.metrics.deformed import (
     BumblebeeMetric,
     DilatonAxion,
@@ -7,7 +14,7 @@ from gradus_tpu_torch.metrics.deformed import (
     NoZMetric,
 )
 from gradus_tpu_torch.metrics.exotic import KerrDarkMatter, KerrRefractive, MorrisThorneWormhole
-from gradus_tpu_torch.metrics.kerr import KerrMetric, SchwarzschildMetric, kerr_isco
+from gradus_tpu_torch.metrics.kerr import KerrMetric, SchwarzschildMetric, convert_angles, kerr_isco
 from gradus_tpu_torch.metrics.kerr_first_order import (
     KerrSpacetimeFirstOrder,
     carter_constants,

@@ -13,7 +13,14 @@ from torch import nn
 from gradus_tpu_torch.config import default_device
 from gradus_tpu_torch.utils.linalg import sym4x4, sym4x4_inverse_components
 
-__all__ = ["AbstractMetric", "unpack_rtheta"]
+__all__ = [
+    "AbstractMetric",
+    "unpack_rtheta",
+    "metric_components",
+    "metric_4x4",
+    "inverse_metric_components",
+    "inner_radius",
+]
 
 
 class AbstractMetric(nn.Module):
@@ -243,3 +250,29 @@ def unpack_rtheta(x):
     if x.shape[-1] == 2:
         return x[..., 0], x[..., 1]
     return x[..., 1], x[..., 2]
+
+
+# --- functional API (the reference's names) -----------------------------------
+
+
+def metric_components(m: AbstractMetric, rtheta):
+    """The 5 covariant components at an (r, θ) pair or a 4-position."""
+    r, theta = unpack_rtheta(rtheta)
+    return m.components(r, theta)
+
+
+def metric_4x4(m: AbstractMetric, x):
+    return m.metric(x)
+
+
+def inverse_metric_components(m_or_comps, rtheta=None):
+    """The 5 inverse components: of a metric at ``rtheta``, or of the
+    covariant components ``m_or_comps`` when ``rtheta`` is None."""
+    if rtheta is None:
+        return sym4x4_inverse_components(m_or_comps)
+    r, theta = unpack_rtheta(rtheta)
+    return m_or_comps.inverse_components(r, theta)
+
+
+def inner_radius(m: AbstractMetric):
+    return m.inner_radius()

@@ -8,7 +8,7 @@ import torch
 
 from gradus_tpu_torch.metrics.base import AbstractMetric
 
-__all__ = ["KerrMetric", "SchwarzschildMetric", "kerr_isco"]
+__all__ = ["KerrMetric", "SchwarzschildMetric", "kerr_isco", "convert_angles"]
 
 
 class KerrMetric(AbstractMetric):
@@ -115,3 +115,20 @@ def kerr_isco(M, a):
     return M * (
         3.0 + z2 - torch.sign(x + 1e-300) * torch.sqrt((3.0 - z1) * (3.0 + z1 + 2.0 * z2))
     )
+
+
+def convert_angles(a, r, theta, phi, theta_obs, phi_obs):
+    """Map a global direction at (r, θ, φ) onto the local sky of an observer
+    at (θ_obs, φ_obs), for disc-profile models (reference
+    `src/metrics/kerr-metric.jl:75-87`). Tensors, or numbers as f64."""
+    a, r, theta, phi, theta_obs, phi_obs = (
+        v if isinstance(v, torch.Tensor) else torch.as_tensor(v, dtype=torch.float64)
+        for v in (a, r, theta, phi, theta_obs, phi_obs)
+    )
+    dphi = phi - phi_obs
+    R = torch.sqrt(r * r + a * a)
+    o1 = r * R * torch.sin(theta) * torch.sin(theta_obs) * torch.cos(dphi) + R * R * torch.cos(theta) * torch.cos(theta_obs)
+    o2 = R * torch.cos(theta) * torch.sin(theta_obs) * torch.cos(dphi) - r * torch.sin(theta) * torch.cos(theta_obs)
+    o3 = torch.sin(theta_obs) * torch.sin(dphi) / torch.sin(theta)
+    sigma = r * r + a * a * torch.cos(theta) ** 2
+    return -o1 / sigma, -o2 / sigma, o3 / R

@@ -81,12 +81,15 @@ inline Counted cos(Counted a) { ++op_counts[4]; return std::cos(a.x); }
 inline Counted log(Counted a) { ++op_counts[4]; return std::log(a.x); }
 inline Counted exp(Counted a) { ++op_counts[4]; return std::exp(a.x); }
 inline Counted atan(Counted a) { ++op_counts[4]; return std::atan(a.x); }
+inline Counted tan(Counted a) { ++op_counts[4]; return std::tan(a.x); }
+inline Counted tanh(Counted a) { ++op_counts[4]; return std::tanh(a.x); }
 inline Counted atan2(Counted a, Counted b) { ++op_counts[4]; return std::atan2(a.x, b.x); }
 inline Counted pow(Counted a, Counted b) { ++op_counts[4]; return std::pow(a.x, b.x); }
 inline Counted fabs(Counted a) { return std::fabs(a.x); }
 inline bool isfinite(Counted a) { return std::isfinite(a.x); }
 using std::sin; using std::cos; using std::sqrt; using std::fabs; using std::log;
 using std::exp; using std::pow; using std::isfinite; using std::atan; using std::atan2;
+using std::tan; using std::tanh;
 """
 
 _HARNESS = r"""
@@ -109,11 +112,11 @@ extern "C" int count_ops(const double* y0, int64_t n, int metric, double M, doub
       i4[2].data()};
   std::vector<Counted> g(geo, geo + (geo != nullptr ? gradus::kGeometryValues : 0));
   for (auto& c : op_counts) c = 0;
-  const int rc = gradus::launch_metric<Counted>(
+  const int rc = gradus::launch_entry<Counted>(
       y.data(), n, metric, M, a, q, geometry, inner_r, outer_r, height,
       geo != nullptr ? g.data() : nullptr, abstol,
       reltol, r_inner, r_outer, lam0, lam1, max_steps, dt_min, modes, nullptr, out,
-      nullptr);
+      nullptr, HARNESS_LAUNCH);
   for (int k = 0; k < 5; ++k) counts[k] = op_counts[k];
   return rc;
 }
@@ -166,10 +169,52 @@ def host_library() -> ctypes.CDLL:
     return so
 
 
-def build() -> ctypes.CDLL:
-    """Build the counting library from the sources of `csrc/` and load it."""
-    includes = _host_sources()
-    so = ctypes.CDLL(str(_gxx(_HARNESS.replace("HARNESS_INCLUDES", includes), "opcount", "-O1")))
+def host_callable_library(unit) -> ctypes.CDLL:
+    """A generated unit (`geometry.codegen.kernel_unit`) built for the host
+    as `host_library` builds the library, with its C entry point; placed in
+    ``_build._callable_libs`` under its key, `_launch_kernel` runs it on
+    CPU tensors (with `torch.cuda.device`/`current_stream` stubbed)."""
+    from gradus_tpu_torch import _build
+
+    _host_sources()
+    so = ctypes.CDLL(str(_gxx(unit.source, f"host_callable_{_build.callable_key(unit.source)}", "-O2")))
+    _build._declare(so, (unit.entry,))
+    return so
+
+
+def host_cross_sections(functions) -> ctypes.CDLL:
+    """The device functions that `geometry.codegen` generates from the torch
+    callables ``functions``, built for the host (g++) with, for each k, a C
+    function ``cross_section_<k>(x, t, n, value, tangent, scalar)`` over n
+    doubles: the value and tangent of the function at x along t (its
+    ``Dual1<double>`` instantiation) and its value alone (its ``double``
+    one)."""
+    from gradus_tpu_torch.geometry import codegen
+
+    _host_sources()
+    parts = ["#include \"dual.cuh\"\n#include <cstdint>\nnamespace gradus {\n"]
+    for k, f in enumerate(functions):
+        parts.append(codegen.cross_section_source(f, f"h_{k}"))
+        parts.append(
+            f'extern "C" void cross_section_{k}(const double* x, const double* t, int64_t n, double* v, double* d, double* s) {{\n'
+            f"  for (int64_t i = 0; i < n; ++i) {{\n"
+            f"    const Dual1<double> r = h_{k}<double>(Dual1<double>{{x[i], t[i]}});\n"
+            f"    v[i] = r.v;\n    d[i] = r.d;\n    s[i] = h_{k}<double>(x[i]);\n  }}\n}}\n"
+        )
+    parts.append("}  // namespace gradus\n")
+    source = "".join(parts)
+    import hashlib
+
+    so = ctypes.CDLL(str(_gxx(source, f"cross_sections_{hashlib.sha256(source.encode()).hexdigest()[:16]}", "-O2")))
+    vp = ctypes.c_void_p
+    for k in range(len(functions)):
+        fn = getattr(so, f"cross_section_{k}")
+        fn.argtypes = [vp, vp, ctypes.c_int64, vp, vp, vp]
+        fn.restype = None
+    return so
+
+
+def _declare_counting(so):
     vp, dbl, i32, i64 = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int64
     so.count_ops.argtypes = [
         vp, i64, i32, dbl, dbl, ctypes.POINTER(dbl), i32, dbl, dbl, dbl, ctypes.POINTER(dbl),
@@ -177,6 +222,20 @@ def build() -> ctypes.CDLL:
     ]
     so.count_ops.restype = ctypes.c_int
     return so
+
+
+def build(unit=None) -> ctypes.CDLL:
+    """Build the counting library from the sources of `csrc/` and load it;
+    with a generated ``unit``, from the unit's cross-sections (its launch
+    instantiated with the counting scalar)."""
+    includes = _host_sources()
+    if unit is None:
+        harness = _HARNESS.replace("HARNESS_INCLUDES", includes).replace("HARNESS_LAUNCH", "gradus::launch_metric<Counted>")
+        return _declare_counting(ctypes.CDLL(str(_gxx(harness, "opcount", "-O1"))))
+    from gradus_tpu_torch import _build
+
+    harness = _HARNESS.replace("HARNESS_INCLUDES", unit.body).replace("HARNESS_LAUNCH", unit.launch("Counted"))
+    return _declare_counting(ctypes.CDLL(str(_gxx(harness, f"opcount_{_build.callable_key(unit.source)}", "-O1"))))
 
 
 def _rays(m, x_obs, alpha, beta, tracer):
@@ -254,9 +313,28 @@ def _generic_cases(m):
     )
 
 
+def _callable_cases(m):
+    """(name, geometry, tracer keywords) of chip_smoke.py's cross-section
+    callables (`CALLABLE_KINDS`), as it builds them."""
+    from gradus_tpu_torch import geometry as G
+
+    cpu = dict(device="cpu")
+    ss = G.ShakuraSunyaev.from_metric(m, 0.3)
+    h0, r_in = float(3.0 * ss.inv_eta * ss.mdot_over_edd), float(ss.inner_r)
+    warp = G.WarpedThinDisc(lambda rho: 2.0 * torch.sin(rho / 10.0), 0.0, 100.0, **cpu)
+    thick_ss = G.ThickDisc(lambda rho: torch.where(rho < r_in, -0.0, h0 * (1.0 - torch.sqrt(r_in / rho.clamp(min=1e-12)))), **cpu)
+    return (
+        ("warped", warp, {}),
+        ("thick_shakura_sunyaev", thick_ss, {}),
+        ("precessing_warped", G.PrecessingDisc(warp, 0.17, 0.5, **cpu), {}),
+        ("composite_callable", G.CompositeGeometry([G.ThinDisc(0.0, 20.0, **cpu), G.ThickDisc(lambda rho: 0.1 * rho - 2.0, **cpu)]), {}),
+        ("precessing_datum", G.PrecessingDisc(G.DatumPlane(1.0, **cpu), 0.1, 0.2, **cpu), {}),
+    )
+
+
 def main(n: int = 512):
     from gradus_tpu_torch.geometry import DatumPlane, ThinDisc
-    from gradus_tpu_torch.integrate.cuda_solver import CudaTracer
+    from gradus_tpu_torch.integrate.cuda_solver import CudaTracer, _kernel_unit
     from gradus_tpu_torch.metrics import JohannsenPsaltisMetric, KerrMetric, KerrNewmanMetric
 
     so = build()
@@ -288,7 +366,7 @@ def main(n: int = 512):
         ),
         *(
             (f"kerr_{kind}", KerrMetric(1.0, 0.998, **cpu), geometry, flagship, (alpha, beta), (0.0, 2200.0), tkw)
-            for kind, geometry, tkw in _generic_cases(KerrMetric(1.0, 0.998, **cpu))
+            for kind, geometry, tkw in _generic_cases(KerrMetric(1.0, 0.998, **cpu)) + _callable_cases(KerrMetric(1.0, 0.998, **cpu))
         ),
         (
             "kerr_datum_plane",
@@ -301,7 +379,8 @@ def main(n: int = 512):
         ),
     ):
         y0 = _rays(m, x_obs, a_, b_, CudaTracer(m, geometry=d, **tkw))
-        out[name] = count(so, m, d, y0, span, **tkw)
+        unit = _kernel_unit(m, d, torch.float64)
+        out[name] = count(so if unit is None else build(unit), m, d, y0, span, **tkw)
     print(json.dumps(out, indent=1))
     return out
 

@@ -26,6 +26,12 @@ batch) and ``x_alone`` and ``lam_max_alone`` (ray by ray).
 
 Each case takes 20–25 s on one core (a batch and 64 single rays, each
 compiled once); the cases run one after another (~2.5 minutes).
+
+``--callables`` traces the cases of `CALLABLE_CASES` instead, the discs
+whose cross-section is a callable (tests/test_torch_kernel_callables.py),
+and adds them to the file beside the others under ``callable_specs``: their
+``f`` is a name of `CALLABLES`, which builds the same function from
+jax.numpy or torch.
 """
 
 from __future__ import annotations
@@ -61,6 +67,16 @@ PINNED = {
     "doughnut": (("PolishDoughnut", {**DOUGHNUT, "metric": None}), "cubic"),
     "doughnut_kerr": (("PolishDoughnut", {**DOUGHNUT, "metric": KERR}), "cubic"),
 }
+# The cross-sections of the callable cases, by name: each built from an
+# array module (jax.numpy or torch), so both packages trace the same function.
+CALLABLES = {
+    "warp_docs": lambda xp: lambda rho: 2.0 * xp.sin(rho / 10.0),  # docs/examples.md
+    "thick_line": lambda xp: lambda rho: rho - 10.0,
+}
+CALLABLE_CASES = {
+    "warped": (("WarpedThinDisc", {"f": "warp_docs", "inner_r": 0.0, "outer_r": 100.0}), "cubic"),
+    "thick": (("ThickDisc", {"f": "thick_line", "inner_r": 0.0, "outer_r": math.inf}), "cubic"),
+}
 OUT = Path(__file__).resolve().parent.parent / "tests" / "data" / "kernel_geometries_reference.npz"
 
 
@@ -90,8 +106,12 @@ def jax_geometry(spec, jm):
     import gradus_tpu.geometry as G
     from gradus_tpu.metrics import KerrMetric
 
+    import jax.numpy as jnp
+
     kind, params = spec
     params = dict(params)
+    if isinstance(params.get("f"), str):
+        params["f"] = CALLABLES[params["f"]](jnp)
     if "disc" in params:
         params["disc"] = jax_geometry(params["disc"], jm)
     if "geometries" in params:
@@ -129,14 +149,25 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cases", default=",".join(PINNED))
+    ap.add_argument("--cases", default=None)
+    ap.add_argument("--callables", action="store_true")
     ap.add_argument("--out", default=str(OUT))
     args = ap.parse_args()
+    cases = CALLABLE_CASES if args.callables else PINNED
     alpha, beta = offsets()
     arrays = dict(alpha=alpha, beta=beta)
     specs = {}
-    for case in args.cases.split(","):
-        spec, method = PINNED[case]
+    if Path(args.out).exists():
+        # the other group of cases stays as it is
+        other = PINNED if args.callables else CALLABLE_CASES
+        with np.load(args.out) as old:
+            arrays = {k: old[k] for k in old.files if k.startswith(tuple(f"{c}/" for c in other))}
+            arrays.update({k: old[k] for k in ("alpha", "beta", "specs" if args.callables else "callable_specs") if k in old.files})
+        if arrays and not (np.array_equal(arrays["alpha"], alpha) and np.array_equal(arrays["beta"], beta)):
+            raise AssertionError("the pinned file's rays are not these")
+        arrays.update(alpha=alpha, beta=beta)
+    for case in (args.cases or ",".join(cases)).split(","):
+        spec, method = cases[case]
         spec = spec_numbers(spec)
         t0 = time.perf_counter()
         status, x, lam = jax_trace(spec, method, alpha, beta)
@@ -147,7 +178,11 @@ def main():
         specs[case] = dict(geometry=spec, event_method=method)
         arrays.update({f"{case}/status": status, f"{case}/x": x, f"{case}/lam_max": lam})
         arrays.update({f"{case}/x_alone": x_alone, f"{case}/lam_max_alone": lam_alone})
-    np.savez(args.out, specs=json.dumps(specs), **arrays)
+    if args.callables:
+        arrays["callable_specs"] = json.dumps(specs)
+    else:
+        arrays["specs"] = json.dumps(specs)
+    np.savez(args.out, **arrays)
 
 
 if __name__ == "__main__":

@@ -8,25 +8,25 @@ and their tolerances are those of tests/test_torch_ctf_e2e.py.
 
 Configuration: JohannsenPsaltisMetric(1, 0.6, ε₃=2), i=60°, ThinDisc(0, ∞),
 radii (4, 8), N=10, N_extrema=4, Ng=16.
+
+The JAX package's side (its interpret-mode Pallas transfer functions, ~235 s
+on one core, and the line profile over them) is pinned in
+tests/data/jax_reference_ctf_e2e_deformed.npz by
+scripts/torch_slow_tests_reference.py (``--part ctf_e2e_deformed``), at
+this module's inputs.
 """
 
 import importlib
 import math
+import sys
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
-
-import jax.numpy as jnp  # noqa: E402
-
-from gradus_tpu.geometry import ThinDisc as JaxThinDisc  # noqa: E402
-from gradus_tpu.metrics import JohannsenPsaltisMetric as JaxJP  # noqa: E402
-from gradus_tpu.transfer.cunningham import (  # noqa: E402
-    cunningham_transfer_function as jax_ctf,
-)
-from gradus_tpu.transfer.integration import integrate_lineprofile as jax_integrate  # noqa: E402
 
 from gradus_tpu_torch.geometry import ThinDisc  # noqa: E402
 from gradus_tpu_torch.integrate import cuda_solver  # noqa: E402
@@ -49,17 +49,18 @@ def _emissivity(r):
     return r**-3.0
 
 
+def _jax_reference():
+    """The JAX package's grid and flux at this module's inputs, pinned."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+    from torch_slow_tests_reference import load
+
+    return load("ctf_e2e_deformed")
+
+
 @pytest.fixture(scope="module")
 def jax_grid():
-    return jax_ctf(
-        JaxJP(M=1.0, a=A_SPIN, eps3=EPS3),
-        jnp.asarray(X_OBS),
-        JaxThinDisc(0.0, jnp.inf),
-        jnp.asarray(RADII),
-        backend="pallas",
-        pallas_opts={"interpret": True},
-        **CTF_KW,
-    )
+    ref = _jax_reference()
+    return SimpleNamespace(**{k[len("grid_") :]: v for k, v in ref.items() if k.startswith("grid_")})
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +119,7 @@ def test_branches_match_jax(jax_grid, port_grid, branch):
 
 @pytest.fixture(scope="module")
 def fluxes(jax_grid, port_grid):
-    ref = np.asarray(jax_integrate(_emissivity, jax_grid, jnp.asarray(BINS), n_radii=N_RADII))
+    ref = _jax_reference()["flux"]
     got = integrate_lineprofile(_emissivity, port_grid, torch.as_tensor(BINS), n_radii=N_RADII).numpy()
     return ref, got
 

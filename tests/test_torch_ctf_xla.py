@@ -8,10 +8,17 @@ parity is tests/test_torch_ctf_xla_thick.py.
 Setup: Kerr a = 0.998, observer at r = 100 and i = 60°, ThinDisc(0, ∞),
 emission radii 4 and 10, N = 16 angles, N_extrema = 4 (6 golden-section
 probes a side), Ng = 16. Every forward-mode trace costs ~45 ms an iteration
-on one CPU core, so the port's side is ~170 s.
+on one CPU core, so the port's side is ~170 s. The JAX package's side
+(~110 s a disc on one core) is pinned in
+tests/data/jax_reference_ctf_xla_{thin,thick}.npz by
+scripts/torch_slow_tests_reference.py (``--part ctf_xla_thin``,
+``--part ctf_xla_thick``), at this module's inputs.
 """
 
 import math
+import sys
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -35,10 +42,22 @@ KW = dict(N=16, N_extrema=4, Ng=16)
 BRANCHES = ("lower_f", "upper_f", "lower_t", "upper_t")
 
 
-def compare_with_jax(jax_disc, port_disc, x_obs=X_OBS):
-    """(port grid, port samples, JAX grid, JAX samples) at ``KW``."""
-    jm, tm = JaxKerr(M=1.0, a=0.998), KerrMetric(1.0, 0.998, device="cpu")
-    gj, sj = jax_ctf(jm, jnp.asarray(x_obs), jax_disc, jnp.asarray(RADII), return_samples=True, **KW)
+def jax_reference(part):
+    """The JAX package's (grid, samples) for ``part`` ("ctf_xla_thin" or
+    "ctf_xla_thick") at ``KW``, pinned."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+    from torch_slow_tests_reference import load
+
+    ref = load(part)
+    grid = SimpleNamespace(**{k[len("grid_") :]: v for k, v in ref.items() if k.startswith("grid_")})
+    return grid, {k[len("samples_") :]: v for k, v in ref.items() if k.startswith("samples_")}
+
+
+def compare_with_jax(part, port_disc, x_obs=X_OBS):
+    """(port grid, port samples, JAX grid, JAX samples) at ``KW``, the
+    JAX package's pinned (`jax_reference`)."""
+    tm = KerrMetric(1.0, 0.998, device="cpu")
+    gj, sj = jax_reference(part)
     gt, st = cunningham_transfer_function(
         tm, torch.tensor(x_obs, dtype=torch.float64), port_disc, torch.tensor(RADII, dtype=torch.float64),
         return_samples=True, **KW,
@@ -64,7 +83,7 @@ def assert_matches_jax(gt, st, gj, sj, rtol=1e-7):
 
 @pytest.fixture(scope="module")
 def thin():
-    return compare_with_jax(jd.ThinDisc(0.0, jnp.inf), td.ThinDisc(0.0, math.inf, device="cpu"))
+    return compare_with_jax("ctf_xla_thin", td.ThinDisc(0.0, math.inf, device="cpu"))
 
 
 def test_thin_disc_xla_backend_matches_jax(thin):

@@ -523,8 +523,9 @@ def test_kinds012_kernel_unchanged_bit_for_bit(dev):
 
 
 def test_kernel_refuses_the_geometries_it_does_not_take(dev):
-    """Callables, per-ray heights and PolishDoughnutFW raise on the card,
-    with no launch and no fall back to the plain version."""
+    """Per-ray heights and PolishDoughnutFW (arrays, which the reference's
+    kernel refuses too) raise on the card, with no launch and no fall back
+    to the plain version."""
     from gradus_tpu_torch import geometry as G
 
     m, xs, v = _rays(dev, torch.float64, n=8)
@@ -533,8 +534,6 @@ def test_kernel_refuses_the_geometries_it_does_not_take(dev):
     rs = np.linspace(6.0, 20.0, 16)
     before = cuda_solver.KERNEL_LAUNCHES
     for g in (
-        G.WarpedThinDisc(lambda rho: 2.0 * torch.sin(rho / 10.0), 0.0, 100.0, device=dev),
-        G.ThickDisc(lambda rho: rho - 10.0, device=dev),
         G.DatumPlane([0.0] * 8, device=dev),
         G.PolishDoughnutFW(rs, rs - 6.0, device=dev),
     ):
@@ -543,3 +542,39 @@ def test_kernel_refuses_the_geometries_it_does_not_take(dev):
         with pytest.raises(NotImplementedError):
             CudaTracer(m, geometry=g)(xs, v, SPAN)
     assert cuda_solver.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", ["warped", "thick_shakura_sunyaev", "precessing_warped", "composite_callable", "precessing_datum"])
+def test_callable_geometry_kernel_matches_plain_version(dev, kind, dtype):
+    """The cross-section callables compiled into the kernel (geometry kinds
+    8-9, built at first use from the unit `geometry/codegen.py` writes), and
+    a precessed DatumPlane, on 512 flagship rays, kernel against plain
+    version at chip_smoke.py's thresholds (`phase_callable_geometries`):
+    whole traces, or for the composite, whose hit test the step sequence
+    decides, one iteration at a time from the plain version's carry."""
+    from gradus_tpu_torch import _build
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(23)
+    kw = dict(dtype=dtype, device=dev)
+    m = KerrMetric(1.0, 0.998, **kw)
+    x = torch.tensor([0.0, 1000.0, math.radians(75.0), 0.0], **kw)
+    v = map_impact_parameters(
+        m, x, torch.as_tensor(rng.uniform(-28, 28, 512), **kw), torch.as_tensor(rng.uniform(-18, 18, 512), **kw)
+    )
+    geometry = cs._callable_geometry(kind, dtype, dev)
+    tracer = CudaTracer(m, geometry=geometry)
+    y0 = tracer._constrain(x.expand_as(v), v)
+    before = cuda_solver.KERNEL_LAUNCHES
+    res = cs._full_trace(m, x, tracer, y0, dtype, f"kerr_{kind}")
+    assert cuda_solver.KERNEL_LAUNCHES == before + 1
+    if kind != "precessing_datum":
+        assert any(info.get("entry") for info in _build.build_info()["callables"].values())
+    if kind in cs.STEPWISE_KINDS:
+        step = cs._stepwise(m, tracer, y0, dtype)
+        assert cs._stepwise_ok(step, dtype), step
+    elif dtype == torch.float64:
+        assert res["status_agree"] >= 0.999 and res["hit_max_abs_err"] <= 1e-6, res
+    else:
+        assert res["status_agree"] >= 0.995 and res["g_median_rel"] <= 1e-4, res

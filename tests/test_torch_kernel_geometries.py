@@ -47,9 +47,12 @@ disagrees on 6 of the composite's 64 statuses.
 
 Also pinned: the geometries that neither kernel takes (per-ray DatumPlane
 heights and PolishDoughnutFW, whose arrays the Pallas kernel refuses to
-capture; WarpedThinDisc and ThickDisc, whose Python callables nvcc-built
-code cannot inline), and the forward-mode tangents the port's indicators
-take at their kinks, which are the JAX package's, not torch's.
+capture; a CompositeGeometry of more parts than the port's block holds;
+a PolishDoughnut of another metric class than the traced one), and the
+forward-mode tangents the port's indicators take at their kinks, which
+are the JAX package's, not torch's. WarpedThinDisc and ThickDisc, whose
+cross-section callables the kernel compiles at first use, are
+tests/test_torch_kernel_callables.py's.
 """
 
 import json
@@ -213,7 +216,8 @@ def test_composite_steps_match_pallas_kernel(rays):
 def test_geometries_neither_kernel_takes(rays):
     """The reference's Pallas kernel refuses arrays in a geometry (a
     per-ray DatumPlane, PolishDoughnutFW's isobar); the port's CUDA kernel
-    refuses those and the callables (`_check_kernel_config`, which needs
+    refuses those, a composite of more parts than its block holds and a
+    doughnut of another metric class (`_check_kernel_config`, which needs
     no card)."""
     jm = JaxKerr(M=1.0, a=0.998)
     x = jnp.asarray(X_OBS)
@@ -227,10 +231,6 @@ def test_geometries_neither_kernel_takes(rays):
     for g in (
         G.DatumPlane([0.0] * 8, **cpu),
         G.PolishDoughnutFW(rs, rs - 6.0, **cpu),
-        G.WarpedThinDisc(lambda rho: 2.0 * torch.sin(rho / 10.0), 0.0, 100.0, **cpu),
-        G.ThickDisc(lambda rho: rho - 10.0, **cpu),
-        G.CompositeGeometry([G.ThinDisc(**cpu), G.ThickDisc(lambda rho: rho - 10.0, **cpu)]),
-        G.PrecessingDisc(G.DatumPlane(1.0, **cpu), 0.1, 0.2, **cpu),
         G.CompositeGeometry([G.ThinDisc(**cpu)] * 5),
         G.PolishDoughnut(metric=JohannsenMetric(1.0, 0.998, **cpu)),  # not the traced metric's class
     ):
