@@ -1,6 +1,17 @@
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA GPU.
 
-Builds the port's CUDA kernel from `gradus_tpu_torch/csrc/`, holds it against
+First, while the port's CUDA kernel builds in a process of its own (the
+host's cores), the AD half runs alone on the card, launching no kernel:
+`adjoint_render` (∂⟨g⟩/∂(a, i) of the 1024² flagship render in f64 through
+`fwd_adjoint`, the two parameter tangents carried through one captured
+lockstep loop; the gradient against the pixel Jacobian's contraction and,
+on every 8th pixel each way, against central differences) and
+`checkpointed_adjoint` (`torch.autograd.grad` of tests/test_checkpointed_adjoint.py's
+loss with respect to 128 spline heights over 128² rays, through the
+checkpointed ladder whose forward and backward replay captured graphs;
+against central differences, and beside the uncheckpointed backward).
+
+Then it loads the port's CUDA kernel, built from `gradus_tpu_torch/csrc/`, and holds it against
 its plain PyTorch version on the card (f64 and f32; flagship rays against a
 ThinDisc, rays without geometry, transfer-function rays against a
 DatumPlane, every metric of the port, and the kernel's modes: sampled
@@ -86,8 +97,8 @@ through their entry points, none of which may call the plain-torch polish:
   Mino-time tracer against the second-order one at 1024², f64), `windings`
   and `radiative_transfer` (1024²; the charged and radiative-transfer
   loops also held captured against uncaptured bit for bit) and `mesh` (a
-  triangulated annulus at 256² against the thin disc, and in f32 on the
-  pixels where its f32 trace loses disc hits), in f64 but
+  triangulated annulus at 128² against the thin disc, and in f32 on
+  every 4th of those pixels), in f64 but
   Johannsen-Psaltis and the mesh's f32 trace (each phase's docstring says
   why not f32).
 The phases from the lags on (but the special traces' card work), with
@@ -1537,9 +1548,13 @@ def _callable_units():
 
 
 def _callable_build(geometry, m, dtype):
-    """The build of a geometry's generated unit (`_build.build_info()`)."""
+    """The build of a geometry's generated unit as the worker ``build``
+    recorded it (`_build.build_info()`): its registers and spills, and the
+    seconds of the nvcc pass that built it (None where an earlier run had
+    built it)."""
     key = _build.callable_key(cuda_solver._kernel_unit(m, geometry, dtype).source)
-    return {"key": key, **_build.build_info()["callables"][key]}
+    build = json.loads((_WORKER_DIR / "build.json").read_text())["results"]["build"]
+    return {"key": key, **build["callables"][key]}
 
 
 def phase_callable_geometries_render(dev, side=1024):
@@ -3263,12 +3278,12 @@ SLAB_MAX_STEPS = 1000
 # this many iterations (an uncaptured iteration costs ~70 ms)
 SLAB_GRAPH_AB_STEPS = 160
 TRACES_CHART_OUTER = 1100.0
-MESH_SIDE = 256
+MESH_SIDE = 128
 MESH_N_PHI = 64
 # The f32 mesh trace runs on every MESH_F32_STRIDE-th pixel of the
-# MESH_SIDE² grid; away from the rims it may lose no disc hit: the full f32
-# image lost none (on an H100, PERF.md §5).
-MESH_F32_STRIDE = 16
+# MESH_SIDE² grid (4,096 rays); away from the rims it may lose no disc hit:
+# the full f32 image at 256² lost none (on an H100, PERF.md §5).
+MESH_F32_STRIDE = 4
 MESH_F32_OFF_RIM_LOSSES = 0
 # The first-order tracer's hits inside r = 3.8, where its gap to the
 # second-order trace grows in both packages (scripts/torch_reference_witness.py
@@ -3919,13 +3934,14 @@ def phase_mesh(dev):
     lost no disc hit to it (on an H100, 38 differing pixels, all at the
     rims).
 
-    At 256², not 1024²: `segment_hit` materialises (rays × triangles)
+    At 128², not 1024²: `segment_hit` materialises (rays × triangles)
     tensors for each chord, ~60–80 bytes a pair in f32, so 1024² rays
     against 256 triangles would take ~17–22 GB a chord; a hand-written
-    segment test is a later PR's. The full image is traced in f64 because
-    f32 needs ~4× its lockstep iterations at this camera (3,056 against
-    768 at 256²; the JAX package's loop the same, ROADMAP C) at ~45 ms
-    each against 256 triangles."""
+    segment test is a later PR's. (256² until the AD phases needed its
+    ~40 s: 69 ms an f64 iteration there.) The full image is traced in f64
+    because f32 needs ~4× its lockstep iterations at this camera (3,056
+    against 768 at 256²; the JAX package's loop the same, ROADMAP C) at
+    ~45 ms each against 256 triangles."""
     side, args = MESH_SIDE, _mesh_args()
     res = dict(pixels=side * side, triangles=len(args["triangles"]), proximity2=args["proximity2"])
     for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
@@ -3962,6 +3978,218 @@ def phase_mesh(dev):
 #
 # The ``xla`` transfer functions at `bench_ctf`'s full size (~200 captured
 # forward-mode traces a profile, ~20 ms an iteration) take a worker each.
+ADJOINT_EPS = 1e-4  # tests/test_reverse_mode.py's central difference
+ADJOINT_EVERY = 8  # the FD subset: every 8th pixel each way (1/64, 16,384 rays at 1024²)
+
+
+def _adjoint_pixels(dev, side, params, every=1):
+    """The flagship redshift render (Kerr, r = 1000, ThinDisc(0, 50), λ ≤
+    2200, f64) at ``params`` = (a, i), every ``every``-th pixel each way of
+    the side² grid: (g where the ray hit the disc and 0 elsewhere, the hit
+    mask as 0/1, the hits' ρ, the statuses) — tests/test_reverse_mode.py's
+    `_mean_redshift` is the first over the second's sum."""
+    a, incl = params
+    m = KerrMetric(1.0, a, device=dev)
+    d = ThinDisc(0.0, 50.0, dtype=torch.float64, device=dev)
+    z = torch.zeros((), dtype=torch.float64, device=dev)
+    x = torch.stack([z, z + X_OBS[1], incl, z])
+    A, B = _pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, torch.float64, dev)
+    if every > 1:
+        A, B = (t.view(side, side)[::every, ::every].reshape(-1) for t in (A, B))
+    v = map_impact_parameters(m, x, A, B)
+    gp = trace_geodesics(m, x.expand_as(v), v, SPAN, geometry=d)
+    g = redshift_pointfunction(m, x)(m, gp, SPAN[1])
+    hit = gp.status == HIT
+    return torch.where(hit, g, 0.0), hit.to(torch.float64), gp.x[:, 1] * torch.sin(gp.x[:, 2]), gp.status
+
+
+def phase_adjoint_render(dev, side=1024, every=ADJOINT_EVERY):
+    """∂⟨g⟩/∂(a, i) of the flagship render in f64 through `fwd_adjoint`:
+    its forward is `jacfwd` of the side² pixel image, on the card
+    `tracing._LiftedTrace` (one captured primal loop, then one captured
+    loop carrying both parameter tangents; no uncaptured iteration). The
+    loss is the masked mean redshift of tests/test_reverse_mode.py's
+    `_mean_redshift`. Checks: `torch.autograd.grad` of the loss equals the
+    contraction of the pixel Jacobian (rtol 1e-12); on every ``every``-th
+    pixel each way, the subset's own trace gives the full run's primal bit
+    for bit, and the Jacobian's columns agree with central differences (ε
+    = 1e-4) on the pixels hit in all three: median relative error ≤ 2e-3
+    (`_hit_radius_jvp`'s rtol), share within 2e-2 (the JAX test's rtol) ≥
+    0.99; the 8 worst pixels are printed with their ρ and statuses."""
+    from gradus_tpu_torch.diff import fwd_adjoint
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    p0 = (torch.tensor(0.998, **f64), torch.tensor(X_OBS[2], **f64))
+    params = tuple(t.clone().requires_grad_(True) for t in p0)
+    image = fwd_adjoint(lambda p: _adjoint_pixels(dev, side, p)[:2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _NoKernelRoute(), _Lockstep() as steps:
+        (gm, hitf), seconds = _trace_seconds(lambda: image(params))
+    peak = torch.cuda.max_memory_allocated()
+    _require_captured("adjoint_render", steps)
+    if steps.graph["captures"] != 2 or steps.calls != 2 or steps.tangent_calls != 1:
+        raise AssertionError(f"adjoint_render: expected a primal and a tangent loop, one capture each: {steps.graph}")
+    loss = gm.sum() / hitf.sum()
+    grads = torch.autograd.grad(loss, params)
+    jac = gm.grad_fn.box.jac[0]  # the pixels' Jacobian columns, from the same forward
+    w = torch.full_like(gm, 1.0) / hitf.sum()
+    contraction = [float(torch.dot(w.detach(), torch.nan_to_num(j))) for j in jac]
+    grad_rel = [abs(float(g) - c) / abs(c) for g, c in zip(grads, contraction)]
+    if not max(grad_rel) <= 1e-12:
+        raise AssertionError(f"adjoint_render: autograd.grad against the Jacobian's contraction: {grad_rel}")
+
+    # the subset, its primal bit for bit the full run's, and central differences
+    idx = torch.arange(side * side, device=dev).view(side, side)[::every, ::every].reshape(-1)
+    with torch.no_grad():
+        g0, h0, rho0, s0 = _adjoint_pixels(dev, side, p0, every)
+        same = bool(torch.equal(g0, gm.detach()[idx])) and bool(torch.equal(h0, hitf.detach()[idx]))
+        if not same:
+            raise AssertionError("adjoint_render: the subset's primal is not the full run's bit for bit")
+        fd, worst, stats = [], [], {}
+        for k, name in enumerate(("a", "incl")):
+            runs = []
+            for sign in (1.0, -1.0):
+                p = list(p0)
+                p[k] = p[k] + sign * ADJOINT_EPS
+                runs.append(_adjoint_pixels(dev, side, tuple(p), every))
+            (gp_, hp, _, sp), (gm_, hm, _, sm) = runs
+            ok = (h0 > 0) & (hp > 0) & (hm > 0)
+            fd_k = (gp_ - gm_) / (2 * ADJOINT_EPS)
+            j_k = jac[k].detach()[idx]
+            rel = ((j_k - fd_k).abs() / fd_k.abs())[ok]
+            share = float((rel <= 2e-2).double().mean())
+            stats[name] = dict(
+                pixels=int(ok.sum()), median_rel=float(rel.median()), share_within_2e_2=share,
+                max_rel=float(rel.max()), grad=float(grads[k]), contraction=contraction[k],
+            )  # fmt: skip
+            order = torch.argsort(torch.where(ok, (j_k - fd_k).abs() / fd_k.abs(), -1.0), descending=True)[:8]
+            worst.append({
+                name: [
+                    dict(pixel=int(idx[i]), rho=float(rho0[i]), status=[int(s0[i]), int(sp[i]), int(sm[i])],
+                         jac=float(j_k[i]), fd=float(fd_k[i]), rel=float((j_k[i] - fd_k[i]).abs() / fd_k[i].abs()))
+                    for i in order.tolist()
+                ]
+            })  # fmt: skip
+    loops = [dict(lp, ms_per_iteration=lp["seconds"] * 1e3 / max(lp["iterations"], 1)) for lp in steps.loops]
+    res = dict(
+        pixels=side * side, dtype="f64", loss=float(loss), grad=[float(g) for g in grads], grad_rel=grad_rel,
+        subset=dict(every=every, rays=int(idx.numel()), primal_bit_for_bit=same), fd=stats, worst=worst,
+        seconds=seconds, iterations=steps.iters, loops=loops, graph=steps.graph, peak_allocated_bytes=peak,
+    )  # fmt: skip
+    _say("adjoint_render", **res)
+    for name, st in stats.items():
+        if not (st["median_rel"] <= 2e-3 and st["share_within_2e_2"] >= 0.99 and st["pixels"] >= idx.numel() // 4):
+            raise AssertionError(f"adjoint_render: ∂g/∂{name} against central differences: {st}")
+    return res
+
+
+@dataclasses.dataclass(frozen=True)
+class _SplineSurface:
+    """tests/test_checkpointed_adjoint.py's warped disc z = h(ρ), h a
+    128-knot linear spline: a many-parameter head inside the event
+    function."""
+
+    knots: torch.Tensor
+    heights: torch.Tensor
+
+    def crossing_indicator(self, x):
+        r, th = x[..., 1], x[..., 2]
+        return r * torch.cos(th) - linear_interp(r * torch.sin(th), self.knots, self.heights)
+
+    def is_hit(self, x, gtol=1e-2):
+        rho = x[..., 1] * torch.sin(x[..., 2])
+        return (rho > 5.0) & (rho < 35.0)
+
+
+LADDER = dict(n_segments=16, seg_steps=16)
+
+
+def phase_checkpointed_adjoint(dev, side=128, n_proj=5):
+    """`torch.autograd.grad` through the checkpointed ladder
+    (`trace_geodesics(..., checkpointed=True)`: the forward and the
+    backward each replay a captured graph) of tests/test_checkpointed_adjoint.py's
+    loss with respect to the 128 spline heights, at its camera (Kerr a =
+    0.6, r = 100, i = 70°, λ ≤ 300, 16 × 16) over side² rays in its window
+    α ∈ [−16, −8], β ∈ [−3, 3], f64. Checks: the ladder's primal against
+    the while-loop's (statuses equal, x within 1e-10); the gradient against
+    central differences on ``n_proj`` random unit projections (ε = 3e-5,
+    rtol 1e-3, atol 1e-9, the JAX test's). Beside it, the uncheckpointed
+    `loss.backward()` uncaptured (`cuda_graphs(False)`): seconds and peak
+    bytes."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    m = KerrMetric(1.0, 0.6, device=dev)
+    x_obs = torch.tensor([0.0, 100.0, math.radians(70.0), 0.0], **f64)
+    A, B = _pixel_grid(side, side, (-16.0, -8.0), (-3.0, 3.0), 0.0, torch.float64, dev)
+    v = map_impact_parameters(m, x_obs, A, B)
+    xs = x_obs.expand_as(v)
+    knots = torch.linspace(3.0, 40.0, 128, **f64)
+    heights0 = 0.5 + 0.3 * torch.sin(knots / 5.0)
+
+    def trace(h, **kw):
+        return trace_geodesics(m, xs, v, (0.0, 300.0), geometry=_SplineSurface(knots, h), **kw)
+
+    def loss_of(gp):
+        hit = gp.status == HIT
+        rho = gp.x[..., 1] * torch.sin(gp.x[..., 2])
+        return torch.where(hit, rho**2 + 0.1 * gp.x[..., 0], 0.0).sum() / xs.shape[0]
+
+    with torch.no_grad(), _Lockstep() as primal_steps:
+        gw = trace(heights0)
+        gc = trace(heights0, checkpointed=True, **LADDER)
+    _require_captured("checkpointed_adjoint primal", primal_steps)
+    x_err = float((gw.x - gc.x).abs().max())
+    if not (torch.equal(gw.status, gc.status) and torch.allclose(gc.x, gw.x, rtol=1e-10, atol=1e-10)):
+        raise AssertionError(f"checkpointed_adjoint: the ladder's primal against the while-loop's: {x_err}")
+
+    h = heights0.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _Lockstep() as steps:
+        val, forward_s = _trace_seconds(lambda: loss_of(trace(h, checkpointed=True, **LADDER)))
+        (grad,), backward_s = _trace_seconds(lambda: torch.autograd.grad(val, h))
+    peak = torch.cuda.max_memory_allocated()
+    _require_captured("checkpointed_adjoint", steps)
+    val = val.detach()
+    if not (float(val) > 0 and bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0):
+        raise AssertionError(f"checkpointed_adjoint: loss {float(val)}, gradient {grad}")
+
+    rng = np.random.default_rng(3)
+    eps, proj = 3e-5, []
+    with torch.no_grad():
+        for _ in range(n_proj):
+            u = torch.as_tensor(rng.standard_normal(128), **f64)
+            u /= torch.linalg.norm(u)
+            fd = (loss_of(trace(heights0 + eps * u, checkpointed=True, **LADDER))
+                  - loss_of(trace(heights0 - eps * u, checkpointed=True, **LADDER))) / (2 * eps)  # fmt: skip
+            an = float(grad @ u)
+            proj.append(dict(analytic=an, fd=float(fd), rel=abs(an - float(fd)) / abs(float(fd))))
+    fd_ok = all(abs(p["analytic"] - p["fd"]) <= 1e-9 + 1e-3 * abs(p["fd"]) for p in proj)
+
+    # the uncheckpointed backward, uncaptured: autograd records each op
+    h_u = heights0.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with cuda_graphs(False), _Lockstep() as plain_steps:
+        val_u, plain_forward_s = _trace_seconds(lambda: loss_of(trace(h_u)))
+        (grad_u,), plain_backward_s = _trace_seconds(lambda: torch.autograd.grad(val_u, h_u))
+    plain_peak = torch.cuda.max_memory_allocated()
+    res = dict(
+        rays=side * side, ladder=LADDER, loss=float(val), primal_x_max_abs=x_err,
+        forward_seconds=forward_s, backward_seconds=backward_s, iterations=steps.iters, loops=steps.loops,
+        graph=steps.graph, peak_allocated_bytes=peak, projections=proj,
+        uncheckpointed=dict(
+            forward_seconds=plain_forward_s, backward_seconds=plain_backward_s, iterations=plain_steps.iters,
+            peak_allocated_bytes=plain_peak,
+            grad_max_rel_to_ladder=float(((grad_u - grad).abs() / grad.abs().max()).max()),
+        ),
+    )  # fmt: skip
+    _say("checkpointed_adjoint", **res)
+    if not fd_ok:
+        raise AssertionError(f"checkpointed_adjoint: the gradient against central differences: {proj}")
+    return res
+
+
 WORKERS = {
     "lags_golden": (("reverberation_golden", {}),),
     "lags_full": (("lag_frequency_full", {}),),
@@ -3990,6 +4218,13 @@ def _worker(name, out_path):
     "seconds"} to ``out_path``."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if name == "build":
+        t0 = time.perf_counter()
+        phase_build(dev)
+        info = _build.build_info()
+        results = {"build": dict(seconds=info["seconds"], built=info["built"], callables=info["callables"])}
+        Path(out_path).write_text(json.dumps(dict(results=results, seconds={"build": time.perf_counter() - t0})))
+        return
     _build.load_library()
     if name == "traces":
         procs = _start_workers(("traces_cpu",))
@@ -4116,7 +4351,17 @@ def main():
     timed_phase("device", phase_device)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    timed_phase("build", phase_build, dev)
+    # the build's nvcc runs (the host's cores) in a process of its own while
+    # the AD half, which launches no kernel of the library, has the card
+    building = _start_workers(("build",))
+    try:
+        adjoint = timed_phase("adjoint_render", phase_adjoint_render, dev)
+        checkpointed = timed_phase("checkpointed_adjoint", phase_checkpointed_adjoint, dev)
+        _, build_seconds = _join_workers(building, timeout=600.0)
+    finally:
+        _stop_workers(building)
+    seconds.update(build_seconds)
+    timed_phase("load", _build.load_library, _callable_units())
     # the phases that time kernels, alone on the card
     timed_phase("goldens", phase_goldens, dev)
     rendered, segmented = timed_phase("main_path", phase_main_path, dev)
@@ -4205,6 +4450,16 @@ def main():
                     },
                     "disc_corona": {k: lags["disc_corona"][k] for k in ("seconds", "rays", "iterations", "fan", "probes")},
                     "traces": _traces_summary(traces, traces_seconds),
+                    "adjoint_render": {
+                        k: adjoint[k] for k in ("pixels", "seconds", "iterations", "loops", "graph", "peak_allocated_bytes", "fd")
+                    },
+                    "checkpointed_adjoint": {
+                        k: checkpointed[k]
+                        for k in (
+                            "rays", "forward_seconds", "backward_seconds", "iterations", "graph",
+                            "peak_allocated_bytes", "uncheckpointed",
+                        )
+                    },  # fmt: skip
                     "lagtransfer_defaults": lags["binflux_golden"]["defaults"]["traces"],
                     "profiled_binned_profile": {
                         name: {k: r[k] for k in ("binned_seconds", "binned_iterations")}

@@ -44,11 +44,18 @@ Module paths and public names mirror `gradus_tpu`. This package imports
 - the reference's public names beside these: every metric class, the
   geodesic equation and its constraints, the tetrads and the LNRF frame,
   the metric's free functions, the redshift interpolations and
-  `unpack_solution`. Not here: `enable_x64`, which has no torch meaning
-  (a tensor's dtype is its own; pass ``dtype=torch.float64``), and the
-  forward-mode AD helpers of `gradus_tpu/diff.py` (`grad_fwd`,
-  `value_and_grad_fwd`, `fwd_adjoint`) and `Tracer`, still to port
-  (ROADMAP A11, A13).
+  `unpack_solution`;
+- the AD half: `fwd_adjoint`, `value_and_grad_fwd` and `grad_fwd` (the
+  forward parameter Jacobian, on the card through the captured loop with
+  the parameters' tangents in its carry), and `trace_geodesics(...,
+  checkpointed=True)`, the reverse-mode segment ladder (on the card with a
+  captured backward);
+- the periphery: `Tracer` (segmented, on the CUDA integrator where it
+  takes the configuration), `save_npz`/`load_npz` (the JAX package's file
+  format), `plotting` and `camera/tiling.py`.
+
+Not here: `enable_x64`, which has no torch meaning (a tensor's dtype is its
+own; pass ``dtype=torch.float64``).
 """
 
 from gradus_tpu_torch.camera import (
@@ -132,6 +139,7 @@ from gradus_tpu_torch.integrate import (
     CudaTracer,
     GeodesicPoint,
     StatusCodes,
+    Tracer,
     cuda_integrate_rays,
     domain_upper_hemisphere,
     integrate_rays,
@@ -147,6 +155,7 @@ from gradus_tpu_torch.integrate import (
     tracegeodesics,
     unpack_solution,
 )
+from gradus_tpu_torch.diff import fwd_adjoint, grad_fwd, value_and_grad_fwd
 from gradus_tpu_torch.lineprofile import (
     BinningMethod,
     TransferFunctionMethod,
@@ -192,6 +201,7 @@ from gradus_tpu_torch import redshift_analytic
 from gradus_tpu_torch.redshift import interpolate_redshift, keplerian_velocity_projector, redshift_pointfunction
 from gradus_tpu_torch.redshift_analytic import analytic_redshift_pointfunction
 from gradus_tpu_torch.reverberation import binflux, continuum_time, lag_frequency, lagtransfer
+from gradus_tpu_torch.serialization import load_npz, save_npz
 from gradus_tpu_torch.utils import (
     cartesian_distance,
     cartesian_squared_distance,

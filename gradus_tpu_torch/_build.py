@@ -208,7 +208,7 @@ def _load_callable(unit):
     lib = ctypes.CDLL(str(target))
     _declare(lib, (unit.entry,))
     log_path = target.with_suffix(".log")
-    info = _info["callables"].setdefault(key, dict(built=False, seconds=0.0))
+    info = _info["callables"].setdefault(key, dict(built=False, seconds=None))
     info.update(path=str(target), entry=unit.entry, **_ptxas_summary(log_path.read_text() if log_path.exists() else ""))
     _callable_libs[key] = lib
     return lib
@@ -243,7 +243,8 @@ def build_info() -> dict:
     (or load) took, and nvcc's ``-Xptxas -v`` report; under ``callables``,
     each generated unit's library by key: its path, entry, whether this
     process built it, the seconds of that build (of the pass that built it,
-    with the library, for `load_library`'s ``units``), and ptxas's largest
+    with the library, for `load_library`'s ``units``; None where this
+    process loaded a unit built before), and ptxas's largest
     register count and its spill lines."""
     return {**_info, "callables": {k: dict(v) for k, v in _info["callables"].items()}}
 

@@ -916,8 +916,54 @@ class CudaTracer:
         out["polished"] = st2["polished"]
         return out
 
-    def trace(self, y0, lam_span):
-        """Trace a constrained (N, 8) batch.
+    def _passes(self, y0, lam_span, lengths, progress, min_bucket: int):
+        """The raw outputs of `cuda_integrate_rays` in capped passes, the
+        k-th capped at ``lengths[k]`` loop iterations (the last length for
+        every later pass, ``max_steps`` in all), each resuming the rays in
+        flight where the last stopped: bit for bit one pass. A pass keeps
+        its width (a finished ray's thread exits at once) until the least
+        bucket of ``min_bucket`` · 4^k rays that holds the survivors is
+        narrower: then they resume alone, gathered (the reference
+        `CompactedIntegrator`'s rule). ``progress``, if given, is called
+        after each pass with a dict of ``segment``, ``width`` (the rays
+        the pass ran), ``executed_iters`` (loop iterations so far),
+        ``alive`` (rays still in flight) and ``total``."""
+        kw = self._integrate_kwargs(y0.dtype)
+        lam1 = float(lam_span[1])
+        n = y0.shape[0]
+        idx = torch.arange(n, device=y0.device)  # pass row → ray
+        out, work, iters, segment = None, None, 0, 0
+        while iters < self.max_steps:
+            cap = min(lengths[min(segment, len(lengths) - 1)], self.max_steps - iters)
+            if work is None:
+                step = out = cuda_integrate_rays(self.m, y0, lam_span, iter_cap=cap, **kw)
+            else:
+                state = {k: work[k] for k in _STATE_KEYS}
+                step = cuda_integrate_rays(self.m, work["y"], lam_span, iter_cap=cap, state=state, **kw)
+                out = dict(out, polished=step["polished"])
+                for k in ("y",) + _STATE_KEYS:
+                    out[k] = out[k].index_copy(0, idx, step[k])
+                for k in ("warp_iters", "attempts"):
+                    out[k] = out[k].index_add(0, idx, step[k])
+            iters += cap
+            segment += 1
+            flying = _mid_flight(step, lam1)
+            n_alive = int(flying.sum())
+            if progress is not None:
+                progress(dict(segment=segment, width=idx.shape[0], executed_iters=iters, alive=n_alive, total=n))
+            if n_alive == 0:
+                break
+            rows = slice(None)
+            if _next_bucket(n_alive, min_bucket) < idx.shape[0]:
+                rows = flying.nonzero().squeeze(-1)
+                idx = idx[rows]
+            work = {k: step[k][rows] for k in ("y",) + _STATE_KEYS}
+        return out
+
+    def trace(self, y0, lam_span, *, segments=None, progress=None, min_bucket: int = 8192):
+        """Trace a constrained (N, 8) batch: in one pass, or with
+        ``segments`` (pass lengths) in capped passes (`_passes`, with its
+        ``progress`` and ``min_bucket``).
 
         Returns ``(GeodesicPoint, aux)``; aux holds per-ray ``warp_iters``
         (loop iterations the ray's warp executed, summed over the passes),
@@ -926,7 +972,10 @@ class CudaTracer:
         ``unfinished`` (0 unless ``max_steps`` was reached or a
         ``tail_bucket`` was too small for the survivors of a capped pass)."""
         lam0, lam1 = float(lam_span[0]), float(lam_span[1])
-        out = self._integrate(y0, (lam0, lam1))
+        if segments is None:
+            out = self._integrate(y0, (lam0, lam1))
+        else:
+            out = self._passes(y0, (lam0, lam1), tuple(segments), progress, min_bucket)
         unfinished = torch.sum(_mid_flight(out, lam1))
         gp = self._finish(out, y0, lam0)
         aux = {
@@ -937,8 +986,19 @@ class CudaTracer:
         }
         return gp, aux
 
-    def __call__(self, x, v, lam_span, constrain: bool = True):
+    def __call__(self, x, v, lam_span, constrain: bool = True, **passes):
+        """Trace rays from (``x``, ``v``); ``passes``: `trace`'s
+        ``segments``, ``progress`` and ``min_bucket``."""
         x, v = torch.broadcast_tensors(torch.atleast_2d(x), torch.atleast_2d(v))
         y0 = self._constrain(x, v) if constrain else torch.cat([x, v], dim=-1)
-        gp, self.last_aux = self.trace(y0, lam_span)
+        gp, self.last_aux = self.trace(y0, lam_span, **passes)
         return gp
+
+
+def _next_bucket(n: int, min_bucket: int) -> int:
+    """Smallest power-of-4 multiple of ``min_bucket`` that is ≥ n
+    (reference `solver._next_bucket`)."""
+    b = min_bucket
+    while b < n:
+        b *= 4
+    return b

@@ -38,7 +38,14 @@ forward-mode body, which a Newton of short traces pays once a trace.)
 `cuda_graphs(False)` runs the uncaptured loop
 on the card, the bit-for-bit reference. A capture that fails raises, and a
 carry under a `torch.func` transform on the card raises rather than run
-uncaptured: pass the tangent as ``y0_dot`` (`trace_geodesics(..., v_dot=...)`).
+uncaptured: pass the tangent as ``y0_dot`` (`trace_geodesics(..., v_dot=...)`),
+or trace through `trace_geodesics`, which lifts a transform into the loop
+(`integrate_rays_lifted`: the metric's and geometry's tensors ride in the
+carry with their tangents, K tangents of a `jacfwd` vmapped in one pass).
+A carry that requires grad raises there too: autograd does not record a
+replay. Reverse mode goes through `integrate_rays_checkpointed`, the
+segment ladder, whose backward on the card replays a captured graph of one
+body's vjp.
 
 Also here: the PI controller constants, the result record, and the Newton
 polish of the integrator kernel's hits in its output layout (`_polish_hits`).
@@ -49,18 +56,27 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+from types import SimpleNamespace
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from gradus_tpu_torch.integrate.events import cubic_first_crossing
+from gradus_tpu_torch.integrate.lifting import bound, find_unlifted, slot_values
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tsit5 import hermite_interp, initial_dt, tsit5_step
 from gradus_tpu_torch.utils.interp import linear_interp
 from gradus_tpu_torch.utils.jvp import jvp
 
-__all__ = ["integrate_rays", "IntegrationResult", "cuda_graphs", "observe_loops"]
+__all__ = [
+    "integrate_rays",
+    "integrate_rays_checkpointed",
+    "integrate_rays_lifted",
+    "IntegrationResult",
+    "cuda_graphs",
+    "observe_loops",
+]
 
 # PI step-size controller constants (standard Gustafsson / OrdinaryDiffEq-style)
 _GAMMA = 0.9
@@ -99,7 +115,8 @@ def observe_loops(observer: Callable):
     **info)``: ``"loop"`` as it starts (``tangent``: whether it carries a
     tangent, ``graphed``: whether it replays a CUDA graph), ``"block"``
     before each block of iterations and ``"end"`` after the last
-    (``iterations``: those the loop has run so far), and ``"capture"`` once
+    (``iterations``: those the loop has run so far; ``alive``: the rays
+    alive then), and ``"capture"`` once
     its graph is captured (``seconds`` of host time for the warm-up, the
     capture and the instantiation; ``reserved_bytes``, the card memory the
     capture reserved). Instrumentation for measurements: nothing the loop
@@ -427,10 +444,12 @@ _is_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
 _DOT = "dot_"  # key prefix of a tangent in the explicit-tangent carry
 
 
-def _tangent_step(body, float_keys):
+def _tangent_step(body, float_keys, batched: bool = False):
     """One iteration of the explicit-tangent loop: the lifted jvp of
     ``body`` over a carry holding each float entry ``k`` and its tangent
-    ``dot_k``; the integer and boolean entries ride along."""
+    ``dot_k``; the integer and boolean entries ride along. With
+    ``batched``, each tangent holds K tangents on a leading axis, and the
+    jvp is vmapped over them: one primal body for K tangents."""
 
     def step(c):
         rest = {k: v for k, v in c.items() if k not in float_keys and not k.startswith(_DOT)}
@@ -442,36 +461,78 @@ def _tangent_step(body, float_keys):
         # a dual may not be a broadcast view
         primals = {k: c[k].contiguous() for k in float_keys}
         tangents = {k: c[_DOT + k].contiguous() for k in float_keys}
-        out, out_dot, aux = jvp(f, (primals,), (tangents,), has_aux=True)
+        out, out_dot, aux = _jvp_maybe_batched(f, primals, tangents, batched)
         return {**out, **{_DOT + k: v for k, v in out_dot.items()}, **aux}
 
     return step
 
 
-def _capture(step, static: dict):
-    """A CUDA graph of one iteration of ``step`` from the carry ``static``,
-    ending with the new carry copied into ``static``."""
+def _jvp_maybe_batched(f, primals, tangents, batched: bool):
+    """The lifted ``jvp(f, (primals,), (tangents,), has_aux=True)``, vmapped
+    over the tangents' leading axis when ``batched``."""
+    if not batched:
+        return jvp(f, (primals,), (tangents,), has_aux=True)
+    return torch.func.vmap(lambda t: jvp(f, (primals,), (t,), has_aux=True), out_dims=(None, 0, None))(tangents)
+
+
+_PARAM = "param_"  # key prefix of a lifted slot's value in the carry
+
+
+def _param_keys(slots):
+    return [f"{_PARAM}{i}" for i in range(len(slots))]
+
+
+def _with_params(body, slots):
+    """``body`` over a carry that also holds each slot's value (`lifting`)
+    under ``param_i``: the values are bound into their slots while the body
+    runs, and pass through unchanged, so that a captured body reads them
+    from the carry's static buffers and a jvp or vjp of the step sees them
+    as inputs."""
+    keys = _param_keys(slots)
+
+    def step(c):
+        with bound(slots, [c[k] for k in keys]):
+            out = body(c)
+        return {**out, **{k: c[k] for k in keys}}
+
+    return step
+
+
+def _graph_of(warm_up, work, device, **info):
+    """A CUDA graph of ``work()`` on ``device``, after one run of
+    ``warm_up()`` on a side stream (lazy initialisation stays out of the
+    capture; it must change no buffer the graph reads). Reports
+    ``"capture"`` to the observers with ``info``."""
     t0 = time.perf_counter()
-    reserved0 = torch.cuda.memory_reserved(static["alive"].device)
-    # warm-up on a side stream (lazy initialisation stays out of the
-    # capture); the body is out of place, so no buffer changes
-    side = torch.cuda.Stream(static["alive"].device)
+    reserved0 = torch.cuda.memory_reserved(device)
+    side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        step(static)
+        warm_up()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        c = step(static)
-        for k, buf in static.items():
-            buf.copy_(c[k])
-    del c
+        work()
     _tell(
         "capture",
         seconds=time.perf_counter() - t0,
-        reserved_bytes=torch.cuda.memory_reserved(static["alive"].device) - reserved0,
+        reserved_bytes=torch.cuda.memory_reserved(device) - reserved0,
+        **info,
     )
     return graph
+
+
+def _capture(step, static: dict):
+    """A CUDA graph of one iteration of ``step`` from the carry ``static``,
+    ending with the new carry copied into ``static`` (the body is out of
+    place, so its warm-up changes no buffer)."""
+
+    def work():
+        c = step(static)
+        for k, buf in static.items():
+            buf.copy_(c[k])
+
+    return _graph_of(lambda: step(static), work, static["alive"].device)
 
 
 def _graphed(cf: dict) -> bool:
@@ -489,7 +550,14 @@ def _run_loop(step, cf: dict, max_steps: int):
         raise RuntimeError(
             "the lockstep loop on a CUDA tensor replays a CUDA graph, which cannot be captured "
             "under a torch.func transform: pass the tangent explicitly (integrate_rays(..., "
-            "y0_dot=...), trace_geodesics(..., v_dot=...)), or run uncaptured within cuda_graphs(False)"
+            "y0_dot=...), trace_geodesics(..., v_dot=...)), trace through trace_geodesics, which "
+            "lifts the transform into the loop, or run uncaptured within cuda_graphs(False)"
+        )
+    if graphed and torch.is_grad_enabled() and any(v.requires_grad for v in cf.values()):
+        raise RuntimeError(
+            "the lockstep loop on a CUDA tensor replays a CUDA graph, which autograd does not record: "
+            "for reverse mode trace with checkpointed=True (integrate_rays_checkpointed), whose "
+            "backward is captured too, or run uncaptured within cuda_graphs(False)"
         )
     if graphed:
         # static buffers: the graph reads the carry from them and writes it back
@@ -497,8 +565,12 @@ def _run_loop(step, cf: dict, max_steps: int):
     _tell("loop", tangent=any(k.startswith(_DOT) for k in cf), graphed=graphed)
     graph = None
     iters = 0
-    while iters < max_steps and bool(cf["alive"].any()):
-        _tell("block", iterations=iters)
+    while iters < max_steps:
+        # one read on the host: while observers listen, the count of alive rays
+        alive = int(cf["alive"].sum()) if _OBSERVERS else bool(cf["alive"].any())
+        if not alive:
+            break
+        _tell("block", iterations=iters, alive=alive)
         block = min(_ALIVE_CHECK_EVERY, max_steps - iters)
         if graphed:
             if graph is None:
@@ -509,7 +581,7 @@ def _run_loop(step, cf: dict, max_steps: int):
             for _ in range(block):
                 cf = step(cf)
         iters += block
-    _tell("end", iterations=iters)
+    _tell("end", iterations=iters, alive=int(cf["alive"].sum()) if _OBSERVERS else None)
     return cf
 
 
@@ -594,7 +666,7 @@ def integrate_rays(
     body = _make_body(p, y0.dtype, y0.device)
     polish = crossing_fn is not None and terminate_on_hit
     if y0_dot is not None:
-        return _integrate_with_tangent(p, body, y0, y0_dot, lam_span, polish)
+        return _integrate_lifted(p, body, lambda y: y, (y0,), (y0_dot,), lam_span, polish)
     cf, lam0 = _init_carry(p, y0, lam_span)
     cf = _run_loop(body, cf, p.max_steps)
 
@@ -615,29 +687,53 @@ def integrate_rays(
     )
 
 
-def _integrate_with_tangent(p: _Problem, body, y0, y0_dot, lam_span, polish: bool):
-    """`integrate_rays` with the tangent of ``y0`` carried explicitly: the
-    lifted jvp of the initial carry, of each loop body and of the polish.
-    The trajectory buffers of ``n_save`` are float entries of the carry, so
-    their tangents ride along, scattered at the primal's slots."""
 
-    def init(y):
-        cf, lam0 = _init_carry(p, y, lam_span)
+
+def _integrate_lifted(p: _Problem, body, make_y0, inputs, dots, lam_span, polish: bool, slots=(), batched=False):
+    """The explicit-tangent loop from ``y0 = make_y0(*inputs)``, the inputs'
+    tangents ``dots``: the lifted jvp of the initial carry, of each loop
+    body and of the polish. ``slots`` (`lifting`) take the last
+    ``len(slots)`` inputs as their values: they ride in the carry as
+    ``param_i`` with their tangents, bound while the body runs. With
+    ``batched``, every tangent holds K tangents on a leading axis. The
+    trajectory buffers of ``n_save`` are float entries of the carry, so
+    their tangents ride along, scattered at the primal's slots. Returns
+    the pair (`IntegrationResult`, its tangent)."""
+    pkeys = _param_keys(slots)
+    n_in = len(inputs) - len(slots)
+
+    def init(*args):
+        with bound(slots, args[n_in:]):
+            y = make_y0(*args[:n_in])
+            cf, lam0 = _init_carry(p, y, lam_span)
         floats = {k: v for k, v in cf.items() if v.is_floating_point()}
-        return floats, ({k: v for k, v in cf.items() if k not in floats}, lam0)
+        floats.update(zip(pkeys, args[n_in:]))
+        return (floats, y), ({k: v for k, v in cf.items() if k not in floats}, lam0)
 
     # a dual may not be a broadcast view
-    fl, fl_dot, (rest, lam0) = jvp(init, (y0.contiguous(),), (y0_dot.contiguous(),), has_aux=True)
+    inputs = tuple(t.contiguous() for t in inputs)
+    dots = tuple(t.contiguous() for t in dots)
+    if batched:
+        out, out_dot, (rest, lam0) = torch.func.vmap(
+            lambda *d: jvp(init, inputs, d, has_aux=True), out_dims=(None, 0, None)
+        )(*dots)
+    else:
+        out, out_dot, (rest, lam0) = jvp(init, inputs, dots, has_aux=True)
+    (fl, y0), (fl_dot, y0_dot) = out, out_dot
     keys = list(fl)
     cf = {**fl, **{_DOT + k: v for k, v in fl_dot.items()}, **rest}
-    cf = _run_loop(_tangent_step(body, keys), cf, p.max_steps)
+    step = _with_params(body, slots) if slots else body
+    cf = _run_loop(_tangent_step(step, keys, batched), cf, p.max_steps)
     fl = {k: cf[k].contiguous() for k in keys}
     fl_dot = {k: cf[_DOT + k].contiguous() for k in keys}
     rest = {k: v for k, v in cf.items() if k not in fl and not k.startswith(_DOT)}
     if polish:
-        (y_f, lam_f), (y_dot, lam_dot) = jvp(
-            lambda c: _polish_carry_hits(p, {**c, **rest}, c["y"], c["lam"]), (fl,), (fl_dot,)
-        )
+
+        def polished(c):
+            with bound(slots, [c[k] for k in pkeys]):
+                return _polish_carry_hits(p, {**c, **rest}, c["y"], c["lam"]), {}
+
+        (y_f, lam_f), (y_dot, lam_dot), _ = _jvp_maybe_batched(polished, fl, fl_dot, batched)
     else:
         y_f, lam_f, y_dot, lam_dot = fl["y"], fl["lam"], fl_dot["y"], fl_dot["lam"]
 
@@ -650,9 +746,260 @@ def _integrate_with_tangent(p: _Problem, body, y0, y0_dot, lam_span, polish: boo
             y=y_dot,
             lam=lam_dot,
             y0=y0_dot,
-            lam0=torch.zeros_like(lam0),
+            lam0=torch.zeros_like(lam_dot),
             traj=fl_dot.get("traj"),
             traj_lam=fl_dot.get("traj_lam"),
             **ints,
         ),
     )
+
+
+def integrate_rays_lifted(f, make_y0, inputs, dots, lam_span, *, slots=(), batched=False, **kw):
+    """`integrate_rays` from ``y0 = make_y0(*inputs)`` with the tangent
+    along ``dots`` carried explicitly, ``slots`` (`lifting`) holding the
+    last ``len(slots)`` inputs: the forward-mode derivative with respect
+    to the metric's and geometry's parameters whose loop, on a CUDA tensor,
+    replays one captured body (`tracing.trace_geodesics` under a
+    `torch.func` transform). ``kw``: the keywords of `integrate_rays`.
+    Returns the pair (`IntegrationResult`, its tangent); with ``batched``
+    the tangents hold K tangents on a leading axis, all carried through one
+    pass."""
+    p = _Problem(f=f, **kw)
+    body = _make_body(p, inputs[0].dtype, inputs[0].device)
+    polish = p.crossing_fn is not None and p.terminate_on_hit
+    return _integrate_lifted(p, body, make_y0, inputs, dots, lam_span, polish, slots, batched)
+
+
+def integrate_rays_checkpointed(
+    f: Callable,
+    y0,
+    lam_span,
+    *,
+    abstol: float,
+    reltol: float,
+    r_inner,
+    r_outer,
+    crossing_fn: Callable | None = None,
+    hit_fn: Callable | None = None,
+    terminate_fns: tuple = (),
+    n_segments: int = 64,
+    seg_steps: int = 32,
+    n_interp: int = 8,
+    dt_min: float = 1e-10,
+    bisect_iters: int = 10,
+    newton_iters: int = 3,
+    terminate_on_hit: bool = True,
+    event_method: str = "cubic",
+    slots: tuple = (),
+) -> IntegrationResult:
+    """Reverse-differentiable variant of `integrate_rays` (counterpart of
+    the reference's `integrate_rays_checkpointed`).
+
+    The adaptive loop becomes a bounded ladder of ``n_segments`` segments of
+    ``seg_steps`` loop bodies: reverse mode stores one carry a segment and
+    recomputes the bodies inside a segment during the backward sweep. A
+    segment in which no ray is alive is skipped (a host read between
+    segments). The body, the events and the Newton hit-polish are those of
+    `integrate_rays`, so the primals match it whenever ``n_segments ·
+    seg_steps`` covers the trajectory. The right-hand side is evaluated at
+    r clamped to 0.995 · ``r_inner`` and θ clipped to [1e-6, π − 1e-6], the
+    reference's reverse-mode NaN guard (states the integrator would end
+    anyway, and rays within 1e-6 rad of the pole, whose primal then
+    deviates at the clamp scale, as the reference's does).
+
+    On a CPU tensor (or within `cuda_graphs(False)`) each segment is a
+    `torch.utils.checkpoint` of its bodies. On a CUDA tensor the forward
+    replays one captured body and keeps the carry at each segment start;
+    the backward recomputes a segment's carries by replaying it, then
+    replays one captured graph of one body's vjp backwards over them,
+    adding the gradients of ``slots`` (`lifting`: the metric's and
+    geometry's tensors, which the body reads; `tracing.trace_geodesics`
+    passes them) and of the guard's floor (so of an ``r_inner`` that
+    requires grad, the metric's inner radius) into static buffers. A
+    tensor that requires grad and that ``f``, ``crossing_fn``, ``hit_fn``
+    or ``terminate_fns`` close over outside the slots raises there: its
+    gradient would be lost.
+    """
+    # the floor is read from a slot, so that the captured ladder lifts it:
+    # an r_inner that requires grad (a metric parameter's) gets its gradient
+    floor = SimpleNamespace(r=torch.as_tensor(r_inner, dtype=y0.dtype, device=y0.device) * 0.995)
+    th_eps = 1e-6
+
+    def f_safe(y):
+        r_s = torch.maximum(y[..., 1], floor.r)
+        th_s = torch.clamp(y[..., 2], th_eps, torch.pi - th_eps)
+        return f(torch.cat([y[..., :1], r_s[..., None], th_s[..., None], y[..., 3:]], dim=-1))
+
+    kw = dict(
+        abstol=abstol, reltol=reltol, r_inner=r_inner, r_outer=r_outer, crossing_fn=crossing_fn,
+        hit_fn=hit_fn, terminate_fns=terminate_fns, max_steps=n_segments * seg_steps, n_interp=n_interp,
+        dt_min=dt_min, bisect_iters=bisect_iters, newton_iters=newton_iters,
+        terminate_on_hit=terminate_on_hit, event_method=event_method,
+    )  # fmt: skip
+    p = _Problem(f=f_safe, **kw)
+    cf, lam0 = _init_carry(p, y0, lam_span)
+    body = _make_body(p, y0.dtype, y0.device)
+    if _graphed(cf):
+        # the body only compares r with r_inner: its gradient is the floor's
+        roots = dict(f=f, crossing_fn=crossing_fn, hit_fn=hit_fn, terminate_fns=terminate_fns)
+        cf = _captured_ladder(body, cf, n_segments, seg_steps, (*slots, (floor, "r")), roots)
+    else:
+        cf = _checkpointed_ladder(body, cf, n_segments, seg_steps)
+
+    y_f, lam_f = cf["y"], cf["lam"]
+    if crossing_fn is not None and terminate_on_hit:
+        y_f, lam_f = _polish_carry_hits(p, cf, y_f, lam_f)
+    return IntegrationResult(
+        y=y_f, lam=lam_f, y0=y0, lam0=lam0, status=cf["status"], steps=cf["steps"], failed=cf["failed"]
+    )
+
+
+def _checkpointed_ladder(body, cf: dict, n_segments: int, seg_steps: int):
+    """The segment ladder uncaptured: each segment a non-reentrant
+    `torch.utils.checkpoint` of its ``seg_steps`` bodies while autograd
+    records, the bodies themselves when it does not."""
+
+    def segment(c):
+        for _ in range(seg_steps):
+            c = body(c)
+        return c
+
+    _tell("loop", tangent=False, graphed=False)
+    iters = 0
+    for _ in range(n_segments):
+        if not bool(cf["alive"].any()):
+            break
+        _tell("block", iterations=iters)
+        if torch.is_grad_enabled():
+            cf = torch.utils.checkpoint.checkpoint(segment, cf, use_reentrant=False)
+        else:
+            cf = segment(cf)
+        iters += seg_steps
+    _tell("end", iterations=iters)
+    return cf
+
+
+def _captured_ladder(body, cf: dict, n_segments: int, seg_steps: int, slots, roots: dict):
+    """The segment ladder on a CUDA tensor: `_CapturedLadder` over the
+    carry's float entries and the float tensors of ``slots``."""
+    slots = [s for s, t in zip(slots, slot_values(slots)) if t.is_floating_point()]
+    params = slot_values(slots)
+    leak = find_unlifted(roots, params, lambda t: t.requires_grad)
+    if leak is not None:
+        raise RuntimeError(
+            f"{leak} requires grad but is not among the tensors the captured checkpointed backward "
+            "lifts (the metric's and the geometry's buffers and tensor fields): its gradient would "
+            "be lost. Hold it in a buffer or tensor field of the metric or the geometry, or run "
+            "within cuda_graphs(False)"
+        )
+    ladder = _Ladder(body, cf, n_segments, seg_steps, slots)
+    out = _CapturedLadder.apply(ladder, *(cf[k] for k in ladder.keys), *params)
+    n = len(ladder.keys)
+    return {**dict(zip(ladder.keys, out[:n])), **dict(zip(ladder.int_keys, out[n:]))}
+
+
+class _Ladder:
+    """The state of one captured segment ladder: the primal body's graph,
+    its static carry, the carries at the segment starts, and (made at the
+    first backward) the graph of one body's vjp."""
+
+    def __init__(self, body, cf, n_segments, seg_steps, slots):
+        self.keys = [k for k, v in cf.items() if v.is_floating_point()]
+        self.int_keys = [k for k in cf if k not in self.keys]
+        self.ints = {k: cf[k] for k in self.int_keys}
+        self.n_segments, self.seg_steps = n_segments, seg_steps
+        self.slots, self.pkeys = slots, _param_keys(slots)
+        self.step = _with_params(body, slots)
+        self.starts = []
+
+    def forward(self, floats):
+        n = len(self.keys)
+        static = {k: v.detach().clone(memory_format=torch.contiguous_format) for k, v in zip(self.keys, floats)}
+        static.update({k: v.clone(memory_format=torch.contiguous_format) for k, v in self.ints.items()})
+        static.update({k: v.detach().clone() for k, v in zip(self.pkeys, floats[n:])})
+        self.static, self.graph = static, None
+        _tell("loop", tangent=False, graphed=True)
+        iters = 0
+        for _ in range(self.n_segments):
+            if not bool(static["alive"].any()):
+                break
+            _tell("block", iterations=iters)
+            if self.graph is None:
+                self.graph = _capture(self.step, static)
+            self.starts.append({k: v.clone() for k, v in static.items()})
+            for _ in range(self.seg_steps):
+                self.graph.replay()
+            iters += self.seg_steps
+        _tell("end", iterations=iters)
+        return tuple(static[k].clone() for k in self.keys) + tuple(static[k].clone() for k in self.int_keys)
+
+    def _capture_vjp(self):
+        """A CUDA graph of one body's vjp: from the carry ``vin`` and the
+        cotangent of the body's float outputs ``vct``, it writes the
+        cotangent of its float inputs into ``vct`` and adds the slots'
+        gradients into ``grads``."""
+        dev = self.static["alive"].device
+        self.vin = {k: v.clone() for k, v in self.static.items()}
+        self.vct = {k: torch.zeros_like(self.static[k]) for k in self.keys}
+        self.grads = [torch.zeros_like(self.static[k]) for k in self.pkeys]
+        ints = {k: self.vin[k] for k in self.int_keys}
+
+        def vjp_step():
+            def fun(fl, pr):
+                out = self.step({**fl, **ints, **dict(zip(self.pkeys, pr))})
+                return {k: out[k] for k in self.keys}
+
+            fl = {k: self.vin[k] for k in self.keys}
+            _, vjp_fn = torch.func.vjp(fun, fl, [self.vin[k] for k in self.pkeys])
+            return vjp_fn({k: self.vct[k] for k in self.keys})
+
+        def work():
+            ct_fl, ct_p = vjp_step()
+            for k in self.keys:
+                self.vct[k].copy_(ct_fl[k])
+            for g, c in zip(self.grads, ct_p):
+                g.add_(c)
+
+        return _graph_of(vjp_step, work, dev, backward=True)
+
+    def backward(self, cts):
+        ct = [torch.zeros_like(self.static[k]) if c is None else c for k, c in zip(self.keys, cts)]
+        if not self.starts:
+            return (*ct, *(torch.zeros_like(self.static[k]) for k in self.pkeys))
+        vgraph = self._capture_vjp()
+        for k, c in zip(self.keys, ct):
+            self.vct[k].copy_(c)
+        _tell("loop", tangent=False, graphed=True, backward=True)
+        for start in reversed(self.starts):
+            # the segment's carries, recomputed by the primal graph
+            for k, v in start.items():
+                self.static[k].copy_(v)
+            carries = [start]
+            for _ in range(self.seg_steps - 1):
+                self.graph.replay()
+                carries.append({k: v.clone() for k, v in self.static.items()})
+            for c in reversed(carries):
+                for k, v in c.items():
+                    self.vin[k].copy_(v)
+                vgraph.replay()
+        _tell("end", iterations=len(self.starts) * self.seg_steps, backward=True)
+        return (*(self.vct[k].clone() for k in self.keys), *(g.clone() for g in self.grads))
+
+
+class _CapturedLadder(torch.autograd.Function):
+    """The captured segment ladder (`_Ladder`) as an autograd node: inputs
+    the carry's float entries and the slots' tensors, outputs the final
+    carry's float and then integer entries."""
+
+    @staticmethod
+    def forward(ladder, *tensors):
+        return ladder.forward(tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ladder = inputs[0]
+        ctx.mark_non_differentiable(*output[len(ctx.ladder.keys) :])
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, *ctx.ladder.backward(cts[: len(ctx.ladder.keys)]))

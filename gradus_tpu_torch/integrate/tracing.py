@@ -12,13 +12,17 @@ Lorentz force ``(q/μ)·F·v`` (reference `src/metrics/kerr-newman-ad.jl:74-102`
 plane of constant θ (9 slots). `PoloidalShape` and `event_horizon_chart`
 give a θ-dependent inner chart bound.
 
-Not ported yet, and raising `NotImplementedError`: ``checkpointed=True``
-(ROADMAP queue A, item 11). `Tracer`, which wraps the reference's
-`CompactedIntegrator`, is not here (item 13).
+`trace_geodesics(..., checkpointed=True)` runs the reverse-mode segment
+ladder (`solver.integrate_rays_checkpointed`); under a `torch.func`
+transform on a CUDA tensor a trace is `_LiftedTrace`, whose loop carries
+the parameters' tangents (`lifting`). `Tracer` traces in segments with a
+progress hook, on the CUDA integrator where it takes the configuration (the
+reference's wraps `CompactedIntegrator`, which the port does not have).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -29,10 +33,14 @@ import torch
 from gradus_tpu_torch import config as _config
 from gradus_tpu_torch.geodesics.equation import constrain_all, geodesic_equation
 from gradus_tpu_torch.integrate.points import GeodesicPoint, unpack_solution
-from gradus_tpu_torch.integrate.solver import integrate_rays
+from gradus_tpu_torch.integrate import lifting, solver
+from gradus_tpu_torch.integrate.lifting import slot_values, tensor_slots
+from gradus_tpu_torch.integrate.solver import integrate_rays, integrate_rays_checkpointed
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
 from gradus_tpu_torch.utils.jvp import jvp
+
+_is_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
 
 __all__ = [
     "TraceGeodesic",
@@ -47,6 +55,7 @@ __all__ = [
     "tracegeodesics",
     "PoloidalShape",
     "event_horizon_chart",
+    "Tracer",
 ]
 
 
@@ -75,14 +84,23 @@ def make_geodesic_rhs(m: AbstractMetric, trace: TraceGeodesic | None = None):
     """RHS over (..., 8) states. With a charge q ≠ 0 it adds the Lorentz
     force (q/μ)·F^μ_ν v^ν (μ = 1 for a null trace), F from the metric's
     `electromagnetic_potential` (`metrics/kerr_newman.py::faraday_tensor`,
-    batched over the rays, its index sums elementwise)."""
-    if trace is not None and float(trace.q) != 0.0:
-        from gradus_tpu_torch.metrics.kerr_newman import faraday_tensor
+    batched over the rays, its index sums elementwise). A q or μ that
+    cannot be read as a number, because it is under a `torch.func`
+    transform or requires grad, counts as nonzero, as the reference's
+    `_is_nonzero` counts a traced one."""
+    charged = trace is not None and _is_nonzero(trace.q)
+    return _geodesic_rhs(m, trace, charged, charged and _is_nonzero(trace.mu))
 
-        q_over_mu = trace.q / (trace.mu if float(trace.mu) != 0.0 else 1.0)
+
+def _geodesic_rhs(m, trace, charged: bool, mu_nonzero: bool):
+    """`make_geodesic_rhs` with its branches chosen: the RHS reads the
+    metric's buffers and the trace's q and μ when it is called."""
+    if charged:
+        from gradus_tpu_torch.metrics.kerr_newman import faraday_tensor
 
         def f(y):
             x, v = y[..., 0:4], y[..., 4:8]
+            q_over_mu = trace.q / (trace.mu if mu_nonzero else 1.0)
             lorentz = q_over_mu * (faraday_tensor(m, x) * v[..., None, :]).sum(dim=-1)
             return torch.cat([v, geodesic_equation(m, x, v) + lorentz], dim=-1)
 
@@ -93,6 +111,14 @@ def make_geodesic_rhs(m: AbstractMetric, trace: TraceGeodesic | None = None):
         return torch.cat([v, geodesic_equation(m, x, v)], dim=-1)
 
     return f
+
+
+def _is_nonzero(val) -> bool:
+    """Whether ``val`` may be nonzero: a tensor under a `torch.func`
+    transform or one that requires grad may be (reference `_is_nonzero`)."""
+    if isinstance(val, torch.Tensor) and (_is_wrapped(val) or val.requires_grad):
+        return True
+    return float(val) != 0.0
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,23 +196,41 @@ def trace_geodesics(
     the bits of `torch.func.jvp` around the trace, and on a CUDA tensor the
     derivative whose loop replays a CUDA graph.
 
+    Under a `torch.func` transform (`torch.func.jvp`, `jacfwd`, and so
+    `diff.fwd_adjoint`) on a CUDA tensor, the trace is `_LiftedTrace`: the
+    loop replays a captured body whose carry holds the metric's and the
+    geometry's tensors and the trace's fields (`lifting`) with their
+    tangents, K tangents of a `jacfwd` in one pass. A tensor under the
+    transform that the trace reads from elsewhere (a user's callable's
+    closure, say) raises there.
+
     A charge ``q`` ≠ 0 adds the Lorentz force (`make_geodesic_rhs`), and
     ``chart_inner`` may be a θ-dependent `PoloidalShape`
-    (`event_horizon_chart`). ``checkpointed=True`` (the
-    reverse-differentiable segment ladder) is not ported yet;
-    ``n_segments`` and ``seg_steps`` belong to it.
+    (`event_horizon_chart`).
+
+    ``checkpointed=True`` runs `integrate_rays_checkpointed` instead, the
+    reverse-differentiable ladder of ``n_segments`` segments of
+    ``seg_steps`` steps (``max_steps`` does not apply); a segment-based
+    geometry (`MeshAccretionGeometry`) raises with it, as in the reference.
     """
-    if checkpointed:
-        raise NotImplementedError(
-            "checkpointed=True (integrate_rays_checkpointed) is not ported yet "
-            "(ROADMAP queue A, item 11)"
-        )
     if trace is None:
         trace = TraceGeodesic(mu=mu, q=q)
-    if chart_inner is None:
-        chart_inner = m.inner_radius() * closest_approach
-    kw = dict(r_inner=chart_inner, r_outer=chart_outer, terminate_fns=terminate_fns, max_steps=max_steps, n_interp=n_interp)
-    single, res, res_dot = _integrate(m, x, v, lam_span, trace, geometry, gtol, constrain, abstol, reltol, v_dot, kw)
+    kw = dict(
+        r_inner=chart_inner, closest_approach=closest_approach, r_outer=chart_outer,
+        terminate_fns=terminate_fns, max_steps=max_steps, n_interp=n_interp,
+    )  # fmt: skip
+    if checkpointed:
+        if geometry is not None and getattr(geometry, "segment_based", False):
+            raise NotImplementedError(
+                "checkpointed=True does not support segment-based geometry "
+                "(MeshAccretionGeometry): the segment ladder has no per-step "
+                "segment test. Use checkpointed=False."
+            )
+        del kw["max_steps"]
+        kw.update(n_segments=n_segments, seg_steps=seg_steps)
+    single, res, res_dot = _integrate(
+        m, x, v, lam_span, trace, geometry, gtol, constrain, abstol, reltol, v_dot, kw, checkpointed
+    )
     out = tuple(unpack_solution(r) for r in ((res,) if res_dot is None else (res, res_dot)))
     if single:
         out = tuple(gp[0] for gp in out)
@@ -216,18 +260,15 @@ def _geometry_events(geometry, gtol):
     return dict(crossing_fn=crossing_fn, hit_fn=hit_fn)
 
 
-def _integrate(m, x, v, lam_span, trace, geometry, gtol, constrain, abstol, reltol, v_dot, kw):
+def _integrate(m, x, v, lam_span, trace, geometry, gtol, constrain, abstol, reltol, v_dot, kw, checkpointed=False):
     """`integrate_rays` of the geodesics from (``x``, ``v``) on the device of
     ``x``, with ``geometry``'s events and the dtype's tolerances unless
-    given; ``kw`` its other keywords. Returns ``(single, result, tangent
-    result or None)``, ``single`` when ``x`` and ``v`` are one ray."""
+    given; ``kw`` its other keywords (``r_inner`` None: the metric's inner
+    radius times ``closest_approach``). ``checkpointed``: the segment
+    ladder (`integrate_rays_checkpointed`). Returns ``(single, result,
+    tangent result or None)``, ``single`` when ``x`` and ``v`` are one
+    ray."""
     single, x, v = _rays(m, geometry, x, v)
-
-    def start(v):
-        if constrain:
-            v = constrain_all(m, x, v, mu=trace.mu)
-        return torch.cat([x, v], dim=-1)
-
     a_tol, r_tol = _config.default_tols(x.dtype)
     kw = dict(kw, abstol=a_tol if abstol is None else abstol, reltol=r_tol if reltol is None else reltol)
     if geometry is not None and getattr(geometry, "segment_based", False):
@@ -238,12 +279,166 @@ def _integrate(m, x, v, lam_span, trace, geometry, gtol, constrain, abstol, relt
         kw["segment_fn"] = segment_fn
     elif geometry is not None:
         kw.update(_geometry_events(geometry, gtol))
-    f = make_geodesic_rhs(m, trace)
+    run = _Run(m, trace, geometry, constrain, lam_span, kw, checkpointed)
+    if v_dot is None and not checkpointed and _lift_route(x.device):
+        if run.under_transform(x, v):
+            return single, run.lifted(x, v), None
+        try:
+            return single, run.primal(x, v), None
+        except RuntimeError as err:
+            # a transform reached the loop through a tensor no slot holds
+            run.refuse_unlifted([], err)
+            raise
     if v_dot is None:
-        return single, integrate_rays(f, start(v), lam_span, **kw), None
-    y0, y0_dot = jvp(start, (v,), (torch.broadcast_to(_as_observer(v_dot, m), v.shape),))
-    res, res_dot = integrate_rays(f, y0, lam_span, y0_dot=y0_dot, **kw)
+        return single, run.primal(x, v), None
+    with run.resolved() as (f, kw):
+        y0, y0_dot = jvp(
+            lambda v: run.start(x, v), (v,), (torch.broadcast_to(_as_observer(v_dot, m), v.shape),)
+        )
+        res, res_dot = integrate_rays(f, y0, lam_span, y0_dot=y0_dot, **kw)
     return single, res, res_dot
+
+
+def _lift_route(device) -> bool:
+    """Whether a trace under a `torch.func` transform on ``device`` takes
+    the lifted route (`_LiftedTrace`): where the loop replays a CUDA graph."""
+    return device.type == "cuda" and solver._CUDA_GRAPHS
+
+
+class _Run:
+    """One trace's problem: the metric, trace record and geometry whose
+    tensors (`lifting.tensor_slots`, the floating ones) a lifted trace
+    binds, and the keywords of the solver."""
+
+    def __init__(self, m, trace, geometry, constrain, lam_span, kw, checkpointed):
+        self.m, self.trace, self.geometry = m, trace, geometry
+        self.constrain, self.lam_span, self.kw, self.checkpointed = constrain, lam_span, kw, checkpointed
+        self.charged = _is_nonzero(trace.q)
+        self.mu_nonzero = self.charged and _is_nonzero(trace.mu)
+
+    @functools.cached_property
+    def slots(self):
+        slots = tensor_slots(self.m, self.geometry, self.trace)
+        return [s for s, t in zip(slots, slot_values(slots)) if t.is_floating_point()]
+
+    def start(self, x, v):
+        if self.constrain:
+            v = constrain_all(self.m, x, v, mu=self.trace.mu)
+        return torch.cat([x, v], dim=-1)
+
+    @contextlib.contextmanager
+    def resolved(self, params=None):
+        """Within the block, with ``params`` bound into the slots when
+        given: the RHS and the solver's keywords, ``r_inner`` resolved."""
+        with lifting.bound(self.slots, params) if params is not None else contextlib.nullcontext():
+            kw = dict(self.kw)
+            closest = kw.pop("closest_approach")
+            if kw["r_inner"] is None:
+                kw["r_inner"] = self.m.inner_radius() * closest
+            yield _geodesic_rhs(self.m, self.trace, self.charged, self.mu_nonzero), kw
+
+    def primal(self, x, v):
+        with self.resolved() as (f, kw):
+            y0 = self.start(x, v)
+            if not self.checkpointed:
+                return integrate_rays(f, y0, self.lam_span, **kw)
+            return integrate_rays_checkpointed(f, y0, self.lam_span, slots=self.slots, **kw)
+
+    def under_transform(self, x, v) -> bool:
+        """Whether the rays or a tensor of the slots is under a `torch.func`
+        transform."""
+        return any(_is_wrapped(t) for t in (x, v, *lifting.slot_values(self.slots)))
+
+    def refuse_unlifted(self, lifted, cause=None):
+        """Raises, naming it, if a tensor the trace reads from outside
+        ``lifted`` is under a `torch.func` transform."""
+        roots = dict(metric=self.m, geometry=self.geometry, trace=self.trace, lam_span=self.lam_span, keywords=self.kw)
+        leak = lifting.find_unlifted(roots, lifted, _is_wrapped)
+        if leak is not None:
+            raise RuntimeError(
+                f"{leak} is under a torch.func transform, and the trace's captured loop lifts only x, v, "
+                "the metric's and the geometry's tensors and the trace's fields: make it one of "
+                "those, or run uncaptured within cuda_graphs(False)"
+            ) from cause
+
+    def lifted(self, x, v):
+        """`_LiftedTrace` of the rays, after a check that nothing else the
+        trace reads is under the transform."""
+        params = lifting.slot_values(self.slots)
+        self.refuse_unlifted([x, v, *params])
+        # a dual may not be a broadcast view
+        x, v = x.contiguous(), v.contiguous()
+        y, lam, y0, lam0, status, steps, failed = _LiftedTrace.apply(self, x, v, *params)
+        return solver.IntegrationResult(y=y, lam=lam, y0=y0, lam0=lam0, status=status, steps=steps, failed=failed)
+
+    def tangents(self, primals, dots, batched: bool):
+        """The tangents (y, λ, y0, λ0) of the trace from ``primals`` = (x,
+        v, *params) along ``dots``, carried through the loop."""
+        # r_inner from the primal parameters; the loop binds them again
+        with self.resolved(primals[2:]) as (f, kw):
+            pass
+        with torch.no_grad():
+            res, res_dot = solver.integrate_rays_lifted(
+                f, self.start, primals, dots, self.lam_span, slots=self.slots, batched=batched, **kw
+            )
+        return res_dot.y, res_dot.lam, res_dot.y0, res_dot.lam0
+
+
+class _LiftedTrace(torch.autograd.Function):
+    """A trace whose inputs are the rays and the slots' tensors (`_Run`),
+    so that a `torch.func` transform reaches its captured loop through the
+    rules here: the forward is the captured primal trace; the jvp is
+    `_LiftedTangent`, the captured explicit-tangent loop; under a vmap
+    (`jacfwd`'s), the primal is unbatched and the K tangents ride in one
+    pass. Outputs: y, λ, y0, λ0, status, steps, failed."""
+
+    @staticmethod
+    def forward(run, x, v, *params):
+        # reverse mode does not pass through (the function has no backward)
+        with torch.no_grad(), lifting.bound(run.slots, params):
+            res = run.primal(x, v)
+        # an output may not be a broadcast view
+        return tuple(t.contiguous() for t in (res.y, res.lam, res.y0, res.lam0, res.status, res.steps, res.failed))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.run = inputs[0]
+        ctx.save_for_forward(*inputs[1:])
+        ctx.mark_non_differentiable(*output[4:])
+
+    @staticmethod
+    def vmap(info, in_dims, run, x, v, *params):
+        if any(d is not None for d in in_dims[1:]):
+            raise RuntimeError("a batch of traces under vmap: the captured trace takes one batch of rays")
+        return _LiftedTrace.apply(run, x, v, *params), (None,) * 7
+
+    @staticmethod
+    def jvp(ctx, _run, *dots):
+        primals = ctx.saved_tensors
+        dots = [torch.zeros_like(p) if d is None else d for p, d in zip(primals, dots)]
+        return (*_LiftedTangent.apply(ctx.run, len(primals), *primals, *dots), None, None, None)
+
+
+class _LiftedTangent(torch.autograd.Function):
+    """The tangents of `_LiftedTrace` from its primals and their tangents
+    (``n`` of each): one explicit-tangent pass, and under a vmap of the
+    tangents one pass for all K (`integrate_rays_lifted`)."""
+
+    @staticmethod
+    def forward(run, n, *tensors):
+        return run.tangents(tensors[:n], tensors[n:], batched=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, run, n, *tensors):
+        if any(d is not None for d in in_dims[2 : 2 + n]):
+            raise RuntimeError("a batch of traces under vmap: the captured trace takes one batch of rays")
+        k = info.batch_size
+        dots = [t.expand(k, *t.shape) if d is None else t.movedim(d, 0) for t, d in zip(tensors[n:], in_dims[2 + n :])]
+        return run.tangents(tensors[:n], dots, batched=True), (0, 0, 0, 0)
 
 
 def trace_geodesics_dense(
@@ -276,7 +471,7 @@ def trace_geodesics_dense(
     traj_lam_dot, n_steps)``, the tangent carried through the lockstep loop
     as `trace_geodesics(..., v_dot=...)` carries it: on a CUDA tensor the
     loop still replays a CUDA graph."""
-    kw = dict(r_inner=m.inner_radius() * 1.01, r_outer=chart_outer, max_steps=max_steps, n_save=n_save)
+    kw = dict(r_inner=None, closest_approach=1.01, r_outer=chart_outer, max_steps=max_steps, n_save=n_save)
     single, res, res_dot = _integrate(
         m, x, v, lam_span, TraceGeodesic(mu=mu, q=q), geometry, gtol, constrain, abstol, reltol, v_dot, kw
     )
@@ -316,6 +511,136 @@ def tracegeodesics(m, x, v=None, lam_span=(0.0, 2000.0), **kwargs):
         kwargs.setdefault("constrain", False)
         return trace_geodesics(m, x_src.expand_as(vs), vs, span, **kwargs)
     return trace_geodesics(m, x, v, lam_span, **kwargs)
+
+
+def _segment_schedule(segment_iters: int, schedule):
+    """The reference's growing schedule of segment lengths: pairs of
+    ``segment_iters // 4`` (at least 8), doubling up to ``segment_iters``,
+    which every later segment has."""
+    if schedule is not None:
+        return tuple(schedule)
+    s, seq = max(segment_iters // 4, 8), []
+    while s < segment_iters:
+        seq.extend([s, s])
+        s *= 2
+    return tuple(seq) or (segment_iters,)
+
+
+class Tracer:
+    """Reusable tracer over a fixed (metric, geometry) pair (counterpart of
+    the reference's `Tracer`, with the same constructor).
+
+    Where the CUDA integrator takes the configuration (a CUDA tensor, a
+    geodesic trace without charge, no ``terminate_fns``, a geometry that
+    `CudaTracer` takes) it traces in segments, `CudaTracer.trace` with
+    ``segments``: a pass of the integrator capped at each segment's length,
+    after which the rays still in flight resume where they stopped (bit for
+    bit a single pass). They resume alone, compacted, once the least
+    bucket of ``min_bucket`` · 4^k rays that holds them is narrower than
+    the pass (the reference's rule); until then the next pass keeps its
+    width. Elsewhere (a CPU tensor, a charge, ``terminate_fns``, any
+    other geometry) it runs `trace_geodesics`, whose lockstep loop keeps
+    the whole batch: ``min_bucket`` does not act there, and a segment ends
+    at the first alive check (every 16 iterations) at or after its length.
+
+    ``segment_iters`` and ``segment_schedule`` give the segments' lengths:
+    the schedule's entries, then ``segment_iters`` each (by default the
+    reference's growing schedule, `_segment_schedule`). ``progress``, if
+    given, is called after each segment with a dict of ``segment``,
+    ``width`` (the rays the segment ran), ``executed_iters`` (loop
+    iterations so far), ``alive`` (rays still in flight) and ``total``.
+    Not differentiable: use `trace_geodesics` under a transform.
+    """
+
+    def __init__(
+        self,
+        m: AbstractMetric,
+        *,
+        mu: float = 0.0,
+        q: float = 0.0,
+        trace=None,
+        geometry=None,
+        gtol: float = 1e-2,
+        chart_inner=None,
+        chart_outer: float = 12000.0,
+        closest_approach: float = 1.01,
+        abstol: float | None = None,
+        reltol: float | None = None,
+        max_steps: int = 40000,
+        terminate_fns: tuple = (),
+        n_interp: int = 8,
+        segment_iters: int = 96,
+        min_bucket: int = 8192,
+        segment_schedule: tuple | None = None,
+        dtype=None,
+        progress=None,
+    ):
+        self.m = m
+        self.trace = TraceGeodesic(mu=mu, q=q) if trace is None else trace
+        self.geometry = geometry
+        self.kw = dict(
+            gtol=gtol, chart_inner=chart_inner, chart_outer=chart_outer, closest_approach=closest_approach,
+            abstol=abstol, reltol=reltol, max_steps=max_steps, terminate_fns=terminate_fns, n_interp=n_interp,
+        )  # fmt: skip
+        self.dtype = dtype
+        self.segment_iters = segment_iters
+        self.min_bucket = min_bucket
+        self.segment_schedule = _segment_schedule(segment_iters, segment_schedule)
+        self.progress = progress
+
+    def _segment_len(self, k: int) -> int:
+        return self.segment_schedule[k] if k < len(self.segment_schedule) else self.segment_iters
+
+    def _on_kernel(self, device, dtype) -> bool:
+        from gradus_tpu_torch.integrate import cuda_solver
+
+        if device.type != "cuda" or self.kw["terminate_fns"] or type(self.trace) is not TraceGeodesic:
+            return False
+        if _is_nonzero(self.trace.q):
+            return False
+        try:
+            cuda_solver._check_kernel_config(self.m, self.geometry, dtype)
+        except NotImplementedError:
+            return False
+        return True
+
+    def __call__(self, x, v, lam_span, constrain: bool = True) -> GeodesicPoint:
+        _, x, v = _rays(self.m, self.geometry, x, v)
+        if self._on_kernel(x.device, x.dtype):
+            return self._kernel(x, v, lam_span, constrain)
+        return self._lockstep(x, v, lam_span, constrain)
+
+    def _lockstep(self, x, v, lam_span, constrain):
+        kw = self.kw
+        n, state = x.shape[0], dict(segment=0, end=self._segment_len(0))
+
+        def observer(event, iterations=0, alive=None, **_):
+            if self.progress is None or event not in ("block", "end") or iterations == 0:
+                return
+            if event == "block" and iterations < state["end"]:
+                return
+            state["segment"] += 1
+            state["end"] = iterations + self._segment_len(state["segment"])
+            self.progress(dict(segment=state["segment"], width=n, executed_iters=iterations, alive=alive, total=n))
+
+        with solver.observe_loops(observer):
+            return trace_geodesics(
+                self.m, x, v, lam_span, trace=self.trace, geometry=self.geometry, constrain=constrain, **kw
+            )
+
+    def _kernel(self, x, v, lam_span, constrain):
+        from gradus_tpu_torch.integrate import cuda_solver
+
+        kw = self.kw
+        tracer = cuda_solver.CudaTracer(
+            self.m, mu=self.trace.mu, geometry=self.geometry, gtol=kw["gtol"], chart_inner=kw["chart_inner"],
+            chart_outer=kw["chart_outer"], closest_approach=kw["closest_approach"], abstol=kw["abstol"],
+            reltol=kw["reltol"], max_steps=kw["max_steps"], n_interp=kw["n_interp"], dtype=self.dtype,
+        )  # fmt: skip
+        schedule = (*self.segment_schedule, self.segment_iters)
+        gp = tracer(x, v, lam_span, constrain, segments=schedule, progress=self.progress, min_bucket=self.min_bucket)
+        self.last_aux = tracer.last_aux
+        return gp
 
 
 def make_radiative_transfer_rhs(m: AbstractMetric, trace, geometry, r_isco=None):

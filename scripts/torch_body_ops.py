@@ -24,7 +24,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from gradus_tpu_torch.camera import map_impact_parameters  # noqa: E402
 from gradus_tpu_torch.geometry import AbstractThickAccretionDisc, MeshAccretionGeometry, ThinDisc  # noqa: E402
-from gradus_tpu_torch.integrate import solver  # noqa: E402
+from gradus_tpu_torch.integrate import solver, tracing  # noqa: E402
 from gradus_tpu_torch.integrate.tracing import (  # noqa: E402
     event_horizon_chart,
     trace_geodesics,
@@ -66,13 +66,14 @@ class _Slab(AbstractThickAccretionDisc):
         return torch.ones(x4.shape[:-1], dtype=x4.dtype, device=x4.device)
 
 
-def body_ops(call):
-    """The ops of the first loop body that ``call()`` runs."""
+def body_ops(call, tangent=False):
+    """The ops of the first loop body that ``call()`` runs (with
+    ``tangent``, of the first that carries a tangent)."""
     seen = {}
     run = solver._run_loop
 
     def counting(step, cf, max_steps):
-        if not seen:
+        if not seen and (not tangent or any(k.startswith(solver._DOT) for k in cf)):
             with _Count() as c:
                 step(cf)
             seen.update(ops=c.ops, slots=int(cf["y"].shape[-1]))
@@ -110,7 +111,26 @@ def main():
         "radiative_transfer": lambda: trace_radiative_transfer(kerr, xs, v, (0, 2200), geometry=_Slab()),
         "mesh_256_triangles": lambda: trace_geodesics(kerr, xs, v, (0, 2200), geometry=mesh),
     }
-    print(json.dumps({name: body_ops(call) for name, call in problems.items()}))
+    out = {name: body_ops(call) for name, call in problems.items()}
+
+    def redshift_pixels(a, incl):
+        m = KerrMetric(1.0, a, **kw)
+        z = torch.zeros((), **kw)
+        xo = torch.stack([z, z + 1000.0, incl, z])
+        vv = map_impact_parameters(m, xo, A, B)
+        return trace_geodesics(m, xo.expand_as(vv), vv, (0, 2200), geometry=disc).x
+
+    # the tangent loop of a parameter Jacobian on the card's route
+    # (`tracing._LiftedTrace`, chip_smoke.py's adjoint_render): one and two
+    # tangents of (a, i) in the carry
+    tracing._lift_route = lambda device: True
+    p = (torch.tensor(0.998, **kw), torch.tensor(math.radians(75.0), **kw))
+    one = (torch.ones_like(p[0]), torch.zeros_like(p[1]))
+    out["kerr_thin_disc_param_jvp"] = body_ops(lambda: torch.func.jvp(redshift_pixels, p, one), tangent=True)
+    out["kerr_thin_disc_param_jacfwd_2"] = body_ops(
+        lambda: torch.func.jacfwd(redshift_pixels, argnums=(0, 1))(*p), tangent=True
+    )
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

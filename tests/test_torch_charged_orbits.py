@@ -76,6 +76,36 @@ def test_charged_rhs_matches_jax(mu):
     assert np.abs(got - uncharged).max() > 1e-3  # the force is there
 
 
+
+@pytest.mark.parametrize("q0", [0.3, 0.0])
+def test_charged_rhs_jvp_in_q_matches_jax(q0):
+    """`torch.func.jvp` of the charged RHS with respect to q against
+    `jax.jvp` of the JAX package's with respect to q, on 64 seeded
+    timelike states: rtol 1e-12. A q of 0 under the transform (or one that
+    requires grad) takes the charged branch, as the reference's
+    `_is_nonzero` takes it for a traced q: its tangent is the Lorentz
+    force per unit charge, not 0."""
+    jm, tm = _pair(JaxKN, "KerrNewmanMetric", **KN)
+    rng = np.random.default_rng(12)
+    n = 64
+    x = np.stack([np.zeros(n), rng.uniform(3.0, 40.0, n), rng.uniform(0.2, math.pi - 0.2, n), rng.uniform(0, 6, n)], -1)
+    y = np.concatenate([x, rng.normal(size=(n, 4))], -1)
+    yt = torch.as_tensor(y)
+
+    def rhs(q):
+        return make_geodesic_rhs(tm, TraceGeodesic(mu=1.0, q=q))(yt)
+
+    got, got_dot = torch.func.jvp(rhs, (torch.tensor(q0, dtype=torch.float64),), (torch.tensor(1.0, dtype=torch.float64),))
+    want, want_dot = jax.jvp(
+        lambda q: jax_rhs(jm, JaxTrace(mu=1.0, q=q))(jnp.asarray(y)), (jnp.asarray(q0),), (jnp.asarray(1.0),)
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(got_dot.numpy(), np.asarray(want_dot), rtol=1e-12, atol=1e-14)
+    assert np.abs(got_dot.numpy()).max() > 1e-3
+    q = torch.tensor(q0, dtype=torch.float64, requires_grad=True)
+    (grad,) = torch.autograd.grad(rhs(q).sum(), q)
+    np.testing.assert_allclose(float(grad), float(np.asarray(want_dot).sum()), rtol=1e-12)
+
 def _charged_orbit_states(jm, r, q):
     """Timelike states on the charged circular orbits the JAX package
     gives at radii ``r``, with a small radial kick so they oscillate."""

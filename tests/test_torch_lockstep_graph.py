@@ -35,7 +35,8 @@ import gradus_tpu_torch.geometry.discs as td  # noqa: E402
 import gradus_tpu_torch.integrate.solver as solver  # noqa: E402
 from gradus_tpu_torch import metrics  # noqa: E402
 from gradus_tpu_torch.camera import map_impact_parameters  # noqa: E402
-from gradus_tpu_torch.integrate import StatusCodes, cuda_graphs, trace_geodesics  # noqa: E402
+from gradus_tpu_torch.geodesics.equation import constrain_all  # noqa: E402
+from gradus_tpu_torch.integrate import StatusCodes, cuda_graphs, make_geodesic_rhs, trace_geodesics  # noqa: E402
 from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
 from gradus_tpu_torch.utils.jvp import jvp  # noqa: E402
 
@@ -266,11 +267,23 @@ def test_every_geometry_captures(dev):
 
 @pytest.mark.cuda
 def test_transform_around_a_captured_loop_raises(dev):
+    """A transform around `integrate_rays`' captured loop raises; around
+    `trace_geodesics` it is lifted into the loop (`tracing._LiftedTrace`),
+    the bits of the uncaptured jvp."""
     m, x, A, B, d = _flagship(dev, torch.float64, 8)
+    v = map_impact_parameters(m, x, A, B)
+    y0 = torch.cat([x.expand_as(v), constrain_all(m, x.expand_as(v), v)], dim=-1)
+    f = make_geodesic_rhs(m)
+
+    def endpoints(y):
+        return solver.integrate_rays(f, y, SPAN, abstol=1e-9, reltol=1e-9, r_inner=1.1, r_outer=1200.0).y
+
     with pytest.raises(RuntimeError, match="torch.func transform"):
-        torch.func.jvp(_hit_x(m, x, A, d), (B,), (torch.ones_like(B),))
+        torch.func.jvp(endpoints, (y0,), (torch.ones_like(y0),))
+    got = torch.func.jvp(_hit_x(m, x, A, d), (B,), (torch.ones_like(B),))
     with cuda_graphs(False):
-        torch.func.jvp(_hit_x(m, x, A, d), (B,), (torch.ones_like(B),))
+        want = torch.func.jvp(_hit_x(m, x, A, d), (B,), (torch.ones_like(B),))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _branches_equal(a, b):
@@ -468,3 +481,117 @@ def test_captured_shaped_chart_matches_uncaptured(dev, name):
     )
     _equal(got, want)
     assert stats["captures"] == 1 and bool((got.status == StatusCodes.WithinInnerBoundary).any())
+
+
+def _mean_redshift_64(dev):
+    """The redshift of 8×8 rays of tests/test_reverse_mode.py's grid at r =
+    100 (λ ≤ 300, ThinDisc(0, 50), f64) as a function of (a, i)."""
+    from gradus_tpu_torch.redshift import redshift_pointfunction
+
+    def g(a, incl):
+        m = KerrMetric(1.0, a, device=dev)
+        d = td.ThinDisc(0.0, 50.0, dtype=torch.float64, device=dev)
+        z = torch.zeros((), dtype=torch.float64, device=dev)
+        x = torch.stack([z, z + 100.0, incl, z])
+        al = torch.linspace(-12.0, 12.0, 8, dtype=torch.float64, device=dev) + 1e-3
+        be = torch.linspace(-8.0, 8.0, 8, dtype=torch.float64, device=dev) + 1e-3
+        v = map_impact_parameters(m, x, al[:, None].expand(8, 8).reshape(-1), be[None, :].expand(8, 8).reshape(-1))
+        gp = trace_geodesics(m, x.expand_as(v), v, (0.0, 300.0), geometry=d)
+        return torch.where(gp.status == StatusCodes.IntersectedWithGeometry, redshift_pointfunction(m, x)(m, gp, 300.0), 0.0)
+
+    return g
+
+
+@pytest.mark.cuda
+def test_captured_parameter_tangents_match_uncaptured(dev):
+    """The parameters' tangents carried through the captured loop
+    (`tracing._LiftedTrace`): `torch.func.jvp` along (a, i) and `jacfwd`
+    (both tangents in one pass) on 64 rays at r = 100, λ ≤ 300, bit for
+    bit the uncaptured transforms' (`cuda_graphs(False)`)."""
+    g = _mean_redshift_64(dev)
+    p = (torch.tensor(0.6, dtype=torch.float64, device=dev), torch.tensor(math.radians(70.0), dtype=torch.float64, device=dev))
+    t = (torch.tensor(1.0, dtype=torch.float64, device=dev), torch.tensor(0.5, dtype=torch.float64, device=dev))
+    events = _Events()
+    with solver.observe_loops(events):
+        got = torch.func.jvp(g, p, t)
+        got_jac = torch.func.jacfwd(g, argnums=(0, 1))(*p)
+    with cuda_graphs(False):
+        want = torch.func.jvp(g, p, t)
+        want_jac = torch.func.jacfwd(g, argnums=(0, 1))(*p)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, b in zip(got_jac, want_jac):
+        assert torch.equal(a, b)
+    assert sum(e == "capture" for e, _ in events) == 4  # a primal and a tangent loop each
+    assert float(got[1].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_captured_checkpointed_backward_matches_uncaptured(dev):
+    """The checkpointed ladder's captured backward against the uncaptured
+    `torch.utils.checkpoint` one (`cuda_graphs(False)`), on 8×8 of
+    tests/test_checkpointed_adjoint.py's rays, with respect to the 128
+    heights and the spin a (a metric buffer that requires grad, so also the
+    rays' start and the ladder's NaN-guard floor): the loss bit for bit,
+    the gradients within 1e-12 of their largest entry (autograd and
+    `torch.func.vjp` may add a gradient's terms in another order)."""
+    from gradus_tpu_torch.utils.interp import linear_interp
+
+    class Spline(torch.nn.Module):
+        def __init__(self, knots, heights):
+            super().__init__()
+            self.register_buffer("knots", knots)
+            self.register_buffer("heights", heights)
+
+        def crossing_indicator(self, x):
+            r, th = x[..., 1], x[..., 2]
+            return r * torch.cos(th) - linear_interp(r * torch.sin(th), self.knots, self.heights)
+
+        def is_hit(self, x, gtol=1e-2):
+            rho = x[..., 1] * torch.sin(x[..., 2])
+            return (rho > 5.0) & (rho < 35.0)
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    x = torch.tensor([0.0, 100.0, math.radians(70.0), 0.0], **f64)
+    al, be = torch.linspace(-16.0, -8.0, 8, **f64), torch.linspace(-3.0, 3.0, 8, **f64)
+    al, be = al[:, None].expand(8, 8).reshape(-1), be[None, :].expand(8, 8).reshape(-1)
+    knots = torch.linspace(3.0, 40.0, 128, **f64)
+
+    def loss_and_grad():
+        m = KerrMetric(1.0, 0.6, device=dev)
+        m.a = torch.tensor(0.6, **f64, requires_grad=True)
+        v = map_impact_parameters(m, x, al, be)
+        h = (0.5 + 0.3 * torch.sin(knots / 5.0)).requires_grad_(True)
+        gp = trace_geodesics(m, x.expand_as(v), v, (0.0, 300.0), geometry=Spline(knots, h), checkpointed=True,
+                             n_segments=16, seg_steps=16)  # fmt: skip
+        hit = gp.status == StatusCodes.IntersectedWithGeometry
+        rho = gp.x[..., 1] * torch.sin(gp.x[..., 2])
+        loss = torch.where(hit, rho**2 + 0.1 * gp.x[..., 0], 0.0).sum() / 64
+        return loss, torch.autograd.grad(loss, (h, m.a))
+
+    events = _Events()
+    with solver.observe_loops(events):
+        got = loss_and_grad()
+    with cuda_graphs(False):
+        want = loss_and_grad()
+    assert sum(e == "capture" for e, _ in events) == 2  # the body, and one body's vjp
+    assert torch.equal(got[0].detach(), want[0].detach())
+    (gh, ga), (wh, wa) = got[1], want[1]
+    scale = float(wh.abs().max())
+    assert scale > 0 and float((gh - wh).abs().max()) <= 1e-12 * scale
+    assert float(wa) != 0.0 and abs(float(ga) - float(wa)) <= 1e-12 * abs(float(wa))
+
+
+@pytest.mark.cuda
+def test_tracer_on_the_card_matches_cuda_tracer(dev):
+    """`Tracer` on the CUDA integrator (capped passes, the survivors
+    resumed and compacted) gives `CudaTracer`'s single pass bit for bit,
+    and reports each segment."""
+    from gradus_tpu_torch.integrate import CudaTracer, Tracer
+
+    m, x, A, B, d = _flagship(dev, torch.float64, 4096)
+    v = map_impact_parameters(m, x, A, B)
+    events = []
+    got = Tracer(m, geometry=d, segment_iters=64, min_bucket=256, progress=events.append)(x.expand_as(v), v, SPAN)
+    want = CudaTracer(m, geometry=d)(x.expand_as(v), v, SPAN)
+    _equal(got, want)
+    assert len(events) > 2 and events[-1]["alive"] == 0 and events[-1]["width"] < 4096

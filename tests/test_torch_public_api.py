@@ -22,6 +22,7 @@ import gradus_tpu.metrics.base as jbase  # noqa: E402
 import gradus_tpu.metrics.kerr as jkerr  # noqa: E402
 
 import gradus_tpu_torch as tgt  # noqa: E402
+from gradus_tpu_torch import diff as tdiff  # noqa: E402
 import gradus_tpu_torch.geodesics.equation as teq  # noqa: E402
 import gradus_tpu_torch.geodesics.tetrads as ttet  # noqa: E402
 import gradus_tpu_torch.metrics.base as tbase  # noqa: E402
@@ -113,23 +114,24 @@ def test_convert_angles_matches_jax():
 
 
 def test_top_level_names():
-    """The reference's top-level names all exist in the port, but the
-    forward-mode AD helpers and `Tracer` (ROADMAP A11, A13) and
+    """The reference's top-level names all exist in the port, but
     `enable_x64`, which has no torch meaning; each new one is its
     submodule's object. (Submodules are left out: which of them are
     attributes of a package depends on what the process imported.)"""
     names = (n for n in dir(jgt) if not n.startswith("_") and not isinstance(getattr(jgt, n), types.ModuleType))
     missing = sorted(n for n in names if not hasattr(tgt, n))
-    assert missing == ["Tracer", "enable_x64", "fwd_adjoint", "grad_fwd", "value_and_grad_fwd"]
+    assert missing == ["enable_x64"]
+    assert tgt.fwd_adjoint is tdiff.fwd_adjoint and tgt.grad_fwd is tdiff.grad_fwd
+    assert tgt.Tracer is tgt.integrate.tracing.Tracer and tgt.save_npz is tgt.serialization.save_npz
     assert tgt.lnrframe is ttet.lnrframe and tgt.raiseindices is ttet.raiseindices
     assert tgt.metric_components is tbase.metric_components and tgt.inner_radius is tbase.inner_radius
     assert tgt.JohannsenPsaltisMetric is tgt.metrics.JohannsenPsaltisMetric
 
 
 def test_documented_names_in_the_port():
-    """tests/test_docs.py's `gt.<name>` set: the port lacks only `grad_fwd`
-    (A11) and `enable_x64` (no torch meaning)."""
+    """tests/test_docs.py's `gt.<name>` set: the port lacks only
+    `enable_x64` (no torch meaning)."""
     names = set()
     for doc in (ROOT / "docs").glob("*.md"):
         names |= set(re.findall(r"gt\.([A-Za-z_][A-Za-z0-9_]*)", doc.read_text()))
-    assert sorted(n for n in names if not hasattr(tgt, n)) == ["enable_x64", "grad_fwd"]
+    assert sorted(n for n in names if not hasattr(tgt, n)) == ["enable_x64"]

@@ -43,7 +43,7 @@ from gradus_tpu.metrics import KerrMetric as JaxKerr  # noqa: E402
 import gradus_tpu_torch.integrate.solver as solver  # noqa: E402
 from gradus_tpu_torch.camera import map_impact_parameters  # noqa: E402
 from gradus_tpu_torch.corona import LampPostModel  # noqa: E402
-from gradus_tpu_torch.geometry import ThinDisc  # noqa: E402
+from gradus_tpu_torch.geometry import MeshAccretionGeometry, ThinDisc  # noqa: E402
 from gradus_tpu_torch.integrate import (  # noqa: E402
     StatusCodes,
     domain_upper_hemisphere,
@@ -299,8 +299,11 @@ def test_unported_trace_paths_raise(rays):
     x = torch.as_tensor(rays["y0"][:2, :4])
     v = torch.as_tensor(rays["y0"][:2, 4:])
     m = rays["tm"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trace_geodesics(m, x, v, SPAN, checkpointed=True)
+    # the checkpointed ladder is ported (tests/test_torch_checkpointed_adjoint.py);
+    # as in the reference, it refuses a segment-based geometry
+    mesh = MeshAccretionGeometry.from_triangles(np.array([[[10.0, 0.0, 0.0], [0.0, 10.0, 0.0], [0.0, 0.0, 10.0]]]), device="cpu")
+    with pytest.raises(NotImplementedError, match="segment-based geometry"):
+        trace_geodesics(m, x, v, SPAN, geometry=mesh, checkpointed=True)
     # the corona-model dispatch is ported (tests/test_torch_corona.py)
     gp = tracegeodesics(m, LampPostModel(), 1.0, n_samples=3)
     assert gp.x.shape == (3, 4) and bool(torch.isfinite(gp.x).all())
