@@ -10,6 +10,17 @@ on every 8th pixel each way, against central differences) and
 loss with respect to 128 spline heights over 128² rays, through the
 checkpointed ladder whose forward and backward replay captured graphs;
 against central differences, and beside the uncheckpointed backward).
+Beside them, the multi-device module (`gradus_tpu_torch.parallel`) starts
+its ranks through `parallel.spawn`: two gloo ranks sharing the card run
+the lockstep products sharded (`sharded_trace`, `sharded_render`,
+`sharded_lineprofile`, `sharded_emissivity` and the multichip step's spin
+tangent, f64, at `SHARDED_DEPTH`), each against the port's unsharded call
+at tests/test_parallel.py's tolerances; once the kernel is built and the
+AD half is done, those ranks and then one nccl rank trace the 1024² f32
+flagship through B1 under the mesh (`sharded_pallas_trace`, and 1024² − 3
+rays, which pad), each image bit for bit the unsharded `CudaTracer`
+image (`sharded`, `phase_sharded`). The kernel also takes a
+CompositeGeometry of six parts (`composite6`, in `thick_geometries`).
 
 Then it loads the port's CUDA kernel, built from `gradus_tpu_torch/csrc/`, and holds it against
 its plain PyTorch version on the card (f64 and f32; flagship rays against a
@@ -95,7 +106,7 @@ through their entry points, none of which may call the plain-torch polish:
   `shaped_chart` (`event_horizon_chart` as the inner chart at 1024², Kerr
   against the scalar chart and Johannsen-Psaltis), `first_order` (the
   Mino-time tracer against the second-order one at 1024², f64), `windings`
-  and `radiative_transfer` (1024²; the charged and radiative-transfer
+  and `radiative_transfer` (512²; the charged and radiative-transfer
   loops also held captured against uncaptured bit for bit) and `mesh` (a
   triangulated annulus at 128² against the thin disc, and in f32 on
   every 4th of those pixels), in f64 but
@@ -130,6 +141,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -294,6 +306,7 @@ KERNEL_OPS = {
     "kerr_precessing_elliptical": (506.0, 1513.6654835458567, 4588.0),
     "kerr_precessing_thin": (491.0, 1495.7654253598578, 4543.0),
     "kerr_composite": (435.0, 1441.1087017186755, 4375.0),
+    "kerr_composite6": (541.0, 1552.7198740174153, 4693.0),
     "kerr_doughnut": (1257.0, 2290.3580878681973, 6841.0),
     "kerr_doughnut_kerr": (2323.0, 3386.693584623065, 10039.0),
     "kerr_warped": (443.0, 1448.1206381883685, 4399.0),
@@ -1253,6 +1266,7 @@ THICK_KINDS = (
     "precessing_elliptical",
     "precessing_thin",
     "composite",
+    "composite6",
     "doughnut",
     "doughnut_kerr",
 )
@@ -1264,7 +1278,7 @@ THICK_KINDS = (
 # the ellipse's (also precessed) events in a step that starts beyond its
 # semi-major axis (a NaN slope) or by its rim (a slope that diverges), and
 # their unconverged polish.
-STEPWISE_KINDS = ("elliptical", "precessing_elliptical", "composite", "composite_callable")
+STEPWISE_KINDS = ("elliptical", "precessing_elliptical", "composite", "composite6", "composite_callable")
 STEPWISE_ITERS = 400
 KINDS012_DIGESTS = Path(__file__).resolve().parent / "tests" / "data" / "kernel_kinds012_digests.json"
 
@@ -1278,6 +1292,13 @@ def _thick_geometry(kind, m, dtype, dev):
         "precessing_elliptical": lambda: PrecessingDisc(ellipse, math.radians(10.0), math.radians(30.0), **kw),
         "precessing_thin": lambda: PrecessingDisc(ThinDisc(0.0, 50.0, **kw), math.radians(20.0), math.radians(30.0), **kw),
         "composite": lambda: CompositeGeometry([ThinDisc(20.0, 100.0, **kw), DatumPlane(3.0, **kw)]),
+        # six parts, past the four that the kernel's block once held: each
+        # part's rays hit it alone
+        "composite6": lambda: CompositeGeometry(
+            [ThinDisc(r, r + 10.0, **kw) for r in (0.0, 10.0, 20.0, 30.0)]
+            + [PrecessingDisc(ThinDisc(40.0, 60.0, **kw), math.radians(10.0), math.radians(30.0), **kw),
+               EllipticalDisc(60.0, 100.0, 80.0, **kw)]
+        ),  # fmt: skip
         "doughnut": lambda: PolishDoughnut(**kw),
         "doughnut_kerr": lambda: PolishDoughnut(metric=m),
     }[kind]()
@@ -3272,6 +3293,9 @@ def phase_disc_corona(dev):
 # beside the other workers, so that the CPU's time does not hold the card.
 
 TRACES_SIDE = 1024
+# The windings' and the radiative transfer's images: 512², not 1024²
+# (before the multi-device phase, whose card time this pays for; PERF.md §4)
+WINDINGS_SLAB_SIDE = 512
 TRACES_SUBSET = 512
 SLAB_MAX_STEPS = 1000
 # the radiative transfer's captured loop against the uncaptured one runs
@@ -3426,7 +3450,7 @@ def _cpu_inputs(kind):
         )
     dtype = torch.float32 if kind == "chart_jp" else torch.float64
     metric = JohannsenPsaltisMetric(1.0, 0.6, 2.0, dtype=dtype, device=cpu) if kind == "chart_jp" else None
-    side = MESH_SIDE if kind == "mesh" else TRACES_SIDE
+    side = {"mesh": MESH_SIDE, "windings": WINDINGS_SLAB_SIDE, "radiative_transfer": WINDINGS_SLAB_SIDE}.get(kind, TRACES_SIDE)
     m, _, x, v, _, _ = _traces_rays(dtype, cpu, side, metric=metric)
     idx = _slab_subset(side) if kind == "radiative_transfer" else _subset(side * side)
     a = dict(x=x.expand_as(v)[idx].numpy(), v=v[idx].numpy())
@@ -3581,7 +3605,7 @@ def phase_first_order(dev):
 
 
 def phase_windings(dev):
-    """`trace_windings` at TRACES_SIDE² flagship pixels without a disc
+    """`trace_windings` at WINDINGS_SLAB_SIDE² flagship pixels without a disc
     (f64, λ ≤ 2200): the histogram of winding counts; the outer pixels (α²
     + β² ≥ 400) wind exactly once (tests/test_rt_windings.py's wide ray),
     and some pixels near the shadow's rim (α² + β² < 400) wind ≥ 2 times
@@ -3593,7 +3617,7 @@ def phase_windings(dev):
     the CPU; the JAX package's loop counts 430 against 1,689,
     scripts/torch_reference_witness.py iterations), at under twice the
     cost each: half the card time, which the script's time limit needs."""
-    dtype, side = torch.float64, TRACES_SIDE
+    dtype, side = torch.float64, WINDINGS_SLAB_SIDE
     m, _, x, v, A, B = _traces_rays(dtype, dev, side, outer_r=None)
     xs = x.expand_as(v)
     idx = _subset(v.shape[0])
@@ -3624,7 +3648,7 @@ def phase_windings(dev):
 
 
 def phase_radiative_transfer(dev):
-    """`trace_radiative_transfer` at TRACES_SIDE² flagship pixels (λ ≤ 2200)
+    """`trace_radiative_transfer` at WINDINGS_SLAB_SIDE² flagship pixels (λ ≤ 2200)
     through an optically thick emitter, `_EmittingSlab` (a top-hat slab
     |z| < 1 between ρ ∈ [8, 12], j_ν = 1, as tests/test_rt_windings.py's):
     a ray that never counts a crossing keeps I = I0 exactly; a ray with an
@@ -3634,7 +3658,7 @@ def phase_radiative_transfer(dev):
     jumps, and the second of two crossings in one step, so the in/out
     parity inverts and emission is integrated outside the slab; such a ray
     falling into the hole stalls, so the loop is capped at
-    `SLAB_MAX_STEPS` iterations (on an H100: 6,500 rays, every one
+    `SLAB_MAX_STEPS` iterations (on an H100 at 1024²: 6,500 rays, every one
     with an odd count, still alive after 3,000; at a cap of 1,000, those
     and 2 rays with no count, at r = 1.083 by the horizon; at 700, also
     rays still climbing past a pole, r up to 84): every ray the cap stops
@@ -3656,7 +3680,7 @@ def phase_radiative_transfer(dev):
     over different stretches of the slab (on an H100: 11 of 512
     counts and the one comparable intensity 20% apart), and the stalled
     rays' loop needs ~1,700 iterations (against ~500 in f64)."""
-    dtype, side = torch.float64, TRACES_SIDE
+    dtype, side = torch.float64, WINDINGS_SLAB_SIDE
     m, _, x, v, A, B = _traces_rays(dtype, dev, side, outer_r=None)
     slab = _EmittingSlab(dtype=dtype, device=dev)
     xs = x.expand_as(v)
@@ -4190,6 +4214,324 @@ def phase_checkpointed_adjoint(dev, side=128, n_proj=5):
     return res
 
 
+# --- the multi-device module (gradus_tpu_torch/parallel/) --------------------------------
+
+# The ranks of `phase_sharded`: SHARDED_RANKS gloo ranks share the one card
+# (NCCL refuses two ranks on one device), then one nccl rank. Their
+# FileStore lies under build/ (no network port); their collectives time
+# out after SHARDED_TIMEOUT seconds.
+SHARDED_RANKS = 2
+SHARDED_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_sharded"
+SHARDED_TIMEOUT = 600.0
+# the flagship's ragged case: 1024² − SHARDED_RAGGED rays, which pad
+SHARDED_RAGGED = 3
+# The lockstep products' reduced depth, f64, each ragged over the ranks:
+# `sharded_trace` of that many flagship rays, `sharded_render` of a
+# width × height redshift image, `sharded_lineprofile` on an Nr × Nθ polar
+# plane, `sharded_emissivity` of that many lamp-post samples and
+# `multichip_step` of that many flagship pixels
+SHARDED_DEPTH = dict(trace=8191, render=(128, 127), plane=(64, 63), samples=4095, step=1023)
+# which rank makes which unsharded call, after the sharded ones
+SHARDED_UNSHARDED = {0: ("step", "trace"), 1: ("render", "lineprofile", "emissivity")}
+
+
+def _points_digest(gp, g=None):
+    """sha256 of a trace's status, x, v and λ (and of ``g``)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (gp.status, gp.x, gp.v, gp.lam_max) + (() if g is None else (g,)):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+def _sharded_flagship_inputs(dev, side):
+    """The flagship render's tracer, constrained rays and shading (f32,
+    `_full_render`'s camera, ThinDisc(0, 50), the analytic redshift)."""
+    m, d, x = _flagship(torch.float32, dev)
+    tracer = CudaTracer(m, geometry=d)
+    y0 = _constrained(tracer, m, x, *_pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, torch.float32, dev))
+    pf = ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected()
+    return m, tracer, y0, pf
+
+
+def _sharded_flagship(mesh, side):
+    """B1 at full width under the mesh: `sharded_pallas_trace` of the
+    flagship's side² rays and of side² − SHARDED_RAGGED, each shaded; the
+    kernel's launches on this rank in that run (its count set to 0 just
+    before), the call's seconds, the image's finite pixels and digests;
+    then this rank's shard alone on the card (the ranks take turns), timed
+    by CUDA events, with its bound."""
+    from gradus_tpu_torch.parallel.sharded import local_rows, sharded_pallas_trace
+
+    m, tracer, y0, pf = _sharded_flagship_inputs(mesh.device, side)
+    out = {}
+    for case, n in (("full", side * side), ("ragged", side * side - SHARDED_RAGGED)):
+        y = y0[:n]
+        torch.cuda.synchronize()
+        cuda_solver.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        gp = sharded_pallas_trace(tracer, y, SPAN, mesh=mesh)
+        g = pf(m, gp, SPAN[1])
+        torch.cuda.synchronize()
+        out[case] = dict(
+            rays=n, launches=cuda_solver.KERNEL_LAUNCHES, seconds=time.perf_counter() - t0,
+            finite_pixels=int(torch.isfinite(g).sum()), digest=_points_digest(gp, g),
+        )  # fmt: skip
+    local = local_rows(y0, mesh)
+    for turn in range(mesh.size):  # the ranks' shards timed one after another
+        if mesh.group is not None:
+            torch.distributed.barrier(group=mesh.group)
+        if turn == mesh.rank:
+            (gp, aux), ms = _timed(lambda: tracer.trace(local, SPAN))
+    attempts, hits = int(aux["attempts"].sum()), int((gp.status == HIT).sum())
+    bound_ms, bound_by = _bound("kerr", local.shape[0], attempts, hits, torch.float32)
+    out["shard"] = dict(rays=local.shape[0], trace_ms=ms, attempted=attempts, hits=hits, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def _sharded_case(case, dev, mesh=None):
+    """A lockstep product at `SHARDED_DEPTH`, f64, on the card: sharded
+    over ``mesh``, or the port's unsharded call without one; its result on
+    the CPU and its lockstep record (`_lockstep_run`: every loop captured,
+    no route to the kernel)."""
+    from gradus_tpu_torch import parallel
+    from gradus_tpu_torch.corona.emissivity import tracecorona_profile
+
+    dtype = torch.float64
+    m, d, x = _flagship(dtype, dev)
+    kw = dict(dtype=dtype, device=dev)
+    rng = np.random.default_rng(43)
+    if case == "trace":
+        n = SHARDED_DEPTH["trace"]
+        v = map_impact_parameters(m, x, torch.as_tensor(rng.uniform(-28, 28, n), **kw), torch.as_tensor(rng.uniform(-18, 18, n), **kw))
+        xs = x.expand_as(v)
+        fn = (lambda: trace_geodesics(m, xs, v, SPAN, geometry=d)) if mesh is None else (
+            lambda: parallel.sharded_trace(m, xs, v, SPAN, geometry=d, mesh=mesh))  # fmt: skip
+    elif case == "render":
+        w, h = SHARDED_DEPTH["render"]
+        pf = ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected()
+        rkw = dict(image_width=w, image_height=h, alpha_lims=(-28.0, 28.0), beta_lims=(-18.0, 18.0), pf=pf)
+        fn = (lambda: rendergeodesics(m, x, d, SPAN[1], **rkw)[2]) if mesh is None else (
+            lambda: parallel.sharded_render(m, x, d, SPAN[1], mesh=mesh, **rkw)[2])  # fmt: skip
+    elif case == "lineprofile":
+        xc = torch.tensor(CTF_X_OBS, **kw)
+        nr, nt = SHARDED_DEPTH["plane"]
+        plane = PolarPlane(GeometricGrid(), Nr=nr, Ntheta=nt, r_max=250.0, **kw)
+        fn = (lambda: lineprofile(m, xc, d, method=BinningMethod(), plane=plane)[1]) if mesh is None else (
+            lambda: parallel.sharded_lineprofile(m, xc, d, plane=plane, mesh=mesh)[1])  # fmt: skip
+    elif case == "emissivity":
+        disc, n = ThinDisc(0.0, math.inf, **kw), SHARDED_DEPTH["samples"]
+        fn = (lambda: tracecorona_profile(m, disc, LampPostModel(), n_samples=n)) if mesh is None else (
+            lambda: parallel.sharded_emissivity(m, disc, LampPostModel(), n_samples=n, mesh=mesh))  # fmt: skip
+    else:
+        n = SHARDED_DEPTH["step"]
+        A, B = torch.as_tensor(rng.uniform(-28, 28, n), **kw), torch.as_tensor(rng.uniform(-18, 18, n), **kw)
+        a = torch.tensor(0.998, **kw)
+        if mesh is None:
+
+            def fn():
+                img, dimg = torch.func.jvp(lambda aa: parallel.render_tile(aa, x, A, B, SPAN[1]), (a,), (torch.ones_like(a),))
+                return img, img.sum(), dimg.sum()
+
+        else:
+            fn = lambda: parallel.multichip_step(a, x, A, B, SPAN[1], mesh=mesh)  # noqa: E731
+    out, rec = _lockstep_run(f"sharded {case}", fn)
+    to_cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    if isinstance(out, tuple):
+        out = tuple(map(to_cpu, out))
+    elif dataclasses.is_dataclass(out):
+        out = type(out)(**{f.name: to_cpu(getattr(out, f.name)) for f in dataclasses.fields(out)})
+    else:
+        out = to_cpu(out)
+    return out, rec
+
+
+def _await_go(go):
+    """Waits for the file ``go`` (or its ``.abort`` beside it, which raises)."""
+    go, abort = Path(go), Path(go).with_suffix(".abort")
+    t0 = time.perf_counter()
+    while not go.exists():
+        if abort.exists() or time.perf_counter() - t0 > SHARDED_TIMEOUT:
+            raise RuntimeError(f"the ranks' go signal {go.name} did not come")
+        time.sleep(0.2)
+
+
+def _sharded_rank(mesh, side, lockstep, go):
+    """A rank of `phase_sharded`: (with ``lockstep``) every lockstep product
+    sharded and this rank's share of the unsharded calls
+    (`SHARDED_UNSHARDED`); then, once the file ``go`` exists (the kernel
+    built and the card free), the flagship through B1."""
+    torch.cuda.set_device(mesh.device)
+    out = dict(mesh=[mesh.rank, mesh.size, mesh.backend])
+    if lockstep:
+        out["sharded"] = {case: _sharded_case(case, mesh.device, mesh) for case in ("trace", "render", "lineprofile", "emissivity", "step")}
+        out["unsharded"] = {case: _sharded_case(case, mesh.device) for case in SHARDED_UNSHARDED.get(mesh.rank, ())}
+    _await_go(go)
+    _build.load_library()
+    out["flagship"] = _sharded_flagship(mesh, side)
+    return out
+
+
+def _sharded_checks(sharded, unsharded):
+    """Each lockstep product against the unsharded call, at
+    tests/test_parallel.py's tolerances, and whether it is bit for bit."""
+
+    def close(a, b, rtol, atol=0.0):
+        return bool(np.allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=atol, equal_nan=True))
+
+    def same(a, b):
+        return bool(np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True))
+
+    res = {}
+    gp, gp1 = sharded["trace"], unsharded["trace"]
+    res["trace"] = dict(
+        rays=int(gp.status.shape[0]), ok=same(gp.status, gp1.status) and close(gp.x, gp1.x, 1e-8, 1e-8),
+        bit_for_bit=same(gp.status, gp1.status) and same(gp.x, gp1.x) and same(gp.v, gp1.v),
+    )  # fmt: skip
+    img, img1 = sharded["render"], unsharded["render"]
+    res["render"] = dict(pixels=int(img.numel()), finite=int(torch.isfinite(img).sum()), ok=close(img, img1, 1e-8, 1e-8), bit_for_bit=same(img, img1))
+    f, f1 = sharded["lineprofile"], unsharded["lineprofile"]
+    res["lineprofile"] = dict(
+        ok=close(f, f1, 1e-10, 1e-12) and math.isclose(float(f.sum()), 1.0, rel_tol=1e-8), bit_for_bit=same(f, f1),
+        sum=float(f.sum()), max_rel=float(((f - f1).abs() / f1.abs().clamp(min=1e-300)).max()),
+    )  # fmt: skip
+    p, p1 = sharded["emissivity"], unsharded["emissivity"]
+    res["emissivity"] = dict(
+        n=int(p.n), ok=int(p.n) == int(p1.n) and close(p.eps, p1.eps, 1e-9, 1e-12) and close(p.radii, p1.radii, 1e-12),
+        bit_for_bit=all(same(getattr(p, k), getattr(p1, k)) for k in ("radii", "eps", "t")),
+    )  # fmt: skip
+    (img, loss, dloss), (img1, loss1, dloss1) = sharded["step"], unsharded["step"]
+    res["step"] = dict(
+        loss=float(loss), dloss=float(dloss), loss_unsharded=float(loss1), dloss_unsharded=float(dloss1),
+        ok=math.isfinite(float(dloss)) and close(loss, loss1, 1e-10) and close(dloss, dloss1, 1e-6),
+        bit_for_bit=same(img, img1) and float(loss) == float(loss1) and float(dloss) == float(dloss1),
+    )  # fmt: skip
+    return res
+
+
+# (world, ranks, backend, whether it runs the lockstep products)
+SHARDED_WORLDS = (("gloo", SHARDED_RANKS, "gloo", True), ("nccl", 1, "nccl", False))
+# what shares the card and the host with the AD phases (`main`)
+AD_BESIDE = f"the build's nvcc and {SHARDED_RANKS} sharded gloo ranks' lockstep products"
+
+
+def start_sharded(dev, side=1024):
+    """Starts `phase_sharded`'s two worlds, each `parallel.spawn` in a
+    thread of this process: their ranks run the lockstep products at once
+    and the flagship when `finish_sharded` lets them."""
+    from gradus_tpu_torch import parallel
+
+    SHARDED_DIR.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for world, size, backend, lockstep in SHARDED_WORLDS:
+        go = SHARDED_DIR / f"{world}.go"
+        for f in (go, go.with_suffix(".abort")):
+            f.unlink(missing_ok=True)
+        box = dict(t0=time.perf_counter())
+
+        def run(box=box, size=size, backend=backend, lockstep=lockstep, go=go):
+            try:
+                box["outs"] = parallel.spawn(
+                    _sharded_rank, size, (side, lockstep, str(go)), device=dev, backend=backend,
+                    root=SHARDED_DIR, timeout=SHARDED_TIMEOUT,
+                )  # fmt: skip
+            except Exception as e:  # raised again by finish_sharded, in the main thread
+                box["error"] = e
+            box["seconds"] = time.perf_counter() - box["t0"]
+
+        thread = threading.Thread(target=run, daemon=True)
+        thread.start()
+        runs[world] = (thread, box, go)
+    return runs
+
+
+def abort_sharded(runs):
+    """Ends the worlds' ranks still waiting for their go signal."""
+    for thread, _, go in runs.values():
+        go.with_suffix(".abort").touch()
+        thread.join(timeout=60.0)
+
+
+def finish_sharded(dev, runs, side=1024):
+    """The unsharded flagship images (this process, on the card), then each
+    world's go signal in turn, its ranks joined and their results checked
+    (`phase_sharded`'s docstring); prints the phase's line."""
+    m, tracer, y0, pf = _sharded_flagship_inputs(dev, side)
+    want = {}
+    for case, n in (("full", side * side), ("ragged", side * side - SHARDED_RAGGED)):
+        gp, _ = tracer.trace(y0[:n], SPAN)
+        g = pf(m, gp, SPAN[1])
+        want[case] = dict(digest=_points_digest(gp, g), finite_pixels=int(torch.isfinite(g).sum()))
+    del m, tracer, y0, pf
+    res, failed = {}, []
+    if side == 1024 and want["full"]["finite_pixels"] != 862041:
+        failed.append(f"flagship finite pixels {want['full']['finite_pixels']}")
+    for world, size, backend, lockstep in SHARDED_WORLDS:
+        thread, box, go = runs[world]
+        t0 = time.perf_counter()
+        go.touch()
+        thread.join(timeout=SHARDED_TIMEOUT)
+        if thread.is_alive() or "error" in box:
+            raise RuntimeError(f"sharded: the {world} world failed") from box.get("error")
+        outs = box["outs"]
+        flagship = {}
+        for r, out in enumerate(outs):
+            if out["mesh"] != [r, size, backend]:
+                failed.append(f"{world} rank {r}: mesh {out['mesh']}")
+            for case in ("full", "ragged"):
+                got = out["flagship"][case]
+                if got["launches"] < 1 or got["digest"] != want[case]["digest"] or got["finite_pixels"] != want[case]["finite_pixels"]:
+                    failed.append(f"{world} rank {r} {case}")
+            flagship[f"rank{r}"] = out["flagship"]
+        res[world] = dict(ranks=size, seconds=box["seconds"], seconds_after_go=time.perf_counter() - t0, flagship=flagship)
+        if lockstep:
+            strip = lambda d: {c: o for c, (o, _) in d.items()}  # noqa: E731
+            sharded = strip(outs[0]["sharded"])
+            unsharded = {case: r["unsharded"][case][0] for r in outs for case in r["unsharded"]}
+            checks = _sharded_checks(sharded, unsharded)
+            for r, out in enumerate(outs[1:], 1):
+                if not all(c["bit_for_bit"] for c in _sharded_checks(strip(out["sharded"]), sharded).values()):
+                    failed.append(f"gloo rank {r} holds other results than rank 0")
+            res[world]["lockstep"] = {
+                case: dict(checks[case], **{f"rank{r}": out["sharded"][case][1] for r, out in enumerate(outs)})
+                for case in checks
+            }
+            res[world]["unsharded"] = {case: r["unsharded"][case][1] for r in outs for case in r["unsharded"]}
+            failed += [f"{case} against the unsharded call" for case, c in checks.items() if not c["ok"]]
+    res["unsharded_flagship"] = want
+    _say("sharded", **res)
+    if failed:
+        raise AssertionError(f"sharded: {failed}")
+    return res
+
+
+def phase_sharded(dev, side=1024):
+    """`gradus_tpu_torch.parallel` on the card, through `parallel.spawn`.
+
+    SHARDED_RANKS gloo ranks on the one card (collectives on CUDA tensors):
+    the lockstep products at `SHARDED_DEPTH` in f64 (`sharded_trace`,
+    `sharded_render`, `sharded_lineprofile`, `sharded_emissivity` and
+    `multichip_step`, the spin tangent through the lifted trace), each held
+    to the port's unsharded call at tests/test_parallel.py's tolerances
+    (statuses equal and x at rtol 1e-8; the render 1e-8; the flux 1e-10
+    with Σ = 1; ε 1e-9 with n equal; the gradient 1e-6), whether it is bit
+    for bit printed; then B1 at full width under the mesh,
+    `sharded_pallas_trace` of the flagship's side² f32 rays (and of side² −
+    SHARDED_RAGGED, which pad) with the main path's redshift shading, each
+    the unsharded `CudaTracer` image bit for bit (one thread a ray), with
+    862,041 finite pixels at 1024². Then one nccl rank: the flagship
+    through B1 again. Every rank must hold the same results; a collective
+    or a kernel that fails raises. `main` starts the worlds beside the AD
+    phases (`start_sharded`) and lets them trace the flagship once the
+    kernel is built and those phases are done (`finish_sharded`)."""
+    runs = start_sharded(dev, side)
+    try:
+        return finish_sharded(dev, runs, side)
+    finally:
+        abort_sharded(runs)
+
+
 WORKERS = {
     "lags_golden": (("reverberation_golden", {}),),
     "lags_full": (("lag_frequency_full", {}),),
@@ -4207,7 +4549,7 @@ WORKERS = {
 }
 # The special traces' card work runs alone on the card, in the main process
 # before the workers start (`_run_traces`), or alone as ``--worker traces``:
-# beside the workers their 1024² iterations (20–60 ms of card time each)
+# beside the workers their iterations at 1024² (20–60 ms of card time each)
 # slowed every worker's loop 2–12× and the script overran its time limit.
 TRACES = ("charged", "shaped_chart", "first_order", "windings", "radiative_transfer", "mesh")
 _WORKER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_workers"
@@ -4354,14 +4696,21 @@ def main():
     # the build's nvcc runs (the host's cores) in a process of its own while
     # the AD half, which launches no kernel of the library, has the card
     building = _start_workers(("build",))
+    # the multi-device module's ranks run their lockstep products beside
+    # them, and trace the flagship once the kernel is built (`finish_sharded`)
+    sharding = start_sharded(dev)
     try:
-        adjoint = timed_phase("adjoint_render", phase_adjoint_render, dev)
-        checkpointed = timed_phase("checkpointed_adjoint", phase_checkpointed_adjoint, dev)
-        _, build_seconds = _join_workers(building, timeout=600.0)
+        try:
+            adjoint = timed_phase("adjoint_render", phase_adjoint_render, dev)
+            checkpointed = timed_phase("checkpointed_adjoint", phase_checkpointed_adjoint, dev)
+            _, build_seconds = _join_workers(building, timeout=600.0)
+        finally:
+            _stop_workers(building)
+        seconds.update(build_seconds)
+        timed_phase("load", _build.load_library, _callable_units())
+        sharded = timed_phase("sharded", finish_sharded, dev, sharding)
     finally:
-        _stop_workers(building)
-    seconds.update(build_seconds)
-    timed_phase("load", _build.load_library, _callable_units())
+        abort_sharded(sharding)
     # the phases that time kernels, alone on the card
     timed_phase("goldens", phase_goldens, dev)
     rendered, segmented = timed_phase("main_path", phase_main_path, dev)
@@ -4443,6 +4792,14 @@ def main():
                     "ctf_xla": lags["ctf_xla"],
                     "thick_disc": lags["thick_disc"],
                     "thick_disc_golden": lags["thick_disc_golden"],
+                    "sharded": {
+                        case: {
+                            "ok": r["ok"], "bit_for_bit": r["bit_for_bit"],
+                            **{f"rank{k}_seconds": r[f"rank{k}"]["seconds"] for k in range(SHARDED_RANKS)},
+                            "iterations": r["rank0"]["iterations"],
+                        }
+                        for case, r in sharded["gloo"]["lockstep"].items()
+                    },  # fmt: skip
                     "lag_frequency_full": lags["lag_frequency_full"]["split"],
                     "ring_corona": {
                         k: lags["ring_corona"][k]
@@ -4450,15 +4807,22 @@ def main():
                     },
                     "disc_corona": {k: lags["disc_corona"][k] for k in ("seconds", "rays", "iterations", "fan", "probes")},
                     "traces": _traces_summary(traces, traces_seconds),
+                    # the AD phases share the card with the sharded gloo
+                    # ranks' lockstep products (and the host with the build):
+                    # their seconds are not those of a phase alone
                     "adjoint_render": {
-                        k: adjoint[k] for k in ("pixels", "seconds", "iterations", "loops", "graph", "peak_allocated_bytes", "fd")
+                        "beside": AD_BESIDE,
+                        **{k: adjoint[k] for k in ("pixels", "seconds", "iterations", "loops", "graph", "peak_allocated_bytes", "fd")},
                     },
                     "checkpointed_adjoint": {
-                        k: checkpointed[k]
-                        for k in (
-                            "rays", "forward_seconds", "backward_seconds", "iterations", "graph",
-                            "peak_allocated_bytes", "uncheckpointed",
-                        )
+                        "beside": AD_BESIDE,
+                        **{
+                            k: checkpointed[k]
+                            for k in (
+                                "rays", "forward_seconds", "backward_seconds", "iterations", "graph",
+                                "peak_allocated_bytes", "uncheckpointed",
+                            )
+                        },
                     },  # fmt: skip
                     "lagtransfer_defaults": lags["binflux_golden"]["defaults"]["traces"],
                     "profiled_binned_profile": {
@@ -4611,6 +4975,23 @@ def main():
                             k: r["stepwise"]["state_max_rel"] for k, r in geometries.items() if "stepwise" in r
                         },
                         "kinds012_bit_for_bit": all(geometries["kinds012_bit_for_bit"].values()),
+                        "sharded_flagship": {
+                            world: {
+                                "ranks": sharded[world]["ranks"],
+                                "launches_per_rank": [r["full"]["launches"] for r in sharded[world]["flagship"].values()],
+                                "ragged_launches_per_rank": [r["ragged"]["launches"] for r in sharded[world]["flagship"].values()],
+                                "shard_ms": [r["shard"]["trace_ms"] for r in sharded[world]["flagship"].values()],
+                                "shard_bound_ms": [r["shard"]["bound_ms"] for r in sharded[world]["flagship"].values()],
+                                "shard_bound_by": [r["shard"]["bound_by"] for r in sharded[world]["flagship"].values()],
+                                "call_seconds": [r["full"]["seconds"] for r in sharded[world]["flagship"].values()],
+                                "bit_for_bit_unsharded": all(
+                                    r[case]["digest"] == sharded["unsharded_flagship"][case]["digest"]
+                                    for r in sharded[world]["flagship"].values()
+                                    for case in ("full", "ragged")
+                                ),
+                            }
+                            for world in ("gloo", "nccl")
+                        },
                         "flagship_render_segmented": {
                             "launches": segmented["launches"],
                             "full_kernel_ms": segmented["full_kernel_ms"],
@@ -4625,6 +5006,8 @@ def main():
                         "launches_by_path": {
                             "flagship_render": rendered["launches"],
                             "flagship_render_segmented": segmented["launches"],
+                            "sharded_flagship_gloo": sum(r["full"]["launches"] for r in sharded["gloo"]["flagship"].values()),
+                            "sharded_flagship_nccl": sum(r["full"]["launches"] for r in sharded["nccl"]["flagship"].values()),
                             "deformed_render": deformed["launches"],
                             "kerr_newman_render": kerr_newman["launches"],
                             "thick_geometries_render": thick["launches"],

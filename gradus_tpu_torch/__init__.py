@@ -52,10 +52,15 @@ Module paths and public names mirror `gradus_tpu`. This package imports
   captured backward);
 - the periphery: `Tracer` (segmented, on the CUDA integrator where it
   takes the configuration), `save_npz`/`load_npz` (the JAX package's file
-  format), `plotting` and `camera/tiling.py`.
+  format), `plotting` and `camera/tiling.py`;
+- multi-device tracing over `torch.distributed`, in the subpackage
+  `gradus_tpu_torch.parallel` as in the JAX package: the ray mesh and its
+  collectives, the sharded trace, render, line profile and emissivity, B1
+  under the mesh and the multichip step.
 
 Not here: `enable_x64`, which has no torch meaning (a tensor's dtype is its
-own; pass ``dtype=torch.float64``).
+own; pass ``dtype=torch.float64``), and `parallel`'s `P_RAYS` and `P_NONE`,
+JAX `PartitionSpec`s (a rank's shard follows from its rank).
 """
 
 from gradus_tpu_torch.camera import (

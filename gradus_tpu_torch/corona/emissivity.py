@@ -8,8 +8,8 @@ Reference: `src/corona/emissivity.jl`, `src/corona/models/lamp-post.jl:77-154`
 the radial binning is a fixed-size `index_add_`.
 
 Ring and disc coronae without a sampler dispatch to the β-slice profiles of
-`corona/extended.py`. Not ported yet, and raising `NotImplementedError`:
-`bin_corona_hits(axis_name=...)` (ROADMAP queue A, item 12).
+`corona/extended.py`. `bin_corona_hits(axis_name=mesh)` agrees its bins
+and sums them over a ray mesh (`gradus_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from gradus_tpu_torch.geodesics.tetrads import dotproduct, lnrbasis
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import domain_upper_hemisphere, trace_geodesics
 from gradus_tpu_torch.metrics.base import AbstractMetric
+from gradus_tpu_torch.parallel.mesh import pmax, pmin, psum
 from gradus_tpu_torch.redshift import keplerian_velocity_projector
 from gradus_tpu_torch.utils.linalg import equatorial_project
 
@@ -185,16 +186,16 @@ def bin_corona_hits(
     hit,
     *,
     n_bins: int,
-    axis_name: str | None = None,
+    axis_name=None,
 ) -> RadialDiscProfile:
     """Radial photon-count binning of corona-trace hits into a
     `RadialDiscProfile` (reference `_build_radial_profile`, radial.jl:39-93),
-    over geometric bins spanning the hits' radii."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "bin_corona_hits(axis_name=...) reduces over a device mesh, which is not "
-            "ported yet (ROADMAP queue A, item 12)"
-        )
+    over geometric bins spanning the hits' radii.
+
+    With ``axis_name`` (the port's ray mesh, `parallel.ray_mesh()`, or its
+    process group; each rank holding its shard of the samples) the bin
+    range is agreed with `pmin`/`pmax` and the (count, g, t) bin sums are
+    summed over the ranks, so every rank returns the same profile."""
     r = equatorial_project(gps.x)
     t = gps.x[..., 0]
 
@@ -204,6 +205,8 @@ def bin_corona_hits(
 
     r_lo = torch.where(hit, r, math.inf).min()
     r_hi = torch.where(hit, r, -math.inf).max()
+    if axis_name is not None:
+        r_lo, r_hi = pmin(r_lo, axis_name), pmax(r_hi, axis_name)
     K = (r_hi / r_lo) ** (1.0 / (n_bins - 1))
     bins = r_lo * K ** torch.arange(n_bins, dtype=r.dtype, device=r.device)
 
@@ -211,6 +214,8 @@ def bin_corona_hits(
     counts = r.new_zeros(n_bins).index_add_(0, bi, hit.to(r.dtype))
     g_sum = r.new_zeros(n_bins).index_add_(0, bi, torch.where(hit, g_pt, 0.0))
     t_sum = r.new_zeros(n_bins).index_add_(0, bi, torch.where(hit, t, 0.0))
+    if axis_name is not None:
+        counts, g_sum, t_sum = (psum(s, axis_name) for s in (counts, g_sum, t_sum))
     cnt_safe = torch.clamp(counts, min=1.0)
     g_mean = g_sum / cnt_safe
     t_mean = t_sum / cnt_safe

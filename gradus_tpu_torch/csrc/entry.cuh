@@ -6,7 +6,7 @@
 // metric: the metric kind; q: its parameters (metrics.cuh), 5 doubles on the
 // host. geometry: its kind; inner_r, outer_r and height are those of kinds
 // 1-2; geo: for kinds 3-9 the device pointer of its block of
-// kGeometryValues values of T (geometry.cuh), else unread. modes: 5 ints on
+// 2 + parts * kPartStride values of T (geometry.cuh), else unread. modes: 5 ints on
 // the host (sampled, n_interp, bisect_iters, terminate_on_hit,
 // newton_iters). carry: null for a fresh start, or the 11 device pointers
 // of tsit5.cuh's Carry.

@@ -5,8 +5,8 @@
 // (gradus_tpu/geometry/discs.py). tsit5.cuh's generic instantiation reads
 // them; the thin-disc and datum-plane kernels keep their closed forms.
 //
-// A geometry is a block of values on the device (kGeometryValues below): up
-// to kMaxParts parts. A part is one of
+// A geometry is a block of values on the device (below): its kind, its part
+// count n, then n parts of kPartStride values each. A part is one of
 //   1  ThinDisc         v = (inner_r, outer_r)
 //   2  DatumPlane       v = (height)
 //   3  ShakuraSunyaev   v = (3 inv_eta mdot, inner_r)
@@ -44,7 +44,6 @@
 
 namespace gradus {
 
-constexpr int kMaxParts = 4;
 constexpr int kPartValues = 20;
 // kinds of a part (and of the geometry, for kinds 3-7)
 constexpr int kThinDisc = 1;
@@ -57,9 +56,9 @@ constexpr int kComposite = 7;
 constexpr int kWarpedThinDisc = 8;
 constexpr int kThickDisc = 9;
 // The geometry's block on the device, in the launch's scalar: its kind and
-// part count, then each part's kind, inner kind and kPartValues values.
+// part count n, then each part's kind, inner kind and kPartValues values,
+// 2 + n * kPartStride values in all (the part count is read at run time).
 constexpr int kPartStride = 2 + kPartValues;
-constexpr int kGeometryValues = 2 + kMaxParts * kPartStride;
 
 // A Policy holds the cross-sections of the parts of kinds 8 and 9:
 //   static constexpr bool kCallables;

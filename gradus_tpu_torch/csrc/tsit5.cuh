@@ -122,7 +122,7 @@ struct DeformedParams : Params<T> {
 };
 
 // The generic instantiation's parameters: those and a geometry of kinds
-// 3-9, its block of kGeometryValues values on the device (geometry.cuh),
+// 3-9, its block of 2 + parts * kPartStride values on the device (geometry.cuh),
 // and the Policy that holds the cross-sections of its parts of kinds 8-9:
 // none here, a generated one in CallableParams (callable.cuh).
 template <typename T>

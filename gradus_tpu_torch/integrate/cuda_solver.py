@@ -489,7 +489,7 @@ def _metric_args(m):
 
 
 # The kernel's geometry kinds (csrc/geometry.cuh): a geometry, or a part of
-# a CompositeGeometry (kinds 1-6, at most _MAX_PARTS of them)
+# a CompositeGeometry (kinds 1-6, 8 and 9, any number of them)
 _KERNEL_GEOMETRIES = {
     ThinDisc: 1,
     DatumPlane: 2,
@@ -502,9 +502,8 @@ _KERNEL_GEOMETRIES = {
     ThickDisc: 9,
 }
 _PRECESSED = (ThinDisc, DatumPlane, ShakuraSunyaev, EllipticalDisc, PolishDoughnut, WarpedThinDisc, ThickDisc)
-_MAX_PARTS = 4
+# a part's values in the block (kPartValues), after its kind and inner kind
 _PART_VALUES = 20
-_GEOMETRY_VALUES = 2 + _MAX_PARTS * (2 + _PART_VALUES)
 
 
 def _check_geometry(m, g, composite_ok=True):
@@ -522,7 +521,7 @@ def _check_geometry(m, g, composite_ok=True):
         raise NotImplementedError(
             "the CUDA integrator takes no geometry, ThinDisc, DatumPlane, ShakuraSunyaev, "
             "EllipticalDisc, PolishDoughnut, WarpedThinDisc, ThickDisc, PrecessingDisc or a "
-            f"CompositeGeometry of up to {_MAX_PARTS} of the others, not {kind.__name__} here; "
+            f"CompositeGeometry of the others, not {kind.__name__} here; "
             "trace_geodesics takes every geometry"
         )
     if kind is PolishDoughnut and g.metric is not None and type(g.metric) is not type(m):
@@ -538,10 +537,8 @@ def _check_geometry(m, g, composite_ok=True):
             )
         _check_geometry(m, g.disc, False)
     if kind is CompositeGeometry:
-        if not 1 <= len(g.geometries) <= _MAX_PARTS:
-            raise NotImplementedError(
-                f"the CUDA integrator takes a CompositeGeometry of 1 to {_MAX_PARTS} parts, not {len(g.geometries)}"
-            )
+        if not len(g.geometries):
+            raise NotImplementedError("the CUDA integrator takes a CompositeGeometry of one part or more, not 0")
         for part in g.geometries:
             _check_geometry(m, part, False)
 
@@ -596,8 +593,9 @@ def _part_values(g):
 
 def _geometry_args(geometry):
     """The kernel's geometry arguments: (kind, inner_r, outer_r, height, and
-    for kinds 3-7 its block, the ``_GEOMETRY_VALUES`` numbers of
-    csrc/geometry.cuh, else None)."""
+    for kinds 3-9 its block of csrc/geometry.cuh, its kind and part count
+    and then each part's kind, inner kind and ``_PART_VALUES`` values, else
+    None)."""
     if geometry is None:
         return 0, 0.0, 0.0, 0.0, None
     kind = _KERNEL_GEOMETRIES[type(geometry)]
@@ -611,7 +609,6 @@ def _geometry_args(geometry):
         inner = _KERNEL_GEOMETRIES[type(g.disc)] if type(g) is PrecessingDisc else 0
         values = [float(v) for v in _part_values(g)]
         block += [float(_KERNEL_GEOMETRIES[type(g)]), float(inner)] + values + [0.0] * (_PART_VALUES - len(values))
-    block += [0.0] * (_GEOMETRY_VALUES - len(block))
     return kind, 0.0, 0.0, 0.0, block
 
 

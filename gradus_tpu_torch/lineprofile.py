@@ -14,9 +14,8 @@ Reference: `src/line-profiles.jl`. Two methods:
 
 With ``profile=`` (an emissivity profile such as `emissivity_profile`'s),
 ε is the profile's ``emissivity_at`` and the default method is
-`BinningMethod`. Not ported yet, and raising `NotImplementedError`:
-`binned_flux(axis_name=...)`, which needs the multi-device port (ROADMAP
-queue A, item 12).
+`BinningMethod`. `binned_flux(axis_name=mesh)` sums the histogram over a
+ray mesh (`gradus_tpu_torch.parallel`) before normalising.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import domain_upper_hemisphere, trace_geodesics
 from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
 from gradus_tpu_torch.orbits.special_radii import isco
+from gradus_tpu_torch.parallel.mesh import psum
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.transfer import integrate_lineprofile, transferfunctions
 from gradus_tpu_torch.utils.linalg import equatorial_project
@@ -142,15 +142,13 @@ def binned_flux(
     max_re,
     lam_max,
     redshift_pf,
-    axis_name: str | None = None,
+    axis_name=None,
 ):
     """g-binned flux histogram f = ε(r)·g³·area over disc hits (reference
-    line-profiles.jl:157-198), normalised to Σ = 1."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "binned_flux(axis_name=...) reduces over a device mesh, which is not "
-            "ported yet (ROADMAP queue A, item 12)"
-        )
+    line-profiles.jl:157-198), normalised to Σ = 1. With ``axis_name`` (the
+    port's ray mesh, `parallel.ray_mesh()`, or its process group; each rank
+    holding its shard of the rays) the histogram is summed over the ranks
+    before the normalisation, so every rank returns the same profile."""
     r_em = equatorial_project(gps.x)
     hit = (
         (gps.status == StatusCodes.IntersectedWithGeometry)
@@ -164,5 +162,7 @@ def binned_flux(
     valid = hit & (idx >= 0) & (idx < bins.shape[0] - 1)
     idx = torch.clamp(idx, 0, bins.shape[0] - 2)
     flux = f.new_zeros(bins.shape[0]).index_add_(0, idx, torch.where(valid, f, 0.0))
+    if axis_name is not None:
+        flux = psum(flux, axis_name)
     total = flux.sum()
     return torch.where(total > 0, flux / total, flux)

@@ -110,7 +110,7 @@ extern "C" int count_ops(const double* y0, int64_t n, int metric, double M, doub
       f8a.data(), f8b.data(), f[0].data(), f[1].data(), f[2].data(), status,
       i4[0].data(), i4[1].data(), f[3].data(), f[4].data(), f[5].data(), attempts,
       i4[2].data()};
-  std::vector<Counted> g(geo, geo + (geo != nullptr ? gradus::kGeometryValues : 0));
+  std::vector<Counted> g(geo, geo + (geo != nullptr ? 2 + int(geo[1]) * gradus::kPartStride : 0));
   for (auto& c : op_counts) c = 0;
   const int rc = gradus::launch_entry<Counted>(
       y.data(), n, metric, M, a, q, geometry, inner_r, outer_r, height,
@@ -301,6 +301,11 @@ def _generic_cases(m):
     cpu = dict(device="cpu")
     ellipse = G.EllipticalDisc(0.0, 100.0, 60.0, **cpu)
     ss = G.ShakuraSunyaev.from_metric(m, 0.3)
+    composite6 = G.CompositeGeometry(
+        [G.ThinDisc(r, r + 10.0, **cpu) for r in (0.0, 10.0, 20.0, 30.0)]
+        + [G.PrecessingDisc(G.ThinDisc(40.0, 60.0, **cpu), math.radians(10.0), math.radians(30.0), **cpu),
+           G.EllipticalDisc(60.0, 100.0, 80.0, **cpu)]
+    )  # fmt: skip
     return (
         ("shakura_sunyaev", ss, {}),
         ("shakura_sunyaev_sampled", ss, dict(event_method="sampled")),
@@ -308,6 +313,7 @@ def _generic_cases(m):
         ("precessing_elliptical", G.PrecessingDisc(ellipse, math.radians(10.0), math.radians(30.0), **cpu), {}),
         ("precessing_thin", G.PrecessingDisc(G.ThinDisc(0.0, 50.0, **cpu), math.radians(20.0), math.radians(30.0), **cpu), {}),
         ("composite", G.CompositeGeometry([G.ThinDisc(20.0, 100.0, **cpu), G.DatumPlane(3.0, **cpu)]), {}),
+        ("composite6", composite6, {}),
         ("doughnut", G.PolishDoughnut(**cpu), {}),
         ("doughnut_kerr", G.PolishDoughnut(metric=m), {}),
     )

@@ -4,9 +4,8 @@
 Reference: `src/reverberation.jl`. The impulse response ψ(t) = Σ_g flux(g, t)
 is zero-padded to 1/flo, Fourier transformed, and the lag is
 τ(f) = -atan(Im𝔉ψ/(1+Re𝔉ψ))/(2πf) (reverberation.jl:17-45).
-
-Not ported yet, and raising `NotImplementedError`: `binflux(axis_name=...)`
-(ROADMAP queue A, item 12).
+`binflux(axis_name=mesh)` reduces its flux, bin range and histogram over a
+ray mesh (`gradus_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import domain_upper_hemisphere, trace_geodesics
 from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
 from gradus_tpu_torch.orbits.special_radii import isco as _isco
+from gradus_tpu_torch.parallel.mesh import pmax, pmin, psum
 from gradus_tpu_torch.redshift import redshift_pointfunction
 from gradus_tpu_torch.transfer.cunningham import transferfunctions
 from gradus_tpu_torch.transfer.integration import integrate_lagtransfer, integrate_lagtransfer_timedep
@@ -249,12 +249,12 @@ def binflux(
     """Bin the lag transfer into (t, E) flux (reference `binflux`,
     transfer-functions-2d.jl:218-241): f = g³·ε·area, normalised to ΣF = 1
     and divided by the bin area, with empty bins NaN. Bin edges come from
-    the data unless ``e_bins``/``t_bins`` are given."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "binflux(axis_name=...) reduces over a device mesh, which is not ported yet "
-            "(ROADMAP queue A, item 12)"
-        )
+    the data unless ``e_bins``/``t_bins`` are given.
+
+    With ``axis_name`` (the port's ray mesh, `parallel.ray_mesh()`, or its
+    process group; each rank holding its shard of the plane's rays) the
+    flux total, the bin range and the histogram are reduced over the
+    ranks, so every rank returns the same bins and histogram."""
     m = tf["metric"]
     gps = tf["points"]
     hit = tf["hit"]
@@ -275,7 +275,10 @@ def binflux(
     pf = redshift_pointfunction(m, tf["x"])
     g = pf(m, gps, tf["max_t"])
     f = torch.where(hit, g**3 * eps * tf["areas"], 0.0)
-    F = f / f.sum()
+    total = f.sum()
+    if axis_name is not None:
+        total = psum(total, axis_name)
+    F = f / total
 
     E = g * E0
     msk = hit & torch.isfinite(t) & torch.isfinite(E)
@@ -283,6 +286,8 @@ def binflux(
     def _linspace_over(v, n):
         lo = torch.where(msk, v, math.inf).min()
         hi = torch.where(msk, v, -math.inf).max()
+        if axis_name is not None:
+            lo, hi = pmin(lo, axis_name), pmax(hi, axis_name)
         return LinearGrid()(lo, hi, n)
 
     if e_bins is None:
@@ -301,6 +306,8 @@ def binflux(
     flat = (ie * (N_t - 1) + it).reshape(-1)
     w = torch.where(msk, F, 0.0).reshape(-1)
     H = w.new_zeros((N_E - 1) * (N_t - 1)).index_add_(0, flat, w).reshape(N_E - 1, N_t - 1)
+    if axis_name is not None:
+        H = psum(H, axis_name)
     de = e_bins[1] - e_bins[0]
     dt = t_bins[1] - t_bins[0]
     H = H / (de * dt)

@@ -358,13 +358,16 @@ def test_emissivity_physics(sweep, monte_carlo):
     assert -4.0 < math.log(e[1] / e[0]) / math.log(4.0) < -2.0
 
 
-def test_emissivity_dispatch_and_unported_branches(kerr, monkeypatch):
+def test_emissivity_dispatch_and_unported_branches(kerr, monkeypatch, tmp_path):
     """Ring and disc coronae without a sampler go to `corona/extended.py`
     (a ring to the near-field hybrid unless ``near_field="fan"``, a disc to
     the fan stack unless ``near_field="hybrid"``; here with the profile functions
     stubbed, their parity is tests/test_torch_extended_corona.py's); with a
     sampler they run the Monte-Carlo profile. `bin_corona_hits(axis_name=...)`
-    raises (A12)."""
+    raised until the ray mesh was ported: now, over two gloo ranks each
+    holding half of that profile's sky samples, every rank returns the
+    profile of the whole (n and the radii bit for bit, ε and t at rtol
+    1e-12: the bin sums' order differs)."""
     tm, td = kerr["tm"], ThinDisc(0.0, 100.0, device="cpu")
     ext = importlib.import_module("gradus_tpu_torch.corona.extended")
     for name in ("ring_corona_profile", "ring_corona_profile_hybrid", "disc_corona_profile", "disc_corona_profile_hybrid"):
@@ -374,10 +377,24 @@ def test_emissivity_dispatch_and_unported_branches(kerr, monkeypatch):
     assert tc.emissivity_profile(tm, td, ring, near_field="fan") == ("ring_corona_profile", {})
     assert tc.emissivity_profile(tm, td, disc, n_rings=2) == ("disc_corona_profile", dict(n_rings=2))
     assert tc.emissivity_profile(tm, td, disc, near_field="hybrid") == ("disc_corona_profile_hybrid", {})
-    prof = tracecorona_profile(tm, td, tc.RingCorona(r=4.0, h=3.0), n_samples=32, lam_max=400.0, n_bins=8)
+    ring = tc.RingCorona(r=4.0, h=3.0)
+    prof = tracecorona_profile(tm, td, ring, n_samples=32, lam_max=400.0, n_bins=8)
     assert 0 < int(prof.n) <= 8
-    with pytest.raises(NotImplementedError, match="item 12"):
-        bin_corona_hits(tm, tc.PowerLawSpectrum(), None, None, None, n_bins=4, axis_name="i")
+    from gradus_tpu_torch import parallel
+    from gradus_tpu_torch.corona.emissivity import _trace_sky
+
+    import torch_parallel_ranks as ranks
+
+    x, v_src = ring.sample_position_velocity(tm)
+    sampler = tc.EvenSampler(domain=tc.BothHemispheres())
+    elev, az = sampler.sample_angles(torch.arange(1, 33, dtype=x.dtype), 32)
+    gps = _trace_sky(tm, td, x, tc.sky_angles_to_velocity(tm, x, v_src, elev, az), 400.0)
+    hit = gps.status == StatusCodes.IntersectedWithGeometry
+    jobs = [("bin_corona_hits", (tm, tc.PowerLawSpectrum(2.0), gps, v_src, hit, 8))]
+    for (got,) in parallel.spawn(ranks.reduce_halves, 2, (jobs,), device="cpu", threads=1, root=tmp_path):
+        assert int(got.n) == int(prof.n) and torch.equal(got.radii, prof.radii)
+        for name in ("eps", "t"):
+            np.testing.assert_allclose(getattr(got, name).numpy(), getattr(prof, name).numpy(), rtol=1e-12, atol=0)
 
 
 def test_near_field_reaches_the_sampler_branch(kerr):

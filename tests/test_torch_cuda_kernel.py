@@ -474,14 +474,18 @@ def _chip_smoke():
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize(
     "kind",
-    ["shakura_sunyaev", "shakura_sunyaev_sampled", "elliptical", "precessing_elliptical", "precessing_thin", "composite", "doughnut", "doughnut_kerr"],
-)
+    [
+        "shakura_sunyaev", "shakura_sunyaev_sampled", "elliptical", "precessing_elliptical", "precessing_thin",
+        "composite", "composite6", "doughnut", "doughnut_kerr",
+    ],
+)  # fmt: skip
 def test_generic_geometry_kernel_matches_plain_version(dev, kind, dtype):
-    """Each geometry of kinds 3-7 on 512 flagship rays, kernel against plain
+    """Each geometry of kinds 3-7 (and a composite of six parts) on 512
+    flagship rays, kernel against plain
     version, at chip_smoke.py's thresholds (`phase_thick_geometries`): whole
     traces (f64: statuses ≥ 0.999 alike, hits within 1e-6; f32: ≥ 0.995,
     median redshift gap ≤ 1e-4), or, for the ellipse (also precessed) and
-    the composite, whose events the step sequence decides, one iteration at
+    the composites, whose events the step sequence decides, one iteration at
     a time from the plain version's carry (`_stepwise_ok`: statuses as
     above, in f32 the status codes but for the hit decisions, which the
     composite takes below f32's resolution; the state within 1e-9 in f64

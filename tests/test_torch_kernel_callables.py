@@ -248,6 +248,38 @@ def test_kernel_takes_the_callable_geometries():
             assert unit.entry == "geodesic_tsit5_f32" and "T(0.10000000000000001)" in unit.source or name != "composite"
 
 
+def test_composite_block_of_any_part_count():
+    """A composite's block is its kind and part count, then 22 values a part
+    (kind, inner kind, 20 values): 2 + 6 · 22 for six parts, a precessed one
+    and a callable one among them, whose cross-section the generated unit
+    selects by its part index. A composite of up to four parts gives the
+    kernel the values it read before the block was sized by the count
+    (the two-part `composite` case of chip_smoke.py, written out)."""
+    m = KerrMetric(1.0, 0.998, **CPU)
+    warp = G.WarpedThinDisc(lambda rho: 2.0 * torch.sin(rho / 10.0), 60.0, 100.0, **CPU)
+    tilted = G.PrecessingDisc(G.ThinDisc(40.0, 60.0, **CPU), 0.17, 0.5, **CPU)
+    parts = [G.ThinDisc(r, r + 10.0, **CPU) for r in (0.0, 10.0, 20.0, 30.0)] + [tilted, warp]
+    g = G.CompositeGeometry(parts)
+    for dtype in (torch.float64, torch.float32):
+        _check_kernel_config(m, g, dtype)
+    kind, _, _, _, block = _geometry_args(g)
+    assert kind == 7 and len(block) == 2 + 6 * 22 and block[:2] == [7.0, 6.0]
+    part = [block[2 + 22 * k : 2 + 22 * (k + 1)] for k in range(6)]
+    assert [(p[0], p[1]) for p in part] == [(1.0, 0.0)] * 4 + [(6.0, 1.0), (8.0, 0.0)]
+    for k, r in enumerate((0.0, 10.0, 20.0, 30.0)):
+        assert part[k][2:] == [r, r + 10.0] + [0.0] * 18
+    assert part[4][2:4] == [40.0, 60.0] and part[4][4:19] == [0.0] * 15
+    assert part[4][19:] == [math.cos(-0.17), math.sin(-0.17), 0.5]
+    assert part[5][2:] == [60.0, 100.0] + [0.0] * 18
+    assert [k for k, _ in codegen.callable_parts(g)] == [5]
+    unit = cuda_solver._kernel_unit(m, g, torch.float64)
+    assert "case 5: return h_5<T>(rho);" in unit.source and "case 4:" not in unit.source
+    two = G.CompositeGeometry([G.ThinDisc(20.0, 100.0, **CPU), G.DatumPlane(3.0, **CPU)])
+    assert _geometry_args(two)[4] == [7.0, 2.0, 1.0, 0.0, 20.0, 100.0] + [0.0] * 18 + [2.0, 0.0, 3.0] + [0.0] * 19
+    with pytest.raises(NotImplementedError, match="one part or more"):
+        _check_kernel_config(m, G.CompositeGeometry([]), torch.float64)
+
+
 _TABLE = torch.linspace(0.0, 1.0, 11, dtype=torch.float64)
 _C0 = torch.tensor(10.0, dtype=torch.float64)
 REFUSED = {

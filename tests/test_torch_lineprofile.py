@@ -318,14 +318,17 @@ def test_binned_flux_matches_jax():
 
 
 @pytest.mark.parametrize("case", ["binning_method", "profile", "axis_name", "xla_backend"])
-def test_unported_line_profile_paths_raise(case, monkeypatch):
-    """`binned_flux(axis_name=...)` and a thick disc's transfer functions on
-    the `cuda` backend raise. The ring's and the disc's profiles without a
-    sampler (``binning_method``, ``profile``) raised until corona/extended.py
-    was ported: now `emissivity_profile` dispatches them there (its
-    profile functions stubbed here with r⁻³; their parity is
-    tests/test_torch_extended_corona.py's and tests/test_torch_disc_corona.py's)
-    and the binned line profile, on a 4 × 4 plane, takes the profile's ε."""
+def test_unported_line_profile_paths_raise(case, monkeypatch, tmp_path):
+    """A thick disc's transfer functions on the `cuda` backend raise. The
+    ring's and the disc's profiles without a sampler (``binning_method``,
+    ``profile``) raised until corona/extended.py was ported: now
+    `emissivity_profile` dispatches them there (its profile functions
+    stubbed here with r⁻³; their parity is tests/test_torch_extended_corona.py's
+    and tests/test_torch_disc_corona.py's) and the binned line profile, on a
+    4 × 4 plane, takes the profile's ε. `binned_flux(axis_name=...)` raised
+    until the ray mesh was ported (``axis_name``): now, over two gloo ranks
+    each holding half of 1,001 synthetic points, every rank returns the
+    histogram of the whole (rtol 1e-12: the sum's order differs)."""
     m = KerrMetric(1.0, A_SPIN, device="cpu")
     x = torch.tensor([0.0, 1000.0, math.radians(60.0), 0.0], dtype=torch.float64)
     d = DatumPlane(0.0, device="cpu")
@@ -340,12 +343,33 @@ def test_unported_line_profile_paths_raise(case, monkeypatch):
         assert built == ["ring_corona_profile_hybrid" if case == "binning_method" else "disc_corona_profile"]
         assert bool(torch.isfinite(flux).all()) and math.isclose(float(flux.sum()), 1.0, rel_tol=1e-12)
         return
+    if case == "axis_name":
+        import torch_parallel_ranks as ranks
+
+        from gradus_tpu_torch import parallel
+
+        rng = np.random.default_rng(9)
+        n = 1001
+        gp = GeodesicPoint(
+            status=torch.as_tensor(rng.choice([0, 1, 3], size=n, p=[0.2, 0.1, 0.7]).astype(np.int32)),
+            lam_min=torch.zeros(n, dtype=torch.float64),
+            lam_max=_t(rng.uniform(900, 1100, n)),
+            x_init=_t(np.tile([0.0, 1000.0, 1.2, 0.0], (n, 1))),
+            v_init=_t(rng.normal(size=(n, 4))),
+            x=_t(np.stack([rng.uniform(900, 1100, n), rng.uniform(1.0, 80.0, n), rng.uniform(1.4, 1.7, n), rng.uniform(0, 6.3, n)], -1)),
+            v=_t(rng.normal(size=(n, 4))),
+        )
+        areas, bins = _t(rng.uniform(0.5, 2.0, n)), _t(np.linspace(0.1, 1.4, 120))
+        kw = dict(min_re=1.237, max_re=60.0, lam_max=2000.0)
+        whole = binned_flux(None, gp, areas, ranks.inverse_cube, bins, redshift_pf=ranks.synthetic_redshift, **kw)
+        jobs = [("binned_flux", (gp, areas, bins, kw))]
+        got = [r[0] for r in parallel.spawn(ranks.reduce_halves, 2, (jobs,), device="cpu", threads=1, root=tmp_path)]
+        assert torch.equal(got[0], got[1]) and (whole > 0).sum() > 50
+        np.testing.assert_allclose(got[0].numpy(), whole.numpy(), rtol=1e-12, atol=1e-300)
+        return
     with pytest.raises(NotImplementedError):
-        if case == "axis_name":
-            binned_flux(m, None, None, None, None, min_re=1, max_re=2, lam_max=1, redshift_pf=None, axis_name="i")
-        else:
-            # a thick disc's transfer functions, on the backend that refuses it
-            lineprofile(m, x, ShakuraSunyaev.from_metric(m), backend="cuda")
+        # a thick disc's transfer functions, on the backend that refuses it
+        lineprofile(m, x, ShakuraSunyaev.from_metric(m), backend="cuda")
 
 
 def test_transfer_grid_interop_round_trip():

@@ -190,9 +190,62 @@ def test_binflux_matches_jax(small_lagtransfer, which):
         assert math.isclose(float(np.nansum(ht)) * de * dt, 1.0, rel_tol=1e-12)
 
 
-def test_binflux_axis_name_raises(small_lagtransfer):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        binflux(small_lagtransfer[1], axis_name="i")
+def _jax_binflux_sharded(jtf, profile, kw):
+    """The JAX package's `binflux(axis_name="rays")` under `shard_map` over
+    two of its CPU devices, each holding half of the plane's rays."""
+    import jax
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("rays",))
+    n = jtf["hit"].shape[0]
+
+    def local(points, hit, areas):
+        return jax_binflux(dict(jtf, points=points, hit=hit, areas=areas), profile, axis_name="rays", **kw)
+
+    spec = jax.tree.map(lambda a: P("rays") if a.ndim and a.shape[0] == n else P(), jtf["points"])
+    shard = jax.shard_map(local, mesh=mesh, in_specs=(spec, P("rays"), P("rays")), out_specs=(P(), P(), P()))
+    # jitted: shard_map run op by op takes ~40 s here, jitted < 1 s
+    return jax.jit(shard)(jtf["points"], jtf["hit"], jtf["areas"])
+
+
+def test_binflux_axis_name_raises(small_lagtransfer, tmp_path):
+    """`binflux(axis_name=...)` raised until the ray mesh was ported (the
+    name is kept: it is this test's in the package's history); now, over two
+    gloo ranks each holding half of the plane's rays (the flux total, the
+    bin range and the histogram reduced over them), every rank returns what
+    `binflux` of the whole does, with the default profile, the traced one
+    and given bin edges: the bin edges bit for bit, the same empty bins, the
+    histogram at rtol 1e-12 (the sums' order differs). And it returns what
+    the JAX package's `binflux(axis_name="rays")` does under `shard_map`
+    over two devices on the same halves, at test_binflux_matches_jax's
+    tolerances (edges 1e-10, the histogram 1e-8, the same empty bins)."""
+    from gradus_tpu_torch import parallel
+
+    import torch_parallel_ranks as ranks
+
+    jtf, ttf = small_lagtransfer
+    cases = [
+        dict(N_E=12, N_t=10),
+        dict(N_E=12, N_t=10, profile="traced"),
+        dict(e_bins=np.linspace(0.5, 9.0, 9), t_bins=np.linspace(-5.0, 300.0, 7)),
+    ]
+    traced = lambda kw, tf: dict(kw, profile=tf["profile"]) if kw.get("profile") else kw  # noqa: E731
+    jobs = [("binflux", (ttf, traced(kw, ttf))) for kw in cases]
+    got = parallel.spawn(ranks.reduce_halves, 2, (jobs,), device="cpu", threads=1, root=tmp_path)
+    for k, kw in enumerate(cases):
+        t, e, h = binflux(ttf, **traced(kw, ttf))
+        jkw = traced(kw, jtf)
+        tj, ej, hj = (np.asarray(a) for a in _jax_binflux_sharded(jtf, jkw.pop("profile", None), jkw))
+        assert int((~h.isnan()).sum()) >= (10 if k < 2 else 3)
+        for tr, er, hr in (rank[k] for rank in got):
+            assert torch.equal(tr, t) and torch.equal(er, e)
+            np.testing.assert_array_equal(hr.isnan().numpy(), h.isnan().numpy())
+            np.testing.assert_allclose(hr.numpy(), h.numpy(), rtol=1e-12, atol=0)
+            np.testing.assert_allclose(tr.numpy(), tj, rtol=1e-10)
+            np.testing.assert_allclose(er.numpy(), ej, rtol=1e-10)
+            np.testing.assert_array_equal(hr.isnan().numpy(), np.isnan(hj))
+            np.testing.assert_allclose(hr.numpy()[~np.isnan(hj)], hj[~np.isnan(hj)], rtol=1e-8)
 
 
 def test_lagtransfer_default_corona_sampler_is_the_golden_spiral():
