@@ -46,6 +46,15 @@ through their entry points, none of which may call the plain-torch polish:
   (`callable_geometries`: the warped disc, ShakuraSunyaev's cross-section as
   a ThickDisc, both precessed or in a composite, and a precessed
   DatumPlane), against the plain version in the worker `plain`;
+- the same camera in a user's metric, written in this script and traced
+  into the kernel (`metrics/codegen.py`, its unit built with the
+  library): the docs' `EddingtonFinkelsteinAD` (`traced_metric_render`,
+  against `KerrMetric(1, 0)` on the same rays), a copy of
+  Johannsen-Psaltis's components against the built-in kernel in f64, the
+  transfer-function profile at `bench_ctf`'s size in the Eddington-
+  Finkelstein metric (`traced_metric_lineprofile`), and both traced
+  metrics against the plain version in the worker `plain`
+  (`traced_metrics`);
 - the flagship render's longest chain of steps: its slowest ray launched
   alone, and the kernel's static SASS counts;
 - the Gradus.jl line-profile edge goldens (Kerr a=0.6, i=60°), f64, through
@@ -202,6 +211,7 @@ from gradus_tpu_torch.metrics import (
     KerrNewmanMetric,
     trace_geodesics_first_order,
 )
+from gradus_tpu_torch.metrics.base import AbstractMetric
 from gradus_tpu_torch.orbits import CircularOrbits, charged_circular_orbit_omega, solve_equatorial_circular_orbit
 from gradus_tpu_torch.corona import (
     BothHemispheres,
@@ -314,6 +324,12 @@ KERNEL_OPS = {
     "kerr_precessing_warped": (507.0, 1512.227447636084, 4591.0),
     "kerr_composite_callable": (447.0, 1453.8120760557824, 4411.0),
     "kerr_precessing_datum": (492.0, 1496.86964026354, 4546.0),
+    # the traced metrics (`TRACED_METRICS`), through their generated units'
+    # host builds: `python scripts/torch_traced_metric_reference.py --opcount`
+    "traced_eddington_finkelstein": (365.0, 1245.2703634960005, 3731.0),
+    "traced_user_johannsen_psaltis": (747.0, 2391.2749975323263, 7551.0),
+    "traced_eddington_finkelstein_datum_plane": (366.0, 1245.9738224772696, 3734.0),
+    "traced_user_johannsen_psaltis_shakura_sunyaev": (767.0, 2412.4986592251853, 7611.0),
 }
 # NVIDIA H100 SXM data sheet, at its 700 W limit: FP32 and FP64 outside the
 # tensor cores, and HBM3
@@ -334,8 +350,12 @@ def _bound(metric, rays, attempts, hits, dtype):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+_T0 = time.perf_counter()
+
+
 def _say(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's line, with the seconds since the process started."""
+    print(json.dumps({"phase": phase, **fields, "at_seconds": time.perf_counter() - _T0}), flush=True)
 
 
 def _flagship(dtype, dev, outer_r=50.0):
@@ -1049,7 +1069,7 @@ def phase_goldens(dev):
     _say("goldens", **sums)
 
 
-def _full_render(dev, m, side, name, ops_key, subset=True, geometry=None, range_rho_min=None, **tracer_kw):
+def _full_render(dev, m, side, name, ops_key, subset=64, geometry=None, range_rho_min=None, **tracer_kw):
     """A side² render, f32, at the flagship camera (r = 1000, i = 75°,
     ThinDisc(0, 50) unless ``geometry`` is given, λ ∈ (0, 2200)) through
     the port's entry points, with
@@ -1059,9 +1079,9 @@ def _full_render(dev, m, side, name, ops_key, subset=True, geometry=None, range_
     renders, one kernel launch each (two with a tail pass, ``tracer_kw``'s
     ``segment_iters``), none of which may call the plain-torch polish; then
     one render split by CUDA events into camera + constraint, the kernel
-    with its polish, and unpack + shading. With ``subset``, every 64th
-    pixel is held against the plain version on the card. Returns (the
-    printed result, the last render's GeodesicPoint)."""
+    with its polish, and unpack + shading. With ``subset``, every
+    ``subset``-th pixel is held against the plain version on the card.
+    Returns (the printed result, the last render's GeodesicPoint)."""
     dtype = torch.float32
     n = side * side
     d = ThinDisc(0.0, 50.0, dtype=dtype, device=dev) if geometry is None else geometry
@@ -1149,8 +1169,8 @@ def _full_render(dev, m, side, name, ops_key, subset=True, geometry=None, range_
     )
 
     if subset:
-        # every 64th pixel, against the plain version on the card
-        idx = torch.arange(0, n, 64, device=dev)
+        # every subset-th pixel, against the plain version on the card
+        idx = torch.arange(0, n, subset, device=dev)
         y0 = _constrained(tracer, m, x, A[idx], B[idx])
         out_p, plain_ms = _timed(lambda: integrate_rays_plain(m, y0, SPAN, **kw))
         g_p = pf(m, tracer._finish(out_p, y0, SPAN[0]), SPAN[1])
@@ -1206,7 +1226,7 @@ def phase_main_path(dev, side=1024):
         side,
         "flagship_render_segmented",
         "kerr",
-        subset=False,
+        subset=None,
         segment_iters=SEGMENT_ITERS,
         tail_bucket=TAIL_BUCKET,
     )
@@ -1279,7 +1299,9 @@ THICK_KINDS = (
 # semi-major axis (a NaN slope) or by its rim (a slope that diverges), and
 # their unconverged polish.
 STEPWISE_KINDS = ("elliptical", "precessing_elliptical", "composite", "composite6", "composite_callable")
-STEPWISE_ITERS = 400
+# (300, from 400, to make room inside the time limit for the traced
+# metrics' phases: fewer iterations compared, at the same thresholds)
+STEPWISE_ITERS = 300
 KINDS012_DIGESTS = Path(__file__).resolve().parent / "tests" / "data" / "kernel_kinds012_digests.json"
 
 
@@ -1556,8 +1578,10 @@ def _callable_geometry(kind, dtype, dev):
 
 def _callable_units():
     """The generated units that the callable phases launch: the render's
-    (f32) and each case's in f64 and f32, for `phase_build` (their text
-    does not depend on the device)."""
+    (f32) and each case's in f64 and f32, and the traced metrics' in f64
+    and f32 (`TRACED_METRICS`: one unit a metric and dtype runs every
+    geometry), for `phase_build` (their text does not depend on the
+    device)."""
     m = KerrMetric(1.0, 0.998, device="cpu")
     units = []
     for dtype in (torch.float64, torch.float32):
@@ -1565,6 +1589,8 @@ def _callable_units():
             unit = cuda_solver._kernel_unit(m, _callable_geometry(kind, dtype, "cpu"), dtype)
             if unit is not None:
                 units.append(unit)
+        for name in TRACED_METRICS:
+            units.append(cuda_solver._kernel_unit(_traced_metric(name, dtype, "cpu"), None, dtype))
     return units
 
 
@@ -1649,15 +1675,298 @@ def phase_callable_geometries(dev, n=2048):
     return results
 
 
+# --- a user's metric traced into the kernel (metrics/codegen.py) ------------------
+
+
+class EddingtonFinkelsteinAD(AbstractMetric):
+    """docs/custom-metrics.md's example, written in torch."""
+
+    def __init__(self, M=1.0, *, dtype=torch.float64, device=None):
+        super().__init__()
+        self._register_params(dtype, device, M=M)
+
+    def components5(self, r, theta):
+        tt = -(1.0 - 2.0 * self.M / r)
+        rr = -1.0 / tt
+        hh = r * r
+        pp = r * r * torch.sin(theta) ** 2
+        tp = torch.zeros_like(r)
+        return (tt, rr, hh, pp, tp)
+
+    def inner_radius(self):
+        return 2.0 * self.M
+
+
+class UserJohannsenPsaltis(AbstractMetric):
+    """A user's copy of `JohannsenPsaltisMetric`'s components."""
+
+    def __init__(self, M=1.0, a=0.0, eps3=0.0, *, dtype=torch.float64, device=None):
+        super().__init__()
+        self._register_params(dtype, device, M=M, a=a, eps3=eps3)
+
+    def components5(self, r, theta):
+        M, a = self.M, self.a
+        sin2 = torch.sin(theta) ** 2
+        sigma = r * r + a * a * (1.0 - sin2)
+        h = self.eps3 * M**3 * r / sigma**2
+        delta = r * r - 2.0 * M * r + a * a
+        tt = -(1.0 + h) * (1.0 - 2.0 * M * r / sigma)
+        rr = sigma * (1.0 + h) / (delta + a * a * sin2 * h)
+        hh = sigma
+        term1 = sin2 * (r * r + a * a + 2.0 * a * a * M * r * sin2 / sigma)
+        term2 = h * a * a * (sigma + 2.0 * M * r) * sin2**2 / sigma
+        pp = term1 + term2
+        tp = -2.0 * a * M * r * sin2 * (1.0 + h) / sigma
+        return (tt, rr, hh, pp, tp)
+
+    def inner_radius(self):
+        return self.M + torch.sqrt(self.M**2 - self.a**2)
+
+
+# name: (the user's metric at its parameters, its `KERNEL_OPS` key): the
+# docs' Eddington-Finkelstein Schwarzschild (M = 1) and the copy of
+# Johannsen-Psaltis at `JP`
+TRACED_METRICS = {
+    "eddington_finkelstein": (lambda **kw: EddingtonFinkelsteinAD(1.0, **kw), "traced_eddington_finkelstein"),
+    "user_johannsen_psaltis": (lambda **kw: UserJohannsenPsaltis(**JP, **kw), "traced_user_johannsen_psaltis"),
+}
+
+
+def _traced_metric(name, dtype, dev):
+    return TRACED_METRICS[name][0](dtype=dtype, device=dev)
+
+
+def phase_traced_metric_render(dev, side=1024):
+    """The flagship render (f32, i = 75°, ThinDisc(0, 50), λ ≤ 2200) in the
+    docs' `EddingtonFinkelsteinAD`, its components5 traced into the kernel
+    (`_full_render`: the render's time, finite pixels, attempted
+    lane-steps, the kernel's time and bound, every 256th pixel against the
+    plain version, cut from 64 for the time limit), and the build of its
+    unit; the same rays in the
+    built-in `KerrMetric(1, 0)`, the same physics through Kerr's
+    hand-derived Jacobian where the traced metric runs Dual2: statuses
+    alike ≥ 0.995, the median relative gap of both metrics' redshift ≤ 1e-4
+    (printed with the hits' largest gap). Then the copy of
+    Johannsen-Psaltis against the built-in `DualRhs<JohannsenPsaltis>` in
+    f64 on 2,048 flagship rays (`_jp_agrees`), each kernel's time."""
+    m = _traced_metric("eddington_finkelstein", torch.float32, dev)
+    geometry = ThinDisc(0.0, 50.0, dtype=torch.float32, device=dev)
+    result, gp = _full_render(
+        dev, m, side, "traced_metric_render", TRACED_METRICS["eddington_finkelstein"][1], subset=256, geometry=geometry
+    )
+    result["build"] = _callable_build(geometry, m, torch.float32)
+    kerr = KerrMetric(1.0, 0.0, dtype=torch.float32, device=dev)
+    x = torch.tensor(X_OBS, dtype=torch.float32, device=dev)
+    A, B = _pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, torch.float32, dev)
+    v = map_impact_parameters(kerr, x, A, B)
+    gk = CudaTracer(kerr, geometry=geometry)(x.expand_as(v), v, SPAN)
+    g_traced = (ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected())(m, gp, SPAN[1])
+    g_kerr = (ConstPointFunctions.redshift(kerr, x) @ ConstPointFunctions.filter_intersected())(kerr, gk, SPAN[1])
+    both = (gp.status == HIT) & (gk.status == HIT) & torch.isfinite(g_traced) & torch.isfinite(g_kerr)
+    vs_kerr = dict(
+        status_agree=float((gp.status == gk.status).double().mean()),
+        hits=(int((gp.status == HIT).sum()), int((gk.status == HIT).sum())),
+        hit_max_abs_err=float((gp.x[both] - gk.x[both]).abs().max()),
+        g_median_rel=float(_rel(g_traced[both], g_kerr[both]).median()),
+    )
+    result["vs_kerr"] = vs_kerr
+    result["jp_vs_builtin"] = jp = _traced_vs_builtin_jp(dev)
+    _say("traced_metric_render", build=result["build"], vs_kerr=vs_kerr, jp_vs_builtin=jp)
+    if vs_kerr["status_agree"] < 0.995 or not vs_kerr["g_median_rel"] <= 1e-4:
+        raise AssertionError(f"the traced Eddington-Finkelstein render disagrees with KerrMetric(1, 0): {vs_kerr}")
+    if not _jp_agrees(jp):
+        raise AssertionError(f"the traced Johannsen-Psaltis disagrees with the built-in kernel: {jp}")
+    return result
+
+
+def _traced_vs_builtin_jp(dev, n=2048):
+    """The copy of Johannsen-Psaltis (kind 12) against the built-in metric
+    (kind 2) on the same ``n`` flagship rays, f64: status agreement, the
+    hits' gaps relative to max(1, |value|) (median, 99th percentile,
+    largest, and the count past 1e-9), each kernel's ms (the median of 3
+    after a warm-up) and the traced one's bound."""
+    kw = dict(dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(25)
+    A, B = (torch.as_tensor(rng.uniform(-lim, lim, n), **kw) for lim in (28.0, 18.0))
+    x = torch.tensor(X_OBS, **kw)
+    d = ThinDisc(0.0, 50.0, **kw)
+    out = {}
+    for name, m in (("traced", _traced_metric("user_johannsen_psaltis", torch.float64, dev)), ("builtin", JohannsenPsaltisMetric(**JP, **kw))):
+        tracer = CudaTracer(m, geometry=d)
+        y0 = _constrained(tracer, m, x, A, B)
+        ikw = tracer._integrate_kwargs(torch.float64)
+        cuda_integrate_rays(m, y0, SPAN, **ikw)  # warm-up
+        times = []
+        for _ in range(3):
+            raw, ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **ikw))
+            times.append(ms)
+        out[name] = (tracer._finish(raw, y0, SPAN[0]), statistics.median(times), raw)
+    (gt, t_ms, raw), (gb, b_ms, _) = out["traced"], out["builtin"]
+    hit = (gt.status == HIT) & (gb.status == HIT)
+    gap = torch.cat([_rel_gap(gt.x[hit], gb.x[hit]), _rel_gap(gt.lam_max[hit], gb.lam_max[hit])[:, None]], dim=-1).amax(-1)
+    q = torch.quantile(gap, torch.tensor([0.5, 0.99], dtype=gap.dtype, device=gap.device)).tolist() if hit.any() else [0.0, 0.0]
+    bound_ms, bound_by = _bound(TRACED_METRICS["user_johannsen_psaltis"][1], n, int(raw["attempts"].sum()), _hits(raw), torch.float64)
+    return dict(
+        rays=n,
+        hits=int(hit.sum()),
+        status_agree=float((gt.status == gb.status).double().mean()),
+        hit_median_rel_err=q[0],
+        hit_p99_rel_err=q[1],
+        hit_max_rel_err=float(gap.max()) if hit.any() else 0.0,
+        hits_past_1e9=int((gap > 1e-9).sum()),
+        traced_kernel_ms=t_ms,
+        builtin_kernel_ms=b_ms,
+        traced_bound_ms=bound_ms,
+        traced_bound_by=bound_by,
+    )
+
+
+def _jp_agrees(res):
+    """Statuses identical, 99% of the hits within 1e-9 relative and every
+    one within 1e-7: the two kernels compute the same components with
+    another rounding, so their step sizes differ at rounding, and a ray
+    whose steps near the hole take the integrator's tolerance (abstol =
+    reltol = 1e-9) ends up to a few 1e-9 away (the kernels' C++ on a CPU,
+    f64: median 6.1e-12, 99th percentile 2.8e-10, largest 6.2e-9 at r =
+    7.9, 3 hits of 1,678 past 1e-9)."""
+    return res["status_agree"] == 1.0 and res["hit_p99_rel_err"] <= 1e-9 and res["hit_max_rel_err"] <= 1e-7
+
+
+def _rel_gap(a, b):
+    """|a − b| relative to max(1, |b|)."""
+    return (a - b).abs() / b.abs().clamp(min=1.0)
+
+
+def phase_traced_metric_lineprofile(dev):
+    """The transfer-function line profile at `bench_ctf`'s size (f32, i =
+    60°, 100 radii × 80 angles, `CTF_BINS`) in the docs'
+    `EddingtonFinkelsteinAD` against ThinDisc(0, 100), through
+    `lineprofile(..., method=TransferFunctionMethod(), backend="cuda")`:
+    its seconds (a warm-up that builds the solver, then one timed
+    profile), launches and kernel ms (one more profile under the
+    profiler), Σ = 1 ± 1e-4, none of the plain-torch polish, and m1
+    beside the built-in `KerrMetric(1, 0)`'s profile's (printed: the same
+    physics)."""
+    dtype = torch.float32
+    x = torch.tensor(CTF_X_OBS, dtype=dtype, device=dev)
+    bins = torch.linspace(*CTF_BINS, dtype=dtype, device=dev)
+    d = ThinDisc(0.0, 100.0, dtype=dtype, device=dev)
+    m = _traced_metric("eddington_finkelstein", dtype, dev)
+    kerr = KerrMetric(1.0, 0.0, dtype=dtype, device=dev)
+
+    def profile(metric):
+        return lineprofile(metric, x, d, bins=bins, num_re=100, N=80, method=TransferFunctionMethod(), backend="cuda")[1]
+
+    cuda_solver.KERNEL_LAUNCHES = 0
+    with _PolishCounter() as polish:
+        t0 = time.perf_counter()
+        profile(m)  # warm-up: builds the solver
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flux = profile(m)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = cuda_solver.KERNEL_LAUNCHES
+    k = _kernel_counted(lambda: profile(m), dtype, dev, TRACED_METRICS["eddington_finkelstein"][1] + "_datum_plane")
+    kerr_flux = profile(kerr)
+    total = float(flux.double().sum())
+    b = bins.double().cpu().numpy()
+    res = dict(
+        seconds_per_profile=seconds,
+        first_profile_seconds=first,
+        launches=launches,
+        launches_per_profile=launches / 2,
+        torch_polish_calls=polish.calls,
+        flux_sum=total,
+        m1=_m1(flux.double().cpu().numpy(), b),
+        kerr_m1=_m1(kerr_flux.double().cpu().numpy(), b),
+        kernel_ms=k["kernel_ms"],
+        kernel_rays=k["kernel_rays"],
+        attempted_lane_steps=k["attempted_lane_steps"],
+        hits=k["hits"],
+        bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"],
+        bound_share=k["bound_share"],
+    )
+    _say("traced_metric_lineprofile", **res)
+    if launches == 0 or polish.calls != 0:
+        raise AssertionError(f"the traced-metric line profile: {launches} launches, {polish.calls} plain-torch polishes")
+    if not bool(torch.isfinite(flux).all()) or abs(total - 1.0) > 1e-4:
+        raise AssertionError(f"the traced-metric line profile is not finite or not normalised: sum {total}")
+    return res
+
+
+# The cases of `phase_traced_metrics`: (metric of `TRACED_METRICS`, geometry,
+# `KERNEL_OPS` key); ShakuraSunyaev runs the traced unit's generic
+# instantiation, ThinDisc its closed forms
+TRACED_CASES = {
+    "eddington_finkelstein": ("eddington_finkelstein", "thin", "traced_eddington_finkelstein"),
+    "user_johannsen_psaltis": ("user_johannsen_psaltis", "thin", "traced_user_johannsen_psaltis"),
+    "user_johannsen_psaltis_shakura_sunyaev": (
+        "user_johannsen_psaltis",
+        "shakura_sunyaev",
+        "traced_user_johannsen_psaltis_shakura_sunyaev",
+    ),
+}
+
+
+def _traced_case(name, dtype, dev):
+    """(metric, geometry, `KERNEL_OPS` key) of a `TRACED_CASES` case: the
+    geometry ThinDisc(0, 50), or the ShakuraSunyaev disc of
+    `_shakura_sunyaev_numbers`."""
+    metric, geometry, ops_key = TRACED_CASES[name]
+    kw = dict(dtype=dtype, device=dev)
+    d = ThinDisc(0.0, 50.0, **kw) if geometry == "thin" else ShakuraSunyaev(*_shakura_sunyaev_numbers(), **kw)
+    return _traced_metric(metric, dtype, dev), d, ops_key
+
+
+def phase_traced_metrics(dev, n=1024):
+    """The traced metrics against the plain version on the same card
+    tensors, ``n`` flagship rays (uniform over α ∈ [−28, 28], β ∈
+    [−18, 18]) a case of `TRACED_CASES`, f64 and f32, at
+    `phase_callable_geometries`' thresholds (f64: statuses ≥ 0.999 alike,
+    hits within 1e-6; f32: statuses ≥ 0.995, median g ≤ 1e-4), with the
+    units' builds."""
+    rng = np.random.default_rng(26)
+    alpha, beta = rng.uniform(-28.0, 28.0, n), rng.uniform(-18.0, 18.0, n)
+    results, failed = {}, []
+    for dtype in (torch.float64, torch.float32):
+        kw = dict(dtype=dtype, device=dev)
+        x = torch.tensor(X_OBS, **kw)
+        for name in TRACED_CASES:
+            m, d, ops_key = _traced_case(name, dtype, dev)
+            tracer = CudaTracer(m, geometry=d)
+            y0 = _constrained(tracer, m, x, torch.as_tensor(alpha, **kw), torch.as_tensor(beta, **kw))
+            res = _full_trace(m, x, tracer, y0, dtype, ops_key)
+            if dtype == torch.float64:
+                ok = res["status_agree"] >= 0.999 and res["hit_max_abs_err"] <= 1e-6
+            else:
+                ok = res["status_agree"] >= 0.995 and res["g_median_rel"] <= 1e-4
+            res["build"] = _callable_build(d, m, dtype)
+            results[f"{name}_{str(dtype)[6:]}"] = res
+            if not ok:
+                failed.append(f"{name}_{str(dtype)[6:]}")
+    _say("traced_metrics", **results)
+    if failed:
+        raise AssertionError(f"traced_metrics: kernel and plain version disagree: {failed}")
+    return results
+
+
 def _sass_counts(lib_path, want=("geodesic_tsit5_kernelIf", "4KerrE", "Lb0E")):
     """Static SASS counts (cuobjdump -sass) of the Kerr f32 instantiation
     for geometry kinds 0-2 (``Lb0E``: kGeneric = false):
     its instructions, and those of its main loop, taken as the span of its
     longest backward branch, with the loop's most frequent opcodes. The
     loop's count holds the cubic event's 26 bisections and the other inner
-    loops once each, whatever a step runs of them."""
+    loops once each, whatever a step runs of them. Only that function is
+    disassembled (``-fun``, its name from the build's ptxas log): the whole
+    library took ~30 s on an H100's host."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    names = [n for n in re.findall(r"Compiling entry function '(\w+)'", _build.build_info()["ptxas"]) if all(w in n for w in want)]
+    if not names:
+        raise AssertionError(f"no kernel with {want} in the build's ptxas log")
+    text = subprocess.run([str(tool), "-sass", "-fun", names[0], lib_path], capture_output=True, text=True, check=True).stdout
     for body in re.split(r"\n\s*Function : ", text)[1:]:
         name, _, body = body.partition("\n")
         if not all(w in name for w in want):
@@ -1742,11 +2051,12 @@ def _device_busy_ms(fn):
     return (busy_ns / 1e6 if busy_ns > 0 else None), (kernel_ns / 1e6 if kernel_ns > 0 else None), len(device)
 
 
-def _kernel_counted(fn, dtype, dev):
+def _kernel_counted(fn, dtype, dev, ops_key="kerr_datum_plane"):
     """One call of ``fn`` under the profiler, with the rays, attempted
     lane-steps and hits of each of B1's launches counted (sums on the card
     per launch, read once at the end): kernel and busy ms, launches, the
-    counts, and the kernel's bound (`_bound`, Kerr against a DatumPlane)."""
+    counts, and the kernel's bound (`_bound`, Kerr against a DatumPlane
+    unless ``ops_key`` names another)."""
     counted = []
 
     def counting(*args, **kw):
@@ -1764,7 +2074,7 @@ def _kernel_counted(fn, dtype, dev):
     finally:
         cuda_solver.cuda_integrate_rays = integrate
     rays, attempts, hits = (int(v) for v in torch.stack(counted).sum(dim=0))
-    bound_ms, bound_by = _bound("kerr_datum_plane", rays, attempts, hits, dtype)
+    bound_ms, bound_by = _bound(ops_key, rays, attempts, hits, dtype)
     return dict(
         kernel_ms=kernel_ms, busy_ms=busy_ms, device_events=device_events, counted_launches=len(counted),
         kernel_rays=rays, attempted_lane_steps=attempts, hits=hits, bound_ms=bound_ms, bound_by=bound_by,
@@ -4544,7 +4854,7 @@ WORKERS = {
     "ring_corona": (("ring_corona", {}),),
     "disc_corona": (("disc_corona", {}),),
     "traces_cpu": (("cpu_subsets", {}),),
-    "plain": (("kernel_vs_plain", {}), ("callable_geometries", {})),
+    "plain": (("kernel_vs_plain", {}), ("callable_geometries", {}), ("traced_metrics", {})),
     "geometries": (("thick_geometries", {}),),
 }
 # The special traces' card work runs alone on the card, in the main process
@@ -4718,9 +5028,11 @@ def main():
     kerr_newman = timed_phase("kerr_newman_render", phase_kerr_newman_render, dev)
     thick = timed_phase("thick_geometries_render", phase_thick_geometries_render, dev)
     warped = timed_phase("callable_geometries_render", phase_callable_geometries_render, dev)
+    traced = timed_phase("traced_metric_render", phase_traced_metric_render, dev)
     chain = timed_phase("chain", phase_chain, dev)
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
+    traced_ctf = timed_phase("traced_metric_lineprofile", phase_traced_metric_lineprofile, dev)
     binned = timed_phase("binning_lineprofile", phase_binning_lineprofile, dev, ctf_flux)
     # the special traces' card work, alone on the card; their CPU subsets
     # run in the worker ``traces_cpu`` and are held after the workers end
@@ -4842,6 +5154,7 @@ def main():
             ("kerr_newman", "kerr_newman", kerr_newman),
             ("thick", "kerr_shakura_sunyaev", thick),
             ("warped", "kerr_warped", warped),
+            ("traced", TRACED_METRICS["eddington_finkelstein"][1], traced),
         )
     }
     bound_ms, bound_by = bounds["flagship"]
@@ -4849,6 +5162,8 @@ def main():
     kn_bound_ms, kn_bound_by = bounds["kerr_newman"]
     thick_bound_ms, thick_bound_by = bounds["thick"]
     warped_bound_ms, warped_bound_by = bounds["warped"]
+    traced_bound_ms, traced_bound_by = bounds["traced"]
+    traced_checks = lags["traced_metrics"]
     geometries = lags["thick_geometries"]
     callables = lags["callable_geometries"]
     print(
@@ -4884,6 +5199,7 @@ def main():
                             "warped_thin_disc",
                             "thick_disc",
                             "precessing_datum_plane",
+                            "traced_metric",
                         ],
                         "metrics": [
                             "kerr",
@@ -4898,6 +5214,7 @@ def main():
                             "kerr_dark_matter",
                             "spherical",
                             "cartesian",
+                            "traced: a user's components5 or components5_jac",
                         ],
                         "datum_plane_max_abs_err": checks["datum_plane"]["f64"][
                             "hit_max_abs_err"
@@ -4950,6 +5267,37 @@ def main():
                             "build_seconds": warped["build"]["seconds"],
                             "build_registers": warped["build"]["registers"],
                             "build_spills": warped["build"]["spills"],
+                        },
+                        "traced_metric_render": {
+                            "metric": "EddingtonFinkelsteinAD (docs/custom-metrics.md), components5 traced",
+                            "launches": traced["launches"],
+                            "ms": traced["subset_kernel_ms"],
+                            "plain_ms": traced["subset_plain_ms"],
+                            "bound_ms": traced_bound_ms,
+                            "bound_by": traced_bound_by,
+                            "full_kernel_ms": traced["full_kernel_ms"],
+                            "full_bound_ms": traced["full_bound_ms"],
+                            "finite_pixels": traced["finite_pixels"],
+                            "seconds_per_render": traced["seconds_per_render"],
+                            "build_seconds": traced["build"]["seconds"],
+                            "build_registers": traced["build"]["registers"],
+                            "build_spills": traced["build"]["spills"],
+                            "vs_kerr": traced["vs_kerr"],
+                        },
+                        "traced_jp_vs_builtin": traced["jp_vs_builtin"],
+                        "traced_metric_lineprofile": {
+                            k: traced_ctf[k]
+                            for k in ("launches", "seconds_per_profile", "kernel_ms", "bound_ms", "bound_by", "flux_sum", "m1", "kerr_m1")
+                        },
+                        "traced_metrics_max_abs_err": {
+                            k: r["hit_max_abs_err"] for k, r in traced_checks.items() if k.endswith("_float64")
+                        },
+                        "traced_metrics_kernel": {
+                            k: {f: r[f] for f in ("rays", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "status_agree", "g_median_rel")}
+                            for k, r in traced_checks.items()
+                        },
+                        "traced_metrics_builds": {
+                            k: {f: r["build"].get(f) for f in ("seconds", "registers", "spills")} for k, r in traced_checks.items()
                         },
                         "callables_max_abs_err": {
                             k: r["hit_max_abs_err"] for k, r in callables.items() if k.endswith("_float64")
@@ -5012,7 +5360,9 @@ def main():
                             "kerr_newman_render": kerr_newman["launches"],
                             "thick_geometries_render": thick["launches"],
                             "callable_geometries_render": warped["launches"],
+                            "traced_metric_render": traced["launches"],
                             "ctf_lineprofile": ctf["launches"],
+                            "traced_metric_lineprofile": traced_ctf["launches"],
                             "binning_lineprofile": binned["launches"],
                             "reverberation_golden": lags["reverberation_golden"]["transfer_functions"]["launches"],
                             "lag_frequency_full": lags["lag_frequency_full"]["launches"],

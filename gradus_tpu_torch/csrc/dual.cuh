@@ -99,6 +99,27 @@ struct Dual2 {
   friend __device__ __forceinline__ Dual2 select(bool c, Dual2 a, Dual2 b) {
     return c ? a : b;
   }
+
+  // the unary functions of the metric generator's whitelist
+  // (metrics/codegen.py), with jax.jvp's rules, as Dual1's below
+  friend __device__ __forceinline__ Dual2 fabs(Dual2 a) {
+    return {fabs(a.v), a.v >= T(0) ? a.dr : -a.dr, a.v >= T(0) ? a.dth : -a.dth};
+  }
+  friend __device__ __forceinline__ Dual2 exp(Dual2 a) {
+    const T e = exp(a.v);
+    return {e, a.dr * e, a.dth * e};
+  }
+  friend __device__ __forceinline__ Dual2 log(Dual2 a) {
+    return {log(a.v), a.dr / a.v, a.dth / a.v};
+  }
+  friend __device__ __forceinline__ Dual2 tan(Dual2 a) {
+    const T t = tan(a.v);
+    return {t, a.dr * (T(1) + t * t), a.dth * (T(1) + t * t)};
+  }
+  friend __device__ __forceinline__ Dual2 tanh(Dual2 a) {
+    const T t = tanh(a.v);
+    return {t, (a.dr + a.dr * t) * (T(1) - t), (a.dth + a.dth * t) * (T(1) - t)};
+  }
 };
 
 // select for a plain scalar, so that a components5 template reads the same
@@ -342,6 +363,113 @@ __device__ __forceinline__ T value(T x) {
 template <typename T>
 __device__ __forceinline__ T value(Dual1<T> x) {
   return x.v;
+}
+
+// --- the whitelist for Dual2, the scalar of a traced metric's components5
+// (metrics/codegen.py): the rules above, with the two tangents (d_r, d_theta)
+// of Dual2. The operators and the unary functions are Dual2's own friends.
+
+template <typename T>
+__device__ __forceinline__ T value(Dual2<T> x) {
+  return x.v;
+}
+
+// a tangent pair scaled: (x.dr * f, x.dth * f)
+template <typename T>
+__device__ __forceinline__ Dual2<T> scaled(T v, Dual2<T> x, T f) {
+  return {v, x.dr * f, x.dth * f};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual2<T> jmax(Dual2<T> x, T c) {
+  const T v = jmax(x.v, c);
+  return scaled(v, x, x.v == v ? (c == v ? T(0.5) : T(1)) : T(0));
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jmin(Dual2<T> x, T c) {
+  const T v = jmin(x.v, c);
+  return scaled(v, x, x.v == v ? (c == v ? T(0.5) : T(1)) : T(0));
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jmax(T c, Dual2<T> x) {
+  return jmax(x, c);
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jmin(T c, Dual2<T> x) {
+  return jmin(x, c);
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jmax(Dual2<T> x, Dual2<T> y) {
+  const T v = jmax(x.v, y.v);
+  const T fx = balanced_eq(x.v, v, y.v), fy = balanced_eq(y.v, v, x.v);
+  return {v, x.dr * fx + y.dr * fy, x.dth * fx + y.dth * fy};
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jmin(Dual2<T> x, Dual2<T> y) {
+  const T v = jmin(x.v, y.v);
+  const T fx = balanced_eq(x.v, v, y.v), fy = balanced_eq(y.v, v, x.v);
+  return {v, x.dr * fx + y.dr * fy, x.dth * fx + y.dth * fy};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual2<T> ipow(Dual2<T> x, int n) {
+  if (n == 0) return {T(1), T(0), T(0)};
+  return scaled(ipow(x.v, n), x, T(n) * ipow(x.v, n - 1));
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jpow(Dual2<T> x, T y) {
+  return scaled(pow(x.v, y), x, y * pow(x.v, y - T(1)));
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jpow(T x, Dual2<T> y) {
+  const T ans = pow(x, y.v);
+  return scaled(ans, y, log(x == T(0) ? T(1) : x) * ans);
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jpow(Dual2<T> x, Dual2<T> y) {
+  const T ans = pow(x.v, y.v);
+  const T fx = y.v * pow(x.v, y.v - T(1)), fy = log(x.v == T(0) ? T(1) : x.v) * ans;
+  return {ans, x.dr * fx + y.dr * fy, x.dth * fx + y.dth * fy};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual2<T> jdiv(Dual2<T> x, T y) {
+  return {x.v / y, x.dr / y, x.dth / y};
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jdiv(T x, Dual2<T> y) {
+  const T f = ipow(y.v, -2);
+  return {x / y.v, (-y.dr * x) * f, (-y.dth * x) * f};
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jdiv(Dual2<T> x, Dual2<T> y) {
+  const T f = ipow(y.v, -2);
+  return {x.v / y.v, x.dr / y.v + (-y.dr * x.v) * f, x.dth / y.v + (-y.dth * x.v) * f};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual2<T> jsquare(Dual2<T> x) {
+  return scaled(x.v * x.v, x, T(2) * x.v);
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jrsqrt(Dual2<T> x) {
+  const T ans = T(1) / sqrt(x.v);
+  return scaled(ans, x, T(-0.5) * (ans / x.v));
+}
+
+template <typename T>
+__device__ __forceinline__ Dual2<T> jatan2(Dual2<T> y, Dual2<T> x) {
+  const T n = x.v * x.v + y.v * y.v;
+  const T fy = x.v / n, fx = -y.v / n;
+  return {atan2(y.v, x.v), y.dr * fy + x.dr * fx, y.dth * fy + x.dth * fx};
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jatan2(Dual2<T> y, T x) {
+  return scaled(atan2(y.v, x), y, x / (y.v * y.v + x * x));
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jatan2(T y, Dual2<T> x) {
+  return scaled(atan2(y, x.v), x, -y / (y * y + x.v * x.v));
 }
 
 }  // namespace gradus

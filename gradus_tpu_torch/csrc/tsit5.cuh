@@ -37,7 +37,10 @@
 // WarpedThinDisc and ThickDisc (kinds 8-9), whose cross-section is a user's
 // callable that the TPU kernel inlines into its trace, run the generic
 // instantiation built at first use with that callable compiled in
-// (callable.cuh, geometry/codegen.py).
+// (callable.cuh, geometry/codegen.py). A metric outside the kinds above,
+// whose components the TPU kernel inlines into its trace, runs a unit built
+// at first use with them compiled in (metric kind 12, callable.cuh,
+// metrics/codegen.py), every geometry in it.
 
 #pragma once
 
@@ -81,6 +84,8 @@ constexpr int kMetricKerrRefractive = 8;
 constexpr int kMetricKerrDarkMatter = 9;
 constexpr int kMetricSpherical = 10;
 constexpr int kMetricCartesian = 11;
+// a user's metric, traced into a generated unit (callable.cuh)
+constexpr int kMetricTraced = 12;
 constexpr int kMetricParams = 5;
 
 // Tsit5 tableau (integrate/tsit5.py)

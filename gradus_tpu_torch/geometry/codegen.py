@@ -16,7 +16,8 @@ jax.jvp's rules at the kinks. The ops it takes (`WHITELIST`):
 - functions: ``abs``, ``sqrt``, ``rsqrt``, ``exp``, ``log``, ``sin``,
   ``cos``, ``tan``, ``tanh``, ``atan``, ``atan2``;
 - choices: ``minimum``, ``maximum``, ``clamp``/``clip`` with number bounds,
-  ``where`` on a comparison of ρ-expressions.
+  ``where`` on a comparison of ρ-expressions;
+- constants: ``zeros_like``, ``ones_like``, ``full_like`` of a number.
 
 Python and numpy numbers are literals, ``T(...)`` with 17 digits, so an f32
 kernel computes in f32. Any other op, a Python branch on ρ or ``math.*`` of
@@ -24,14 +25,19 @@ kernel computes in f32. Any other op, a Python branch on ρ or ``math.*`` of
 `ValueError` (the reference's refusal of captured constants). Both happen
 on the host, before any build or launch.
 
+`Emitter` writes the statements; `metrics/codegen.py` emits a metric's
+``components5`` with it.
+
 `kernel_unit` writes the CUDA unit of a launch: the cross-sections of the
-geometry's parts, the Policy holding them (csrc/geometry.cuh), and the C
-entry point for the traced metric's class and the launch's dtype
-(csrc/callable.cuh); `_build.load_callable_library` builds it.
+geometry's parts, the Policy holding them (csrc/geometry.cuh), a traced
+metric's class (`metrics.codegen`), and the C entry point for the metric
+and the launch's dtype (csrc/callable.cuh); `_build.load_callable_library`
+builds it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import numbers
 import operator
@@ -58,6 +64,8 @@ METRIC_CLASSES = (
     "DualRhs<Spherical>",
     "DualRhs<Cartesian>",
 )
+# the kind of a metric traced into a generated unit (csrc/tsit5.cuh, kMetricTraced)
+TRACED_METRIC = len(METRIC_CLASSES)
 
 
 def _targets(name, *functions):
@@ -124,6 +132,7 @@ _OPS = dict(
     + _targets("le", torch.le, torch.less_equal)
     + _targets("eq", torch.eq)
     + _targets("ne", torch.ne, torch.not_equal)
+    + [(torch.zeros_like, "zeros_like"), (torch.ones_like, "ones_like"), (torch.full_like, "full_like")]
 )
 WHITELIST = tuple(sorted(set(_OPS.values())))
 
@@ -141,6 +150,7 @@ _UNARY = dict(
     atan="atan",
     square="jsquare",
 )
+_FILLS = dict(zeros_like=0.0, ones_like=1.0, full_like=None)
 _COMPARISONS = dict(gt=">", lt="<", ge=">=", le="<=", eq="==", ne="!=")
 _ARITY = dict(
     add=2, sub=2, mul=2, div=2, pow=2, atan2=2, minimum=2, maximum=2, neg=1, reciprocal=1,
@@ -224,6 +234,134 @@ def _describe(node):
     return f"{module + '.' if module else ''}{name}"
 
 
+class Emitter:
+    """The C++ statements of a traced graph's nodes, one ``const`` a node,
+    shared by the cross-sections and `metrics.codegen`. Each value has a
+    kind: 'S' (the scalar ``S``: it depends on the inputs, so it carries
+    their tangents), 'P' (a ``T`` that depends on runtime parameters only,
+    `metrics.codegen`'s slots), 'N' (a literal) or 'B' (a comparison).
+    ``refuse(what)`` raises for what the generator does not take;
+    ``attr(node)`` gives the (expression, kind) of a ``get_attr`` node."""
+
+    def __init__(self, refuse, attr=None):
+        self.refuse, self.attr = refuse, attr
+        self.names, self.kinds, self.lines = {}, {}, []
+
+    def arg(self, a):
+        """(C++ expression, kind) of a node or a number."""
+        if isinstance(a, torch.fx.Node):
+            return self.names[a], self.kinds[a]
+        if _is_number(a):
+            return _literal(a), "N"
+        self.refuse(f"an argument {a!r}")
+
+    def value_of(self, a):
+        expr, kind = self.arg(a)
+        if kind == "B":
+            self.refuse("a comparison used as a number")
+        return expr, kind
+
+    def as_s(self, a):
+        expr, kind = self.value_of(a)
+        return expr if kind == "S" else f"S{{{expr}}}"
+
+    def _constant(self, a):
+        """A bound of clamp: a number or a parameter expression."""
+        if a is None:
+            return None
+        if not _is_number(a) and not (isinstance(a, torch.fx.Node) and self.kinds.get(a) in ("N", "P")):
+            self.refuse("clamp with bounds other than numbers")
+        return self.value_of(a)[0]
+
+    def emit(self, graph, inputs):
+        """The statements of every node of ``graph`` but its placeholders
+        (their C++ names ``inputs``, each of kind 'S') and its output;
+        returns the output's arguments."""
+        placeholders = [n for n in graph.nodes if n.op == "placeholder"]
+        if len(placeholders) != len(inputs):
+            self.refuse(f"a callable of {len(placeholders)} arguments, not {len(inputs)}")
+        for node, name in zip(placeholders, inputs):
+            self.names[node], self.kinds[node] = name, "S"
+        for i, node in enumerate(graph.nodes):
+            if node.op in ("placeholder", "output"):
+                continue
+            if node.op == "get_attr" and self.attr is not None:
+                expr, kind = self.attr(node)
+            else:
+                expr, kind = self._expression(node)
+            name = f"v{i}"
+            self.names[node], self.kinds[node] = name, kind
+            ctype = {"B": "bool", "S": "S"}.get(kind, "T")
+            self.lines.append(f"  const {ctype} {name} = {expr};")
+        (out,) = (n for n in graph.nodes if n.op == "output")
+        return out.args[0]
+
+    def _expression(self, node):
+        if node.op not in ("call_function", "call_method"):
+            self.refuse(f"a {node.op} node ({node.target})")
+        op = _op_name(node)
+        if op is None:
+            self.refuse(_describe(node))
+        args, kw = list(node.args), dict(node.kwargs)
+        value_of, arg = self.value_of, self.arg
+        if op in _FILLS:  # zeros_like(x), ones_like(x), full_like(x, c): a literal
+            fill = args[1:] if op == "full_like" else [_FILLS[op]]
+            if kw or len(args) != 1 + (op == "full_like") or not _is_number(fill[0]):
+                self.refuse(f"{op} other than of a number")
+            value_of(args[0])
+            return _literal(fill[0]), "N"
+        if op in ("clamp", "clamp_min", "clamp_max"):
+            if op == "clamp_max":
+                lo, hi = None, args[1] if len(args) > 1 else kw.pop("max", None)
+            else:
+                lo = args[1] if len(args) > 1 else kw.pop("min", None)
+                hi = args[2] if len(args) > 2 else kw.pop("max", None)
+            if kw:
+                self.refuse(f"{op} with bounds other than numbers")
+            lo, hi = self._constant(lo), self._constant(hi)
+            expr, kind = value_of(args[0])
+            if lo is not None:
+                expr = f"jmax({expr}, {lo})"
+            if hi is not None:
+                expr = f"jmin({expr}, {hi})"
+            return expr, "S" if kind == "S" else "P"
+        if op == "where":
+            if node.op == "call_method":  # x.where(cond, other)
+                args = [args[1], args[0], args[2]] if len(args) == 3 else args
+            if kw or len(args) != 3 or arg(args[0])[1] != "B":
+                self.refuse("where other than on a comparison, with both branches")
+            return f"select({arg(args[0])[0]}, {self.as_s(args[1])}, {self.as_s(args[2])})", "S"
+        if kw or len(args) != _ARITY[op]:
+            self.refuse(f"{op} with arguments {node.args} {node.kwargs}")
+        values = [value_of(a) for a in args]
+        kind = "S" if any(k == "S" for _, k in values) else "P"
+        if op in _COMPARISONS:
+            a, b = (e if k != "S" else f"value({e})" for e, k in values)
+            return f"{a} {_COMPARISONS[op]} {b}", "B"
+        (a, ka) = values[0]
+        if op == "neg":
+            return f"-{a}", kind
+        if op == "reciprocal":
+            return f"ipow({a}, -1)", kind
+        if op in _UNARY:
+            return f"{_UNARY[op]}({a})", kind
+        if op == "pow":
+            y = args[1]
+            if isinstance(y, numbers.Integral) and not isinstance(y, bool):
+                return f"ipow({a}, {int(y)})", kind
+            return f"jpow({a}, {values[1][0]})", kind
+        b = values[1][0]
+        return {
+            "add": f"{a} + {b}",
+            "sub": f"{a} - {b}",
+            "mul": f"{a} * {b}",
+            "div": f"jdiv({a}, {b})",
+            "atan2": f"jatan2({a}, {b})",
+            "minimum": f"jmin({a}, {b})",
+            "maximum": f"jmax({a}, {b})",
+        }[op], kind
+
+
 _SOURCES = weakref.WeakKeyDictionary()
 
 
@@ -245,97 +383,11 @@ def _body(f):
             "numbers only, as the reference's kernel does (pallas_solver.py:181); write them as "
             "Python numbers, or trace it with trace_geodesics"
         )
-    placeholders = [n for n in graph.nodes if n.op == "placeholder"]
-    if len(placeholders) != 1:
-        _refuse(f"a callable of {len(placeholders)} arguments (it takes ρ alone)")
-    names, kinds, lines = {placeholders[0]: "rho"}, {placeholders[0]: "S"}, []
-
-    def arg(a):
-        """(C++ expression, kind: 'S' a ρ-expression, 'B' a comparison, 'N' a number)."""
-        if isinstance(a, torch.fx.Node):
-            return names[a], kinds[a]
-        if _is_number(a):
-            return _literal(a), "N"
-        _refuse(f"an argument {a!r}")
-
-    def value_of(a):
-        expr, kind = arg(a)
-        if kind == "B":
-            _refuse("a comparison used as a number")
-        return expr, kind
-
-    def as_s(a):
-        expr, kind = value_of(a)
-        return expr if kind == "S" else f"S{{{expr}}}"
-
-    for i, node in enumerate(graph.nodes):
-        if node.op in ("placeholder", "output"):
-            continue
-        if node.op not in ("call_function", "call_method"):
-            _refuse(f"a {node.op} node ({node.target})")
-        op = _op_name(node)
-        if op is None:
-            _refuse(_describe(node))
-        args, kw = list(node.args), dict(node.kwargs)
-        if op in ("clamp", "clamp_min", "clamp_max"):
-            if op == "clamp_max":
-                lo, hi = None, args[1] if len(args) > 1 else kw.pop("max", None)
-            else:
-                lo = args[1] if len(args) > 1 else kw.pop("min", None)
-                hi = args[2] if len(args) > 2 else kw.pop("max", None)
-            if kw or not all(b is None or _is_number(b) for b in (lo, hi)):
-                _refuse(f"{op} with bounds other than numbers")
-            expr, _ = value_of(args[0])
-            if lo is not None:
-                expr = f"jmax({expr}, {_literal(lo)})"
-            if hi is not None:
-                expr = f"jmin({expr}, {_literal(hi)})"
-            kind = "S"
-        elif op == "where":
-            if node.op == "call_method":  # x.where(cond, other)
-                args = [args[1], args[0], args[2]] if len(args) == 3 else args
-            if kw or len(args) != 3 or arg(args[0])[1] != "B":
-                _refuse("where other than on a comparison of ρ-expressions, with both branches")
-            expr, kind = f"select({arg(args[0])[0]}, {as_s(args[1])}, {as_s(args[2])})", "S"
-        else:
-            if kw or len(args) != _ARITY[op]:
-                _refuse(f"{op} with arguments {node.args} {node.kwargs}")
-            if op in _COMPARISONS:
-                a, b = (e if k == "N" else f"value({e})" for e, k in map(value_of, args))
-                expr, kind = f"{a} {_COMPARISONS[op]} {b}", "B"
-            elif op == "neg":
-                expr, kind = f"-{value_of(args[0])[0]}", "S"
-            elif op == "reciprocal":
-                expr, kind = f"ipow({value_of(args[0])[0]}, -1)", "S"
-            elif op in _UNARY:
-                expr, kind = f"{_UNARY[op]}({value_of(args[0])[0]})", "S"
-            elif op == "pow":
-                (a, ka), y = value_of(args[0]), args[1]
-                if ka == "S" and isinstance(y, numbers.Integral) and not isinstance(y, bool):
-                    expr = f"ipow({a}, {int(y)})"
-                else:
-                    expr = f"jpow({a}, {value_of(y)[0]})"
-                kind = "S"
-            else:
-                (a, _), (b, _) = value_of(args[0]), value_of(args[1])
-                expr = {
-                    "add": f"{a} + {b}",
-                    "sub": f"{a} - {b}",
-                    "mul": f"{a} * {b}",
-                    "div": f"jdiv({a}, {b})",
-                    "atan2": f"jatan2({a}, {b})",
-                    "minimum": f"jmin({a}, {b})",
-                    "maximum": f"jmax({a}, {b})",
-                }[op]
-                kind = "S"
-        name = f"v{i}"
-        names[node], kinds[node] = name, kind
-        lines.append(f"  const {'bool' if kind == 'B' else 'S'} {name} = {expr};")
-    (out,) = (n for n in graph.nodes if n.op == "output")
-    result = out.args[0]
+    emitter = Emitter(_refuse)
+    result = emitter.emit(graph, ["rho"])
     if isinstance(result, (tuple, list)):
         _refuse("a callable of several outputs")
-    lines.append(f"  return {as_s(result)};")
+    lines = emitter.lines + [f"  return {emitter.as_s(result)};"]
     try:
         _SOURCES[f] = lines
     except TypeError:
@@ -372,41 +424,35 @@ def callable_parts(geometry):
 
 @dataclass(frozen=True)
 class KernelUnit:
-    """The generated CUDA unit of a launch: ``body`` (the cross-sections and
-    their Policy), and ``source``, the body and the C entry point ``entry``
-    for the launch's scalar and the metric class ``metric`` of kind
-    ``metric_kind``."""
+    """The generated CUDA unit of a launch: ``body`` (the traced metric's
+    class, the cross-sections and their Policy), and ``source``, the body
+    and the C entry point ``entry`` for the launch's scalar, which runs
+    ``launcher`` (csrc/callable.cuh) with the metric class ``metric`` of
+    kind ``metric_kind`` and the Policy ``policy``."""
 
     body: str
     source: str
     entry: str
     metric: str
     metric_kind: int
+    policy: str = "generated::CrossSections"
+    launcher: str = "launch_callable"
 
     def launch(self, scalar):
         """The unit's launch function for the scalar type ``scalar``."""
-        return _launch(scalar, self.metric, self.metric_kind)
+        return _launch(scalar, self)
 
 
-def _launch(scalar, metric, metric_kind):
-    return f"(gradus::launch_callable<{scalar}, gradus::{metric}, gradus::generated::CrossSections, {metric_kind}>)"
+def _launch(scalar, u):
+    return f"(gradus::{u.launcher}<{scalar}, gradus::{u.metric}, gradus::{u.policy}, {u.metric_kind}>)"
 
 
-def kernel_unit(metric_kind, geometry, dtype):
-    """The unit for a launch of the kernel against ``geometry`` with metric
-    kind ``metric_kind`` in ``dtype``, or None when the geometry has no
-    cross-section callable. Raises as `cross_section_source` does."""
-    parts = callable_parts(geometry)
-    if not parts:
-        return None
+def _cross_sections(parts):
+    """The cross-sections of ``parts`` and the Policy that selects them by
+    their part index."""
     functions = "".join(cross_section_source(f, f"h_{k}") for k, f in parts)
     cases = "".join(f"      case {k}: return h_{k}<T>(rho);\n" for k, _ in parts)
-    body = (
-        "// Generated by gradus_tpu_torch/geometry/codegen.py: the cross-sections of\n"
-        f"// a {type(geometry).__name__}'s parts {[k for k, _ in parts]}, compiled into the\n"
-        "// integrator kernel (csrc/callable.cuh).\n"
-        '#include "callable.cuh"\n\n'
-        "namespace gradus {\nnamespace generated {\n\n"
+    return (
         f"{functions}\n"
         "struct CrossSections {\n"
         "  static constexpr bool kCallables = true;\n"
@@ -416,10 +462,39 @@ def kernel_unit(metric_kind, geometry, dtype):
         f"{cases}"
         "      default: return S{T(NAN)};\n"
         "    }\n  }\n};\n\n"
-        "}  // namespace generated\n}  // namespace gradus\n"
+    )
+
+
+def kernel_unit(metric_kind, geometry, dtype, traced=None):
+    """The unit for a launch of the kernel against ``geometry`` in
+    ``dtype``: with ``traced`` (a `metrics.codegen.TracedMetric`), for
+    that metric and every geometry; else for the metric kind
+    ``metric_kind``, or None when the geometry has no cross-section
+    callable. Raises as `cross_section_source` does."""
+    parts = callable_parts(geometry)
+    if not parts and traced is None:
+        return None
+    what = []
+    if traced is not None:
+        what.append(f"the {traced.name} metric's {traced.method}")
+    if parts:
+        what.append(f"the cross-sections of a {type(geometry).__name__}'s parts {[k for k, _ in parts]}")
+    body = (
+        "// Generated by gradus_tpu_torch/geometry/codegen.py: "
+        + " and ".join(what)
+        + ",\n// compiled into the integrator kernel (csrc/callable.cuh).\n"
+        '#include "callable.cuh"\n\n'
+        "namespace gradus {\nnamespace generated {\n\n"
+        + ("" if traced is None else traced.source + "\n")
+        + (_cross_sections(parts) if parts else "")
+        + "}  // namespace generated\n}  // namespace gradus\n"
     )
     f64 = dtype == torch.float64
     entry, scalar = ("geodesic_tsit5_f64", "double") if f64 else ("geodesic_tsit5_f32", "float")
-    metric = METRIC_CLASSES[metric_kind]
-    source = body + f"\nGEODESIC_TSIT5_ENTRY({entry}, {scalar}, {_launch(scalar, metric, metric_kind)})\n"
-    return KernelUnit(body, source, entry, metric, metric_kind)
+    if traced is None:
+        unit = KernelUnit(body, "", entry, METRIC_CLASSES[metric_kind], metric_kind)
+    else:
+        policy = "generated::CrossSections" if parts else "NoCallables"
+        unit = KernelUnit(body, "", entry, traced.rhs, TRACED_METRIC, policy, "launch_traced")
+    source = body + f"\nGEODESIC_TSIT5_ENTRY({entry}, {scalar}, {unit.launch(scalar)})\n"
+    return dataclasses.replace(unit, source=source)

@@ -8,8 +8,10 @@ whole adaptive solve in registers); on a CPU tensor it runs
 `integrate_rays_plain`, a lockstep masked loop over the same arithmetic.
 The kernel takes every metric of the port: `KerrMetric` and
 `KerrSpacetimeFirstOrder` through Kerr's hand-derived Jacobian, the others
-through forward-mode dual numbers (`csrc/metrics.cuh`); the plain version
-reaches ``m.components5_jac`` for any metric.
+through forward-mode dual numbers (`csrc/metrics.cuh`), and a user's
+metric, whose ``components5`` (or ``components5_jac``) `metrics/codegen.py`
+traces into a unit built at its first use; the plain version reaches
+``m.components5_jac`` for any metric.
 `CudaTracer` wraps it the way `PallasTracer` wraps the Pallas kernel:
 constrain, integrate (in one pass, or in a capped pass and a resumed tail
 pass), unpack. The Newton polish of the disc hits, which `PallasTracer`
@@ -74,6 +76,7 @@ from gradus_tpu_torch.integrate.solver import (
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.integrate.tracing import make_geodesic_rhs
 from gradus_tpu_torch.integrate.tsit5 import _A, _BTILDE
+from gradus_tpu_torch.metrics import codegen as metric_codegen
 from gradus_tpu_torch.metrics import (
     BumblebeeMetric,
     CartesianMetric,
@@ -479,9 +482,21 @@ _KERNEL_METRICS = {
 _N_METRIC_PARAMS = 5
 
 
+def _traced(m):
+    """The metric's `metrics.codegen.TracedMetric`, or None for a class of
+    `_KERNEL_METRICS` (which keeps its hand-written path). Raises for a
+    metric the kernel cannot compile."""
+    return None if type(m) in _KERNEL_METRICS else metric_codegen.traced_metric(m)
+
+
 def _metric_args(m):
     """(kind, M, a, the other parameters as a ctypes double[5]); M and a are
-    0 for a metric without them."""
+    0 for a metric without them. A traced metric is kind 12, its
+    parameters its slots (`metrics.codegen.metric_slots`)."""
+    traced = _traced(m)
+    if traced is not None:
+        M, a, q = metric_codegen.metric_slots(m, traced)
+        return codegen.TRACED_METRIC, M, a, (ctypes.c_double * _N_METRIC_PARAMS)(*q)
     kind, params = _KERNEL_METRICS[type(m)]
     q = [float(v) for v in params(m)]
     M, a = (float(getattr(m, k, 0.0)) for k in ("M", "a"))
@@ -524,10 +539,13 @@ def _check_geometry(m, g, composite_ok=True):
             f"CompositeGeometry of the others, not {kind.__name__} here; "
             "trace_geodesics takes every geometry"
         )
-    if kind is PolishDoughnut and g.metric is not None and type(g.metric) is not type(m):
+    if kind is PolishDoughnut and g.metric is not None and (
+        type(g.metric) is not type(m) or (type(m) not in _KERNEL_METRICS and _traced(g.metric).source != _traced(m).source)
+    ):
         raise NotImplementedError(
             "the CUDA integrator evaluates a PolishDoughnut's potential with the traced metric's "
             f"components: its metric is a {type(g.metric).__name__}, the traced one a {type(m).__name__}"
+            + (" compiled otherwise" if type(g.metric) is type(m) else "")
         )
     if kind is PrecessingDisc:
         if type(g.disc) not in _PRECESSED:
@@ -544,11 +562,11 @@ def _check_geometry(m, g, composite_ok=True):
 
 
 def _check_kernel_config(m, geometry, dtype):
-    if type(m) not in _KERNEL_METRICS:
-        raise NotImplementedError(
-            f"the CUDA integrator takes the metrics of gradus_tpu_torch.metrics, "
-            f"not {type(m).__name__}"
-        )
+    """Raises `NotImplementedError` (or `ValueError`, for captured arrays)
+    unless the kernel takes the metric, the geometry and the dtype: a
+    metric outside `_KERNEL_METRICS` is traced here (`metrics.codegen`),
+    before any build."""
+    _traced(m)
     if geometry is not None:
         _check_geometry(m, geometry)
     if dtype not in (torch.float32, torch.float64):
@@ -557,9 +575,11 @@ def _check_kernel_config(m, geometry, dtype):
 
 
 def _kernel_unit(m, geometry, dtype):
-    """The generated unit of a launch against a geometry with cross-section
-    callables (`geometry.codegen.kernel_unit`), else None."""
-    return codegen.kernel_unit(_KERNEL_METRICS[type(m)][0], geometry, dtype)
+    """The generated unit of a launch (`geometry.codegen.kernel_unit`): for
+    a traced metric, or against a geometry with cross-section callables;
+    else None (the library's kernels)."""
+    traced = _traced(m)
+    return codegen.kernel_unit(None if traced is not None else _KERNEL_METRICS[type(m)][0], geometry, dtype, traced)
 
 
 def _part_values(g):

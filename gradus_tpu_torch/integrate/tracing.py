@@ -531,15 +531,16 @@ class Tracer:
     the reference's `Tracer`, with the same constructor).
 
     Where the CUDA integrator takes the configuration (a CUDA tensor, a
-    geodesic trace without charge, no ``terminate_fns``, a geometry that
-    `CudaTracer` takes) it traces in segments, `CudaTracer.trace` with
+    geodesic trace without charge, no ``terminate_fns``, a metric and a
+    geometry that `CudaTracer` takes) it traces in segments, `CudaTracer.trace` with
     ``segments``: a pass of the integrator capped at each segment's length,
     after which the rays still in flight resume where they stopped (bit for
     bit a single pass). They resume alone, compacted, once the least
     bucket of ``min_bucket`` · 4^k rays that holds them is narrower than
     the pass (the reference's rule); until then the next pass keeps its
     width. Elsewhere (a CPU tensor, a charge, ``terminate_fns``, any
-    other geometry) it runs `trace_geodesics`, whose lockstep loop keeps
+    other geometry, a metric the kernel cannot compile) it runs
+    `trace_geodesics`, whose lockstep loop keeps
     the whole batch: ``min_bucket`` does not act there, and a segment ends
     at the first alive check (every 16 iterations) at or after its length.
 
@@ -600,7 +601,7 @@ class Tracer:
             return False
         try:
             cuda_solver._check_kernel_config(self.m, self.geometry, dtype)
-        except NotImplementedError:
+        except (NotImplementedError, ValueError):  # what the kernel cannot compile: captured arrays too
             return False
         return True
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 from pathlib import Path
@@ -142,18 +143,31 @@ def _host_sources():
             )
             if n != 1:
                 raise RuntimeError("the kernel launch in tsit5.cuh was not found")
-        (_BUILD / src.name).write_text(text)
-    (_BUILD / "cuda_runtime.h").write_text(_STUB)
+        _write(_BUILD / src.name, text)
+    _write(_BUILD / "cuda_runtime.h", _STUB)
     return "\n".join(f'#include "{src.name}"' for src in sorted(_CSRC.glob("*.cu")))
 
 
+def _write(path, text):
+    """Writes ``path`` by an atomic rename unless it holds ``text``: a
+    process that builds beside another (a test worker) never reads a
+    half-written header."""
+    if path.exists() and path.read_text() == text:
+        return
+    tmp = path.with_name(f".{path.name}.{os.getpid()}")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
 def _gxx(source: str, name: str, opt: str) -> Path:
-    (_BUILD / f"{name}.cpp").write_text(source)
+    _write(_BUILD / f"{name}.cpp", source)
     lib = _BUILD / f"lib{name}.so"
+    tmp = lib.with_name(f".{lib.name}.{os.getpid()}")
     subprocess.run(
-        ["g++", "-std=c++17", opt, "-shared", "-fPIC", "-I", str(_BUILD), "-o", str(lib), str(_BUILD / f"{name}.cpp")],
+        ["g++", "-std=c++17", opt, "-shared", "-fPIC", "-I", str(_BUILD), "-o", str(tmp), str(_BUILD / f"{name}.cpp")],
         check=True,
     )
+    os.replace(tmp, lib)
     return lib
 
 
@@ -210,6 +224,54 @@ def host_cross_sections(functions) -> ctypes.CDLL:
     for k in range(len(functions)):
         fn = getattr(so, f"cross_section_{k}")
         fn.argtypes = [vp, vp, ctypes.c_int64, vp, vp, vp]
+        fn.restype = None
+    return so
+
+
+def host_metric_components(metrics) -> ctypes.CDLL:
+    """The classes that `metrics.codegen` generates from the traced
+    metrics ``metrics`` (`TracedMetric`s), built for the host (g++) with,
+    for each k, a C function ``metric_<k>(r, th, n, M, a, q, out)`` over n
+    points: ``out`` holds 20 n doubles, the 5 components, their ∂_r and
+    their ∂_θ (the class's ``Dual2<double>`` instantiation of a traced
+    ``components5``, its ``double`` one of a traced ``components5_jac``),
+    then the 5 components of its ``double`` instantiation; ``q`` holds the
+    5 parameters of ``p.q``."""
+    import hashlib
+
+    _host_sources()
+    parts = ['#include "callable.cuh"\n#include <cstdint>\nnamespace gradus {\n']
+    for k, t in enumerate(metrics):
+        jac = t.method == "components5_jac"
+        parts.append(f"namespace m{k} {{\n{t.source}}}  // namespace m{k}\n")
+        parts.append(
+            f'extern "C" void metric_{k}(const double* r, const double* th, int64_t n, double M, double a, const double* q, double* out) {{\n'
+            "  DeformedParams<double> p;\n  p.M = M;\n  p.a = a;\n"
+            "  for (int j = 0; j < kMetricParams; ++j) p.q[j] = q[j];\n"
+            "  for (int64_t i = 0; i < n; ++i) {\n"
+            "    double v[5], dr[5], dth[5], s[5];\n"
+        )
+        if jac:
+            parts.append(f"    m{k}::TracedMetric::components5_jac(p, r[i], th[i], v, dr, dth);\n    for (int c = 0; c < 5; ++c) s[c] = v[c];\n")
+        else:
+            parts.append(
+                "    Dual2<double> g[5];\n"
+                f"    m{k}::TracedMetric::components5(p, Dual2<double>{{r[i], 1.0, 0.0}}, Dual2<double>{{th[i], 0.0, 1.0}}, g);\n"
+                "    for (int c = 0; c < 5; ++c) {\n      v[c] = g[c].v;\n      dr[c] = g[c].dr;\n      dth[c] = g[c].dth;\n    }\n"
+                f"    m{k}::TracedMetric::components5(p, r[i], th[i], s);\n"
+            )
+        parts.append(
+            "    for (int c = 0; c < 5; ++c) {\n"
+            "      out[c * n + i] = v[c];\n      out[(5 + c) * n + i] = dr[c];\n"
+            "      out[(10 + c) * n + i] = dth[c];\n      out[(15 + c) * n + i] = s[c];\n    }\n  }\n}\n"
+        )
+    parts.append("}  // namespace gradus\n")
+    source = "".join(parts)
+    so = ctypes.CDLL(str(_gxx(source, f"metric_components_{hashlib.sha256(source.encode()).hexdigest()[:16]}", "-O2")))
+    vp, dbl = ctypes.c_void_p, ctypes.c_double
+    for k in range(len(metrics)):
+        fn = getattr(so, f"metric_{k}")
+        fn.argtypes = [vp, vp, ctypes.c_int64, dbl, dbl, vp, vp]
         fn.restype = None
     return so
 

@@ -582,3 +582,80 @@ def test_callable_geometry_kernel_matches_plain_version(dev, kind, dtype):
         assert res["status_agree"] >= 0.999 and res["hit_max_abs_err"] <= 1e-6, res
     else:
         assert res["status_agree"] >= 0.995 and res["g_median_rel"] <= 1e-4, res
+
+
+# --- a user's metric traced into the kernel (metrics/codegen.py) -----------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["eddington_finkelstein", "user_johannsen_psaltis", "user_johannsen_psaltis_shakura_sunyaev"])
+def test_traced_metric_kernel_matches_plain_version(dev, name, dtype):
+    """chip_smoke.py's user metrics (the docs' Eddington-Finkelstein
+    Schwarzschild, a copy of Johannsen-Psaltis's components), their
+    components5 compiled into a unit built at first use (metric kind 12),
+    on 512 flagship rays against ThinDisc(0, 50) (the unit's closed forms)
+    or a ShakuraSunyaev disc (its generic instantiation), kernel against
+    plain version at chip_smoke.py's thresholds (`phase_traced_metrics`)."""
+    from gradus_tpu_torch import _build
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(27)
+    kw = dict(dtype=dtype, device=dev)
+    m, geometry, ops_key = cs._traced_case(name, dtype, dev)
+    x = torch.tensor([0.0, 1000.0, math.radians(75.0), 0.0], **kw)
+    v = map_impact_parameters(
+        m, x, torch.as_tensor(rng.uniform(-28, 28, 512), **kw), torch.as_tensor(rng.uniform(-18, 18, 512), **kw)
+    )
+    tracer = CudaTracer(m, geometry=geometry)
+    y0 = tracer._constrain(x.expand_as(v), v)
+    before = cuda_solver.KERNEL_LAUNCHES
+    res = cs._full_trace(m, x, tracer, y0, dtype, ops_key)
+    assert cuda_solver.KERNEL_LAUNCHES == before + 1
+    key = _build.callable_key(cuda_solver._kernel_unit(m, None, dtype).source)
+    entry = "geodesic_tsit5_f64" if dtype == torch.float64 else "geodesic_tsit5_f32"
+    assert _build.build_info()["callables"][key]["entry"] == entry
+    if dtype == torch.float64:
+        assert res["status_agree"] >= 0.999 and res["hit_max_abs_err"] <= 1e-6, res
+    else:
+        assert res["status_agree"] >= 0.995 and res["g_median_rel"] <= 1e-4, res
+
+
+def test_traced_johannsen_psaltis_matches_builtin_kernel(dev):
+    """The copy of Johannsen-Psaltis (kind 12, its components5 generated)
+    against the built-in `DualRhs<JohannsenPsaltis>` (kind 2) on 2,048
+    flagship rays in f64: statuses identical, 99% of the hits within 1e-9
+    relative and every one within 1e-7 (chip_smoke.py's `_jp_agrees`, whose
+    docstring says why not all within 1e-9)."""
+    cs = _chip_smoke()
+    res = cs._traced_vs_builtin_jp(dev)
+    assert cs._jp_agrees(res), res
+
+
+def test_kernel_refuses_untraceable_metrics(dev):
+    """A metric the generator cannot compile raises on the card before any
+    build or launch, and nothing falls back to the plain version."""
+    from gradus_tpu_torch import _build
+    from gradus_tpu_torch.metrics.base import AbstractMetric
+
+    class Branching(AbstractMetric):
+        def __init__(self):
+            super().__init__()
+            self._register_params(torch.float64, dev, M=1.0)
+
+        def components5(self, r, theta):
+            if self.M > 0:
+                r = r * 1.0
+            return (-(1.0 - 2.0 * self.M / r), 1.0 / (1.0 - 2.0 * self.M / r), r * r, r * r, torch.zeros_like(r))
+
+        def inner_radius(self):
+            return 2.0 * self.M
+
+    _, xs, v = _rays(dev, torch.float64, n=8)
+    y0 = torch.cat([xs, v], dim=-1)
+    built = dict(_build.build_info()["callables"])
+    before = cuda_solver.KERNEL_LAUNCHES
+    with pytest.raises(NotImplementedError, match="branch on M"):
+        cuda_integrate_rays(Branching(), y0, SPAN, abstol=1e-9, reltol=1e-9, r_inner=2.02, r_outer=12000.0)
+    with pytest.raises(NotImplementedError, match="branch on M"):
+        CudaTracer(Branching(), geometry=ThinDisc(0.0, 50.0, device=dev))(xs, v, SPAN)
+    assert cuda_solver.KERNEL_LAUNCHES == before and _build.build_info()["callables"] == built
