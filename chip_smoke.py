@@ -54,7 +54,15 @@ through their entry points, none of which may call the plain-torch polish:
   transfer-function profile at `bench_ctf`'s size in the Eddington-
   Finkelstein metric (`traced_metric_lineprofile`), and both traced
   metrics against the plain version in the worker `plain`
-  (`traced_metrics`);
+  (`traced_metrics`, which also holds a metric that branches on a
+  parameter and Johannsen's series past the kernel's five parameter
+  slots, both baked into their units as literals, and doughnuts whose
+  isobars read the Eddington-Finkelstein metric, against the plain
+  version and the built-in kernels);
+- the same camera against `PolishDoughnut(metric=JohannsenMetric(1,
+  0.998))`, its isobars in another metric class than the rays' Kerr, in
+  a generated unit (`doughnut_other_metric_render`), held to the
+  library's render against the Kerr-class doughnut;
 - the flagship render's longest chain of steps: its slowest ray launched
   alone, and the kernel's static SASS counts;
 - the Gradus.jl line-profile edge goldens (Kerr a=0.6, i=60°), f64, through
@@ -140,6 +148,7 @@ Needs one CUDA device and the CUDA toolkit (nvcc). Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -319,6 +328,7 @@ KERNEL_OPS = {
     "kerr_composite6": (541.0, 1552.7198740174153, 4693.0),
     "kerr_doughnut": (1257.0, 2290.3580878681973, 6841.0),
     "kerr_doughnut_kerr": (2323.0, 3386.693584623065, 10039.0),
+    "kerr_doughnut_johannsen": (3389.0, 4483.029081377933, 13237.0),
     "kerr_warped": (443.0, 1448.1206381883685, 4399.0),
     "kerr_thick_shakura_sunyaev": (449.0, 1454.4562918195554, 4417.0),
     "kerr_precessing_warped": (507.0, 1512.227447636084, 4591.0),
@@ -330,6 +340,11 @@ KERNEL_OPS = {
     "traced_user_johannsen_psaltis": (747.0, 2391.2749975323263, 7551.0),
     "traced_eddington_finkelstein_datum_plane": (366.0, 1245.9738224772696, 3734.0),
     "traced_user_johannsen_psaltis_shakura_sunyaev": (767.0, 2412.4986592251853, 7611.0),
+    "traced_branch_s0": (519.0, 1707.2638788752702, 5271.0),
+    "traced_branch_s1": (747.0, 2391.2749975323263, 7551.0),
+    "traced_johannsen_series": (969.0, 3057.2588059897116, 9771.0),
+    "kerr_doughnut_ef": (1503.0, 2543.3585871193204, 7579.0),
+    "traced_jp_doughnut_ef": (1823.0, 3503.34743277809, 10779.0),
 }
 # NVIDIA H100 SXM data sheet, at its 700 W limit: FP32 and FP64 outside the
 # tensor cores, and HBM3
@@ -1326,15 +1341,17 @@ def _thick_geometry(kind, m, dtype, dev):
     }[kind]()
 
 
-def _full_trace(m, x, tracer, y0, dtype, ops_key):
+def _full_trace(m, x, tracer, y0, dtype, ops_key, plain_graphs=True):
     """The kernel and its plain version on the same rays, each polishing its
     hits: status agreement, the largest |Δ| of a hit's x and λ, the hits
     past 1e-6, the median relative gap of the redshift of both versions'
     hits, both versions' ms, and the kernel's bound (`KERNEL_OPS[ops_key]`,
-    from its attempted steps and hits)."""
+    from its attempted steps and hits). ``plain_graphs=False`` runs the
+    plain version's loop uncaptured (`UNCAPTURED_PLAIN`)."""
     kw = tracer._integrate_kwargs(dtype)
     ok, kernel_ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **kw))
-    op, plain_ms = _timed(lambda: integrate_rays_plain(m, y0, SPAN, **kw))
+    with contextlib.nullcontext() if plain_graphs else cuda_graphs(False):
+        op, plain_ms = _timed(lambda: integrate_rays_plain(m, y0, SPAN, **kw))
     gk, gp = tracer._finish(ok, y0, SPAN[0]), tracer._finish(op, y0, SPAN[0])
     hit = (gk.status == HIT) & (gp.status == HIT)
     gap = torch.cat([(gk.x[hit] - gp.x[hit]).abs(), (gk.lam_max[hit] - gp.lam_max[hit]).abs()[:, None]], dim=-1).amax(dim=-1)
@@ -1577,21 +1594,30 @@ def _callable_geometry(kind, dtype, dev):
 
 
 def _callable_units():
-    """The generated units that the callable phases launch: the render's
-    (f32) and each case's in f64 and f32, and the traced metrics' in f64
-    and f32 (`TRACED_METRICS`: one unit a metric and dtype runs every
-    geometry), for `phase_build` (their text does not depend on the
-    device)."""
+    """The generated units that the callable phases launch: the callable
+    render's (f32) and each callable case's in f64 and f32, the traced
+    metrics' of `TRACED_CASES` in their dtypes (one unit a metric and dtype
+    runs every geometry without callables but a doughnut of another metric
+    class), of `BUILTIN_TWINS`, and the doughnut render's (f32), for
+    `phase_build` (their text does not depend on the device)."""
     m = KerrMetric(1.0, 0.998, device="cpu")
-    units = []
-    for dtype in (torch.float64, torch.float32):
+    units = {}
+
+    def add(unit):
+        if unit is not None:
+            units.setdefault(unit.source, unit)
+
+    for dtype in BOTH:
         for kind in CALLABLE_KINDS:
-            unit = cuda_solver._kernel_unit(m, _callable_geometry(kind, dtype, "cpu"), dtype)
-            if unit is not None:
-                units.append(unit)
-        for name in TRACED_METRICS:
-            units.append(cuda_solver._kernel_unit(_traced_metric(name, dtype, "cpu"), None, dtype))
-    return units
+            add(cuda_solver._kernel_unit(m, _callable_geometry(kind, dtype, "cpu"), dtype))
+        for name, (_, _, _, dtypes) in TRACED_CASES.items():
+            if dtype in dtypes:
+                add(cuda_solver._kernel_unit(*_traced_case(name, dtype, "cpu")[:2], dtype))
+    for name in BUILTIN_TWINS:
+        add(cuda_solver._kernel_unit(_traced_metric(name, torch.float64, "cpu"), None, torch.float64))
+    mf = KerrMetric(1.0, 0.998, dtype=torch.float32, device="cpu")
+    add(cuda_solver._kernel_unit(mf, _doughnut_other_metric(torch.float32, "cpu"), torch.float32))
+    return list(units.values())
 
 
 def _callable_build(geometry, m, dtype):
@@ -1723,12 +1749,114 @@ class UserJohannsenPsaltis(AbstractMetric):
         return self.M + torch.sqrt(self.M**2 - self.a**2)
 
 
-# name: (the user's metric at its parameters, its `KERNEL_OPS` key): the
-# docs' Eddington-Finkelstein Schwarzschild (M = 1) and the copy of
-# Johannsen-Psaltis at `JP`
+def kerr5(xp, M, a, r, theta):
+    """Kerr's components (the port's `KerrMetric.components5`), over the
+    array module ``xp``."""
+    R = 2.0 * M
+    sin2 = xp.sin(theta) ** 2
+    sigma = r * r + a * a * (1.0 - sin2)
+    gamma = sin2 * R * r * a
+    return (-(1.0 - R * r / sigma), sigma / (r * r + a * a - R * r), sigma, sin2 * (r * r + a * a + gamma * a / sigma), -gamma / sigma)
+
+
+def jp5(xp, M, a, eps3, r, theta):
+    """Johannsen-Psaltis's components (`UserJohannsenPsaltis`'s), over ``xp``."""
+    sin2 = xp.sin(theta) ** 2
+    sigma = r * r + a * a * (1.0 - sin2)
+    h = eps3 * M**3 * r / sigma**2
+    delta = r * r - 2.0 * M * r + a * a
+    tt = -(1.0 + h) * (1.0 - 2.0 * M * r / sigma)
+    rr = sigma * (1.0 + h) / (delta + a * a * sin2 * h)
+    pp = sin2 * (r * r + a * a + 2.0 * a * a * M * r * sin2 / sigma) + h * a * a * (sigma + 2.0 * M * r) * sin2**2 / sigma
+    return (tt, rr, sigma, pp, -2.0 * a * M * r * sin2 * (1.0 + h) / sigma)
+
+
+def johannsen_series5(xp, m, r, theta):
+    """Johannsen's components (the port's `JohannsenMetric.components5`)
+    with A1, A2 and A5 one order further, over ``xp``."""
+    M, a = m.M, m.a
+    A1 = 1.0 + m.alpha13 * (M / r) ** 3 + m.alpha14 * (M / r) ** 4
+    A2 = 1.0 + m.alpha22 * (M / r) ** 2 + m.alpha23 * (M / r) ** 3
+    A5 = 1.0 + m.alpha52 * (M / r) ** 2 + m.alpha53 * (M / r) ** 3
+    f = m.eps3 * M**3 / r
+    sin2 = xp.sin(theta) ** 2
+    sigma = r * r + a * a * (1.0 - sin2) + f
+    delta = r * r - 2.0 * M * r + a * a
+    r2a2 = r * r + a * a
+    denom = (r2a2 * A1 - a * a * A2 * sin2) ** 2
+    tt = -sigma * (delta - a * a * A2 * A2 * sin2)
+    pp = sigma * sin2 * (r2a2**2 * A1**2 - a * a * delta * sin2)
+    tp = -a * sigma * sin2 * (r2a2 * A1 * A2 - delta)
+    return (tt / denom, sigma / (delta * A5), sigma, pp / denom, tp / denom)
+
+
+class BranchingMetric(AbstractMetric):
+    """A user's metric that branches on its parameter s: Kerr's components
+    where s = 0, Johannsen-Psaltis's (ε₃) otherwise. The kernel reads s as
+    a literal of its unit (one unit a value of s), as the reference bakes
+    it."""
+
+    def __init__(self, M=1.0, a=0.0, eps3=0.0, s=0.0, *, dtype=torch.float64, device=None):
+        super().__init__()
+        self._register_params(dtype, device, M=M, a=a, eps3=eps3, s=s)
+
+    def components5(self, r, theta):
+        if self.s == 0:
+            return kerr5(torch, self.M, self.a, r, theta)
+        return jp5(torch, self.M, self.a, self.eps3, r, theta)
+
+    def inner_radius(self):
+        return self.M + torch.sqrt(self.M**2 - self.a**2)
+
+
+class JohannsenSeries(AbstractMetric):
+    """Johannsen's metric with A1, A2 and A5 one order further: seven
+    parameters besides M and a, in this order; the kernel holds the first
+    five in its slots and bakes α53 and ε₃ in as literals."""
+
+    def __init__(self, M=1.0, a=0.0, alpha13=0.0, alpha14=0.0, alpha22=0.0, alpha23=0.0, alpha52=0.0, alpha53=0.0, eps3=0.0,
+                 *, dtype=torch.float64, device=None):  # fmt: skip
+        super().__init__()
+        self._register_params(
+            dtype, device, M=M, a=a, alpha13=alpha13, alpha14=alpha14, alpha22=alpha22, alpha23=alpha23,
+            alpha52=alpha52, alpha53=alpha53, eps3=eps3,
+        )  # fmt: skip
+
+    def components5(self, r, theta):
+        return johannsen_series5(torch, self, r, theta)
+
+    def inner_radius(self):
+        return self.M + torch.sqrt(self.M**2 - self.a**2)
+
+
+# the branching metric at a = 0.6 (s = 0: Kerr; s = 1: JP at `JP`), and
+# Johannsen's series one order further (scripts/torch_traced_metric_reference.py)
+BRANCH = dict(M=1.0, a=0.6, eps3=2.0)
+SERIES = dict(M=1.0, a=0.6, alpha13=0.2, alpha14=0.1, alpha22=0.1, alpha23=0.05, alpha52=0.1, alpha53=0.05, eps3=0.5)
+# its terms of the library's order only: the built-in `JohannsenMetric`'s numbers
+SERIES_KERR_ORDER = {**SERIES, "alpha14": 0.0, "alpha23": 0.0, "alpha53": 0.0}
+
+# name: (the user's metric at its parameters, its `KERNEL_OPS` key against
+# ThinDisc(0, 50)): the docs' Eddington-Finkelstein Schwarzschild (M = 1),
+# the copy of Johannsen-Psaltis at `JP`, the branching metric at s = 0 and
+# s = 1, and Johannsen's series (also of the library's order only)
 TRACED_METRICS = {
     "eddington_finkelstein": (lambda **kw: EddingtonFinkelsteinAD(1.0, **kw), "traced_eddington_finkelstein"),
     "user_johannsen_psaltis": (lambda **kw: UserJohannsenPsaltis(**JP, **kw), "traced_user_johannsen_psaltis"),
+    "branch_s0": (lambda **kw: BranchingMetric(**BRANCH, s=0.0, **kw), "traced_branch_s0"),
+    "branch_s1": (lambda **kw: BranchingMetric(**BRANCH, s=1.0, **kw), "traced_branch_s1"),
+    "johannsen_series": (lambda **kw: JohannsenSeries(**SERIES, **kw), "traced_johannsen_series"),
+    "johannsen_series_kerr_order": (lambda **kw: JohannsenSeries(**SERIES_KERR_ORDER, **kw), "traced_johannsen_series"),
+}
+# the traced metrics held against a built-in kernel's metric of the same
+# components (`_traced_vs_builtin`, `_jp_agrees`)
+BUILTIN_TWINS = {
+    "user_johannsen_psaltis": lambda **kw: JohannsenPsaltisMetric(**JP, **kw),
+    "branch_s0": lambda **kw: KerrMetric(BRANCH["M"], BRANCH["a"], **kw),
+    "branch_s1": lambda **kw: JohannsenPsaltisMetric(**BRANCH, **kw),
+    "johannsen_series_kerr_order": lambda **kw: JohannsenMetric(
+        **{k: SERIES[k] for k in ("M", "a", "alpha13", "alpha22", "alpha52", "eps3")}, **kw
+    ),
 }
 
 
@@ -1770,7 +1898,7 @@ def phase_traced_metric_render(dev, side=1024):
         g_median_rel=float(_rel(g_traced[both], g_kerr[both]).median()),
     )
     result["vs_kerr"] = vs_kerr
-    result["jp_vs_builtin"] = jp = _traced_vs_builtin_jp(dev)
+    result["jp_vs_builtin"] = jp = _traced_vs_builtin(dev)
     _say("traced_metric_render", build=result["build"], vs_kerr=vs_kerr, jp_vs_builtin=jp)
     if vs_kerr["status_agree"] < 0.995 or not vs_kerr["g_median_rel"] <= 1e-4:
         raise AssertionError(f"the traced Eddington-Finkelstein render disagrees with KerrMetric(1, 0): {vs_kerr}")
@@ -1779,19 +1907,72 @@ def phase_traced_metric_render(dev, side=1024):
     return result
 
 
-def _traced_vs_builtin_jp(dev, n=2048):
-    """The copy of Johannsen-Psaltis (kind 12) against the built-in metric
-    (kind 2) on the same ``n`` flagship rays, f64: status agreement, the
-    hits' gaps relative to max(1, |value|) (median, 99th percentile,
-    largest, and the count past 1e-9), each kernel's ms (the median of 3
-    after a warm-up) and the traced one's bound."""
+def _doughnut_other_metric(dtype, dev):
+    """The docs' PolishDoughnut (ℓ = 8, r_cusp = 10) whose isobars read
+    `JohannsenMetric(1, 0.998)`'s components: Kerr's numbers in another
+    metric class than the rays' `KerrMetric`."""
+    return PolishDoughnut(metric=JohannsenMetric(1.0, 0.998, dtype=dtype, device=dev), dtype=dtype, device=dev)
+
+
+def phase_doughnut_other_metric_render(dev, side=1024):
+    """The flagship render (f32, Kerr a = 0.998, i = 75°, λ ≤ 2200,
+    analytic redshift) against `_doughnut_other_metric`, its isobars in the
+    Johannsen class of a generated unit (`_full_render`: the render's
+    time, finite pixels, attempted lane-steps, the kernel's time and bound,
+    every 256th pixel against the plain version), and the build of its
+    unit; then the same rays through the library's kernel against
+    ``PolishDoughnut(metric=KerrMetric(1, 0.998))``, the same numbers in
+    the rays' own class: statuses alike ≥ 0.999 and the median relative
+    gap of both renders' redshift ≤ 1e-5 (printed with the hits' largest
+    gap and both kernels' ms on the full render)."""
+    dtype = torch.float32
+    m = KerrMetric(1.0, 0.998, dtype=dtype, device=dev)
+    geometry = _doughnut_other_metric(dtype, dev)
+    result, gp = _full_render(dev, m, side, "doughnut_other_metric_render", "kerr_doughnut_johannsen", subset=256, geometry=geometry)
+    result["build"] = _callable_build(geometry, m, dtype)
+    library = PolishDoughnut(metric=KerrMetric(1.0, 0.998, dtype=dtype, device=dev), dtype=dtype, device=dev)
+    if cuda_solver._kernel_unit(m, library, dtype) is not None:
+        raise AssertionError("a doughnut of the rays' own metric class left the library's kernels")
+    x = torch.tensor(X_OBS, dtype=dtype, device=dev)
+    tracer = CudaTracer(m, geometry=library)
+    y0 = _constrained(tracer, m, x, *_pixel_grid(side, side, (-28.0, 28.0), (-18.0, 18.0), 1e-4, dtype, dev))
+    tracer._integrate(y0, SPAN)  # warm-up
+    out, library_ms = _timed(lambda: tracer._integrate(y0, SPAN))
+    gl = tracer._finish(out, y0, SPAN[0])
+    pf = ConstPointFunctions.redshift(m, x) @ ConstPointFunctions.filter_intersected()
+    g_other, g_library = pf(m, gp, SPAN[1]), pf(m, gl, SPAN[1])
+    both = (gp.status == HIT) & (gl.status == HIT) & torch.isfinite(g_other) & torch.isfinite(g_library)
+    vs_kerr = dict(
+        status_agree=float((gp.status == gl.status).double().mean()),
+        hits=(int((gp.status == HIT).sum()), int((gl.status == HIT).sum())),
+        hit_max_abs_err=float((gp.x[both] - gl.x[both]).abs().max()),
+        g_median_rel=float(_rel(g_other[both], g_library[both]).median()),
+        full_kernel_ms=result["full_kernel_ms"],
+        library_full_kernel_ms=library_ms,
+    )
+    result["vs_kerr"] = vs_kerr
+    _say("doughnut_other_metric_render", build=result["build"], vs_kerr=vs_kerr)
+    if vs_kerr["status_agree"] < 0.999 or not vs_kerr["g_median_rel"] <= 1e-5:
+        raise AssertionError(f"the Johannsen-class doughnut disagrees with the Kerr-class one: {vs_kerr}")
+    return result
+
+
+def _traced_vs_builtin(dev, name="user_johannsen_psaltis", n=2048):
+    """A traced metric of `BUILTIN_TWINS` (kind 12) against the built-in
+    metric of the same components (the copy of Johannsen-Psaltis against
+    kind 2, the branching metric against Kerr and Johannsen-Psaltis,
+    Johannsen's series of the library's order against Johannsen) on the
+    same ``n`` flagship rays against ThinDisc(0, 50), f64: status
+    agreement, the hits' gaps relative to max(1, |value|) (median, 99th
+    percentile, largest, and the count past 1e-9), each kernel's ms (the
+    median of 3 after a warm-up) and the traced one's bound."""
     kw = dict(dtype=torch.float64, device=dev)
     rng = np.random.default_rng(25)
     A, B = (torch.as_tensor(rng.uniform(-lim, lim, n), **kw) for lim in (28.0, 18.0))
     x = torch.tensor(X_OBS, **kw)
     d = ThinDisc(0.0, 50.0, **kw)
     out = {}
-    for name, m in (("traced", _traced_metric("user_johannsen_psaltis", torch.float64, dev)), ("builtin", JohannsenPsaltisMetric(**JP, **kw))):
+    for what, m in (("traced", _traced_metric(name, torch.float64, dev)), ("builtin", BUILTIN_TWINS[name](**kw))):
         tracer = CudaTracer(m, geometry=d)
         y0 = _constrained(tracer, m, x, A, B)
         ikw = tracer._integrate_kwargs(torch.float64)
@@ -1800,12 +1981,12 @@ def _traced_vs_builtin_jp(dev, n=2048):
         for _ in range(3):
             raw, ms = _timed(lambda: cuda_integrate_rays(m, y0, SPAN, **ikw))
             times.append(ms)
-        out[name] = (tracer._finish(raw, y0, SPAN[0]), statistics.median(times), raw)
+        out[what] = (tracer._finish(raw, y0, SPAN[0]), statistics.median(times), raw)
     (gt, t_ms, raw), (gb, b_ms, _) = out["traced"], out["builtin"]
     hit = (gt.status == HIT) & (gb.status == HIT)
     gap = torch.cat([_rel_gap(gt.x[hit], gb.x[hit]), _rel_gap(gt.lam_max[hit], gb.lam_max[hit])[:, None]], dim=-1).amax(-1)
     q = torch.quantile(gap, torch.tensor([0.5, 0.99], dtype=gap.dtype, device=gap.device)).tolist() if hit.any() else [0.0, 0.0]
-    bound_ms, bound_by = _bound(TRACED_METRICS["user_johannsen_psaltis"][1], n, int(raw["attempts"].sum()), _hits(raw), torch.float64)
+    bound_ms, bound_by = _bound(TRACED_METRICS[name][1], n, int(raw["attempts"].sum()), _hits(raw), torch.float64)
     return dict(
         rays=n,
         hits=int(hit.sum()),
@@ -1824,7 +2005,7 @@ def _traced_vs_builtin_jp(dev, n=2048):
 def _jp_agrees(res):
     """Statuses identical, 99% of the hits within 1e-9 relative and every
     one within 1e-7: the two kernels compute the same components with
-    another rounding, so their step sizes differ at rounding, and a ray
+    another rounding (or, for Kerr, by its hand-derived Jacobian), so their step sizes differ at rounding, and a ray
     whose steps near the hole take the integrator's tolerance (abstol =
     reltol = 1e-9) ends up to a few 1e-9 away (the kernels' C++ on a CPU,
     f64: median 6.1e-12, 99th percentile 2.8e-10, largest 6.2e-9 at r =
@@ -1897,48 +2078,76 @@ def phase_traced_metric_lineprofile(dev):
     return res
 
 
-# The cases of `phase_traced_metrics`: (metric of `TRACED_METRICS`, geometry,
-# `KERNEL_OPS` key); ShakuraSunyaev runs the traced unit's generic
-# instantiation, ThinDisc its closed forms
+# The cases of `phase_traced_metrics`: (metric of `TRACED_METRICS`, or
+# "kerr" for Kerr a = 0.998; geometry; `KERNEL_OPS` key; dtypes);
+# ShakuraSunyaev runs the traced unit's generic instantiation, ThinDisc its
+# closed forms; a PolishDoughnut of the Eddington-Finkelstein metric reads
+# its isobars in that metric's class beside the rays' (one class a part)
+BOTH = (torch.float64, torch.float32)
 TRACED_CASES = {
-    "eddington_finkelstein": ("eddington_finkelstein", "thin", "traced_eddington_finkelstein"),
-    "user_johannsen_psaltis": ("user_johannsen_psaltis", "thin", "traced_user_johannsen_psaltis"),
+    "eddington_finkelstein": ("eddington_finkelstein", "thin", "traced_eddington_finkelstein", BOTH),
+    "user_johannsen_psaltis": ("user_johannsen_psaltis", "thin", "traced_user_johannsen_psaltis", BOTH),
     "user_johannsen_psaltis_shakura_sunyaev": (
         "user_johannsen_psaltis",
         "shakura_sunyaev",
         "traced_user_johannsen_psaltis_shakura_sunyaev",
+        BOTH,
     ),
+    "branch_s0": ("branch_s0", "thin", "traced_branch_s0", (torch.float64,)),
+    "branch_s1": ("branch_s1", "thin", "traced_branch_s1", (torch.float64,)),
+    "johannsen_series": ("johannsen_series", "thin", "traced_johannsen_series", (torch.float64,)),
+    "kerr_ef_doughnut": ("kerr", "doughnut_ef", "kerr_doughnut_ef", (torch.float64,)),
+    "jp_ef_doughnut": ("user_johannsen_psaltis", "doughnut_ef", "traced_jp_doughnut_ef", (torch.float64,)),
 }
 
 
 def _traced_case(name, dtype, dev):
     """(metric, geometry, `KERNEL_OPS` key) of a `TRACED_CASES` case: the
-    geometry ThinDisc(0, 50), or the ShakuraSunyaev disc of
-    `_shakura_sunyaev_numbers`."""
-    metric, geometry, ops_key = TRACED_CASES[name]
+    geometry ThinDisc(0, 50), the ShakuraSunyaev disc of
+    `_shakura_sunyaev_numbers`, or the docs' PolishDoughnut (ℓ = 8, r_cusp
+    = 10) whose isobars read `EddingtonFinkelsteinAD`'s components."""
+    metric, geometry, ops_key, _ = TRACED_CASES[name]
     kw = dict(dtype=dtype, device=dev)
-    d = ThinDisc(0.0, 50.0, **kw) if geometry == "thin" else ShakuraSunyaev(*_shakura_sunyaev_numbers(), **kw)
-    return _traced_metric(metric, dtype, dev), d, ops_key
+    m = KerrMetric(1.0, 0.998, **kw) if metric == "kerr" else _traced_metric(metric, dtype, dev)
+    d = {
+        "thin": lambda: ThinDisc(0.0, 50.0, **kw),
+        "shakura_sunyaev": lambda: ShakuraSunyaev(*_shakura_sunyaev_numbers(), **kw),
+        "doughnut_ef": lambda: PolishDoughnut(metric=EddingtonFinkelsteinAD(1.0, **kw), **kw),
+    }[geometry]()
+    return m, d, ops_key
+
+
+# The cases whose metric branches on a parameter: their plain version (the
+# user's torch code) reads it on the host at every evaluation, a device
+# sync that a CUDA graph's capture cannot hold, so its loop runs uncaptured
+UNCAPTURED_PLAIN = ("branch_s0", "branch_s1")
+# the traced metrics held against a built-in kernel in `phase_traced_metrics`
+# (the JP copy's is held in `phase_traced_metric_render`)
+TWINS_IN_PLAIN = ("branch_s0", "branch_s1", "johannsen_series_kerr_order")
 
 
 def phase_traced_metrics(dev, n=1024):
     """The traced metrics against the plain version on the same card
     tensors, ``n`` flagship rays (uniform over α ∈ [−28, 28], β ∈
-    [−18, 18]) a case of `TRACED_CASES`, f64 and f32, at
+    [−18, 18]) a case of `TRACED_CASES` in its dtypes, at
     `phase_callable_geometries`' thresholds (f64: statuses ≥ 0.999 alike,
     hits within 1e-6; f32: statuses ≥ 0.995, median g ≤ 1e-4), with the
-    units' builds."""
+    units' builds; and the branching metric and Johannsen's series of the
+    library's order against the built-in kernels of the same components
+    (`_traced_vs_builtin`, held as `_jp_agrees` holds them)."""
     rng = np.random.default_rng(26)
     alpha, beta = rng.uniform(-28.0, 28.0, n), rng.uniform(-18.0, 18.0, n)
     results, failed = {}, []
-    for dtype in (torch.float64, torch.float32):
+    for dtype in BOTH:
         kw = dict(dtype=dtype, device=dev)
         x = torch.tensor(X_OBS, **kw)
-        for name in TRACED_CASES:
+        for name, (_, _, _, dtypes) in TRACED_CASES.items():
+            if dtype not in dtypes:
+                continue
             m, d, ops_key = _traced_case(name, dtype, dev)
             tracer = CudaTracer(m, geometry=d)
             y0 = _constrained(tracer, m, x, torch.as_tensor(alpha, **kw), torch.as_tensor(beta, **kw))
-            res = _full_trace(m, x, tracer, y0, dtype, ops_key)
+            res = _full_trace(m, x, tracer, y0, dtype, ops_key, plain_graphs=name not in UNCAPTURED_PLAIN)
             if dtype == torch.float64:
                 ok = res["status_agree"] >= 0.999 and res["hit_max_abs_err"] <= 1e-6
             else:
@@ -1947,9 +2156,13 @@ def phase_traced_metrics(dev, n=1024):
             results[f"{name}_{str(dtype)[6:]}"] = res
             if not ok:
                 failed.append(f"{name}_{str(dtype)[6:]}")
+    for name in TWINS_IN_PLAIN:
+        results[f"{name}_vs_builtin"] = res = _traced_vs_builtin(dev, name)
+        if not _jp_agrees(res):
+            failed.append(f"{name}_vs_builtin")
     _say("traced_metrics", **results)
     if failed:
-        raise AssertionError(f"traced_metrics: kernel and plain version disagree: {failed}")
+        raise AssertionError(f"traced_metrics: kernel and plain version (or the built-in kernel) disagree: {failed}")
     return results
 
 
@@ -5029,6 +5242,7 @@ def main():
     thick = timed_phase("thick_geometries_render", phase_thick_geometries_render, dev)
     warped = timed_phase("callable_geometries_render", phase_callable_geometries_render, dev)
     traced = timed_phase("traced_metric_render", phase_traced_metric_render, dev)
+    doughnut = timed_phase("doughnut_other_metric_render", phase_doughnut_other_metric_render, dev)
     chain = timed_phase("chain", phase_chain, dev)
     timed_phase("ctf_golden", phase_ctf_golden, dev)
     ctf, ctf_flux = timed_phase("ctf_lineprofile", phase_ctf_lineprofile, dev)
@@ -5155,6 +5369,7 @@ def main():
             ("thick", "kerr_shakura_sunyaev", thick),
             ("warped", "kerr_warped", warped),
             ("traced", TRACED_METRICS["eddington_finkelstein"][1], traced),
+            ("doughnut", "kerr_doughnut_johannsen", doughnut),
         )
     }
     bound_ms, bound_by = bounds["flagship"]
@@ -5163,6 +5378,7 @@ def main():
     thick_bound_ms, thick_bound_by = bounds["thick"]
     warped_bound_ms, warped_bound_by = bounds["warped"]
     traced_bound_ms, traced_bound_by = bounds["traced"]
+    doughnut_bound_ms, doughnut_bound_by = bounds["doughnut"]
     traced_checks = lags["traced_metrics"]
     geometries = lags["thick_geometries"]
     callables = lags["callable_geometries"]
@@ -5200,6 +5416,8 @@ def main():
                             "thick_disc",
                             "precessing_datum_plane",
                             "traced_metric",
+                            "traced_metric_literal_parameters",
+                            "polish_doughnut_of_another_metric_class",
                         ],
                         "metrics": [
                             "kerr",
@@ -5214,7 +5432,7 @@ def main():
                             "kerr_dark_matter",
                             "spherical",
                             "cartesian",
-                            "traced: a user's components5 or components5_jac",
+                            "traced: a user's components5 or components5_jac, its parameters slots or literals",
                         ],
                         "datum_plane_max_abs_err": checks["datum_plane"]["f64"][
                             "hit_max_abs_err"
@@ -5284,7 +5502,25 @@ def main():
                             "build_spills": traced["build"]["spills"],
                             "vs_kerr": traced["vs_kerr"],
                         },
+                        "doughnut_other_metric_render": {
+                            "geometry": "PolishDoughnut(metric=JohannsenMetric(1, 0.998)) against KerrMetric(1, 0.998) rays",
+                            "launches": doughnut["launches"],
+                            "ms": doughnut["subset_kernel_ms"],
+                            "plain_ms": doughnut["subset_plain_ms"],
+                            "bound_ms": doughnut_bound_ms,
+                            "bound_by": doughnut_bound_by,
+                            "full_kernel_ms": doughnut["full_kernel_ms"],
+                            "full_bound_ms": doughnut["full_bound_ms"],
+                            "full_bound_share": doughnut["full_bound_share"],
+                            "finite_pixels": doughnut["finite_pixels"],
+                            "seconds_per_render": doughnut["seconds_per_render"],
+                            "build_seconds": doughnut["build"]["seconds"],
+                            "build_registers": doughnut["build"]["registers"],
+                            "build_spills": doughnut["build"]["spills"],
+                            "vs_kerr": doughnut["vs_kerr"],
+                        },
                         "traced_jp_vs_builtin": traced["jp_vs_builtin"],
+                        "traced_vs_builtin": {k: r for k, r in traced_checks.items() if k.endswith("_vs_builtin")},
                         "traced_metric_lineprofile": {
                             k: traced_ctf[k]
                             for k in ("launches", "seconds_per_profile", "kernel_ms", "bound_ms", "bound_by", "flux_sum", "m1", "kerr_m1")
@@ -5295,9 +5531,12 @@ def main():
                         "traced_metrics_kernel": {
                             k: {f: r[f] for f in ("rays", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "status_agree", "g_median_rel")}
                             for k, r in traced_checks.items()
+                            if "build" in r
                         },
                         "traced_metrics_builds": {
-                            k: {f: r["build"].get(f) for f in ("seconds", "registers", "spills")} for k, r in traced_checks.items()
+                            k: {f: r["build"].get(f) for f in ("seconds", "registers", "spills")}
+                            for k, r in traced_checks.items()
+                            if "build" in r
                         },
                         "callables_max_abs_err": {
                             k: r["hit_max_abs_err"] for k, r in callables.items() if k.endswith("_float64")
@@ -5361,6 +5600,7 @@ def main():
                             "thick_geometries_render": thick["launches"],
                             "callable_geometries_render": warped["launches"],
                             "traced_metric_render": traced["launches"],
+                            "doughnut_other_metric_render": doughnut["launches"],
                             "ctf_lineprofile": ctf["launches"],
                             "traced_metric_lineprofile": traced_ctf["launches"],
                             "binning_lineprofile": binned["launches"],

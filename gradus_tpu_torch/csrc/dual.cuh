@@ -120,6 +120,23 @@ struct Dual2 {
     const T t = tanh(a.v);
     return {t, (a.dr + a.dr * t) * (T(1) - t), (a.dth + a.dth * t) * (T(1) - t)};
   }
+  friend __device__ __forceinline__ Dual2 sinh(Dual2 a) {
+    const T c = cosh(a.v);
+    return {sinh(a.v), a.dr * c, a.dth * c};
+  }
+  friend __device__ __forceinline__ Dual2 cosh(Dual2 a) {
+    const T s = sinh(a.v);
+    return {cosh(a.v), a.dr * s, a.dth * s};
+  }
+  friend __device__ __forceinline__ Dual2 asin(Dual2 a) {
+    const T d = T(1) / sqrt(T(1) - a.v * a.v);
+    return {asin(a.v), a.dr * d, a.dth * d};
+  }
+  friend __device__ __forceinline__ Dual2 acos(Dual2 a) {
+    const T d = -(T(1) / sqrt(T(1) - a.v * a.v));
+    return {acos(a.v), a.dr * d, a.dth * d};
+  }
+  friend __device__ __forceinline__ Dual2 floor(Dual2 a) { return {floor(a.v), T(0), T(0)}; }
 };
 
 // select for a plain scalar, so that a components5 template reads the same
@@ -199,7 +216,32 @@ struct Dual1 {
   friend __device__ __forceinline__ Dual1 atan(Dual1 a) {
     return {atan(a.v), a.d / (T(1) + a.v * a.v)};
   }
+  // sinh t cosh, cosh t sinh, asin t / sqrt(1 - x^2), acos -t / sqrt(1 -
+  // x^2); floor and sign (jsign below) carry no tangent
+  friend __device__ __forceinline__ Dual1 sinh(Dual1 a) { return {sinh(a.v), a.d * cosh(a.v)}; }
+  friend __device__ __forceinline__ Dual1 cosh(Dual1 a) { return {cosh(a.v), a.d * sinh(a.v)}; }
+  friend __device__ __forceinline__ Dual1 asin(Dual1 a) {
+    return {asin(a.v), a.d * (T(1) / sqrt(T(1) - a.v * a.v))};
+  }
+  friend __device__ __forceinline__ Dual1 acos(Dual1 a) {
+    return {acos(a.v), a.d * -(T(1) / sqrt(T(1) - a.v * a.v))};
+  }
+  friend __device__ __forceinline__ Dual1 floor(Dual1 a) { return {floor(a.v), T(0)}; }
 };
+
+// jnp.sign: -1, 0 (of the zero's sign) or 1, NaN for NaN; no tangent
+template <typename T>
+__device__ __forceinline__ T jsign(T x) {
+  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
+}
+template <typename T>
+__device__ __forceinline__ Dual1<T> jsign(Dual1<T> a) {
+  return {jsign(a.v), T(0)};
+}
+template <typename T>
+__device__ __forceinline__ Dual2<T> jsign(Dual2<T> a) {
+  return {jsign(a.v), T(0), T(0)};
+}
 
 // jnp.maximum(x, c) of a constant c: the value as tsit5.cuh's mx (a NaN
 // propagates), the tangent t times 1 above c, 0 below and 1/2 at a tie

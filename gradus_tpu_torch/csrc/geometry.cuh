@@ -12,9 +12,9 @@
 //   3  ShakuraSunyaev   v = (3 inv_eta mdot, inner_r)
 //   4  EllipticalDisc   v = (inner_r, semi_major, semi_minor^2)
 //   5  PolishDoughnut   v = (2M, 2.2M, unused, ell^2, 2 ell, z_max, W at
-//                       (r_cusp, 0), 1 if the potential reads the traced
-//                       metric's components else 0 (Schwarzschild's closed
-//                       form), that metric's M, a and 5 parameters)
+//                       (r_cusp, 0), 1 if the potential reads a metric's
+//                       components else 0 (Schwarzschild's closed form),
+//                       that metric's M, a and 5 parameters)
 //   6  PrecessingDisc   of a part of kind 1-5, 8 or 9 (`inner`), with that
 //                       part's values and v[17..19] = (cos(-beta),
 //                       sin(-beta), gamma)
@@ -33,8 +33,9 @@
 //
 // A Metric is the kernel's (tsit5.cuh) with
 //   static __device__ void components(T M, T a, const T* q, T r, T th, T* g);
-// the PolishDoughnut of a metric reads the traced metric's class with its
-// own parameters.
+// the PolishDoughnut of a metric reads the ray metric's class with its own
+// parameters, or, where the Policy names one for its part (a doughnut of
+// another metric class than the rays'), that class.
 
 #pragma once
 
@@ -60,12 +61,16 @@ constexpr int kThickDisc = 9;
 // 2 + n * kPartStride values in all (the part count is read at run time).
 constexpr int kPartStride = 2 + kPartValues;
 
-// A Policy holds the cross-sections of the parts of kinds 8 and 9:
-//   static constexpr bool kCallables;
+// A Policy holds the cross-sections of the parts of kinds 8 and 9, and the
+// cross-sections of the PolishDoughnut parts whose isobars read another
+// metric class than the rays' (doughnut_h below, of that class):
+//   static constexpr bool kCallables, kDoughnuts;
 //   template <typename T, class S> static S cross_section(int part, S rho);
+//   template <class Metric, typename T> static T doughnut_h(int part, const T* v, T rho);
 // NoCallables, the default, holds none.
 struct NoCallables {
   static constexpr bool kCallables = false;
+  static constexpr bool kDoughnuts = false;
   template <typename T, class S>
   static __device__ __forceinline__ S cross_section(int, S rho) {
     return rho;
@@ -122,6 +127,14 @@ __device__ __noinline__ T doughnut_h(const T* v, T rho) {
   return in_disc ? T(0.5) * (a + b) : T(-1);
 }
 
+// The cross-section of the PolishDoughnut part k: in the Policy's class for
+// that part where it names one, else in the ray metric's.
+template <class Metric, class Policy, typename T>
+__device__ __forceinline__ T doughnut_height(int k, const T* v, T rho) {
+  if constexpr (Policy::kDoughnuts) return Policy::template doughnut_h<Metric>(k, v, rho);
+  else return doughnut_h<Metric>(v, rho);
+}
+
 // The indicator of a part of kind 1-5, 8 or 9 at (r, θ) (discs.py: ThinDisc
 // and DatumPlane :113-171, WarpedThinDisc's z - f(ρ) :144-147, the thick
 // discs' |z| - max(h(ρ), 0) :192-196, EllipticalDisc :302-306); ``k`` is
@@ -145,7 +158,7 @@ __device__ __forceinline__ S disc_indicator(int kind, int k, const T* v, S r, S 
       return fabs(r * cos(th)) - sqrt(jmax(T(1) - q * q, T(0)) * v[2]);
     }
     default: {
-      const T h = doughnut_h<Metric>(v, value(rho_of(r, th)));
+      const T h = doughnut_height<Metric, Policy>(k, v, value(rho_of(r, th)));
       return r * fabs(cos(th)) - jmax(S{h}, T(0));
     }
   }
@@ -170,7 +183,7 @@ __device__ __forceinline__ bool disc_hit(int kind, int k, const T* v, T r, T th)
     case kEllipticalDisc:
       return r >= v[0] && r <= v[1];
     default:
-      return doughnut_h<Metric>(v, rho) > T(0);
+      return doughnut_height<Metric, Policy>(k, v, rho) > T(0);
   }
 }
 

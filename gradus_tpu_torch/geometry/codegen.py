@@ -14,7 +14,8 @@ jax.jvp's rules at the kinks. The ops it takes (`WHITELIST`):
   ρ-expression as exponent (a Python int exponent as `lax.integer_pow`
   does, by products), ``reciprocal``, ``square``;
 - functions: ``abs``, ``sqrt``, ``rsqrt``, ``exp``, ``log``, ``sin``,
-  ``cos``, ``tan``, ``tanh``, ``atan``, ``atan2``;
+  ``cos``, ``tan``, ``tanh``, ``atan``, ``atan2``, ``sinh``, ``cosh``,
+  ``asin``, ``acos``, ``floor``, ``sign``;
 - choices: ``minimum``, ``maximum``, ``clamp``/``clip`` with number bounds,
   ``where`` on a comparison of ρ-expressions;
 - constants: ``zeros_like``, ``ones_like``, ``full_like`` of a number.
@@ -29,10 +30,11 @@ on the host, before any build or launch.
 ``components5`` with it.
 
 `kernel_unit` writes the CUDA unit of a launch: the cross-sections of the
-geometry's parts, the Policy holding them (csrc/geometry.cuh), a traced
-metric's class (`metrics.codegen`), and the C entry point for the metric
-and the launch's dtype (csrc/callable.cuh); `_build.load_callable_library`
-builds it.
+geometry's parts, the metric class of each PolishDoughnut part whose
+isobars read another class than the rays' metric, the Policy holding them
+(csrc/geometry.cuh), a traced metric's class (`metrics.codegen`), and the
+C entry point for the metric and the launch's dtype (csrc/callable.cuh);
+`_build.load_callable_library` builds it.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from dataclasses import dataclass
 import torch
 import torch.fx
 
-__all__ = ["WHITELIST", "cross_section_source", "callable_parts", "kernel_unit", "KernelUnit"]
+__all__ = ["WHITELIST", "cross_section_source", "callable_parts", "doughnut_parts", "kernel_unit", "KernelUnit"]
 
 # The C++ class of each kernel metric kind (csrc/tsit5.cuh, kMetric*)
 METRIC_CLASSES = (
@@ -94,6 +96,8 @@ _OPS = dict(
         ("absolute", "abs"),
         ("arctan", "atan"),
         ("arctan2", "atan2"),
+        ("arcsin", "asin"),
+        ("arccos", "acos"),
         ("clip", "clamp"),
         ("greater", "gt"),
         ("less", "lt"),
@@ -120,6 +124,12 @@ _OPS = dict(
     + _targets("tanh", torch.tanh)
     + _targets("atan", torch.atan, torch.arctan)
     + _targets("atan2", torch.atan2, torch.arctan2)
+    + _targets("sinh", torch.sinh)
+    + _targets("cosh", torch.cosh)
+    + _targets("asin", torch.asin, torch.arcsin)
+    + _targets("acos", torch.acos, torch.arccos)
+    + _targets("floor", torch.floor)
+    + _targets("sign", torch.sign)
     + _targets("minimum", torch.minimum)
     + _targets("maximum", torch.maximum)
     + _targets("clamp", torch.clamp, torch.clip)
@@ -148,6 +158,12 @@ _UNARY = dict(
     tan="tan",
     tanh="tanh",
     atan="atan",
+    sinh="sinh",
+    cosh="cosh",
+    asin="asin",
+    acos="acos",
+    floor="floor",
+    sign="jsign",
     square="jsquare",
 )
 _FILLS = dict(zeros_like=0.0, ones_like=1.0, full_like=None)
@@ -405,21 +421,33 @@ def cross_section_source(f, name="h_0"):
     )
 
 
-def callable_parts(geometry):
-    """[(part index, cross-section)] of a geometry's parts of kinds 8-9 (a
-    `WarpedThinDisc` or `ThickDisc`, alone, precessed or in a
-    `CompositeGeometry`), in the part order of the kernel's block."""
-    from gradus_tpu_torch.geometry.discs import CompositeGeometry, PrecessingDisc, ThickDisc, WarpedThinDisc
+def _parts(geometry):
+    """[(part index, part)] of a geometry in the part order of the kernel's
+    block, a `PrecessingDisc` part as its disc."""
+    from gradus_tpu_torch.geometry.discs import CompositeGeometry, PrecessingDisc
 
     if geometry is None:
         return []
     parts = list(geometry.geometries) if isinstance(geometry, CompositeGeometry) else [geometry]
-    out = []
-    for k, g in enumerate(parts):
-        g = g.disc if type(g) is PrecessingDisc else g
-        if type(g) in (WarpedThinDisc, ThickDisc):
-            out.append((k, g.f))
-    return out
+    return [(k, g.disc if type(g) is PrecessingDisc else g) for k, g in enumerate(parts)]
+
+
+def callable_parts(geometry):
+    """[(part index, cross-section)] of a geometry's parts of kinds 8-9 (a
+    `WarpedThinDisc` or `ThickDisc`, alone, precessed or in a
+    `CompositeGeometry`), in the part order of the kernel's block."""
+    from gradus_tpu_torch.geometry.discs import ThickDisc, WarpedThinDisc
+
+    return [(k, g.f) for k, g in _parts(geometry) if type(g) in (WarpedThinDisc, ThickDisc)]
+
+
+def doughnut_parts(geometry):
+    """[(part index, metric)] of a geometry's `PolishDoughnut` parts whose
+    isobars read a metric's components, alone, precessed or in a
+    `CompositeGeometry`."""
+    from gradus_tpu_torch.geometry.discs import PolishDoughnut
+
+    return [(k, g.metric) for k, g in _parts(geometry) if type(g) is PolishDoughnut and g.metric is not None]
 
 
 @dataclass(frozen=True)
@@ -447,38 +475,66 @@ def _launch(scalar, u):
     return f"(gradus::{u.launcher}<{scalar}, gradus::{u.metric}, gradus::{u.policy}, {u.metric_kind}>)"
 
 
-def _cross_sections(parts):
-    """The cross-sections of ``parts`` and the Policy that selects them by
+def _policy(parts, doughnuts):
+    """The cross-sections of ``parts``, the classes of the traced metrics of
+    ``doughnuts`` ((part index, a kernel metric kind or a
+    `metrics.codegen.TracedMetric`)), and the Policy that selects them by
     their part index."""
     functions = "".join(cross_section_source(f, f"h_{k}") for k, f in parts)
     cases = "".join(f"      case {k}: return h_{k}<T>(rho);\n" for k, _ in parts)
+    classes, doughnut_cases = "", ""
+    for k, metric in doughnuts:
+        if isinstance(metric, int):
+            cls = METRIC_CLASSES[metric]
+        else:
+            classes += metric.struct(f"Doughnut{k}") + "\n"
+            cls = metric.rhs_of(f"Doughnut{k}")
+        doughnut_cases += f"      case {k}: return gradus::doughnut_h<{cls}>(v, rho);\n"
     return (
-        f"{functions}\n"
+        f"{functions}{classes}\n"
         "struct CrossSections {\n"
-        "  static constexpr bool kCallables = true;\n"
+        f"  static constexpr bool kCallables = {'true' if parts else 'false'};\n"
+        f"  static constexpr bool kDoughnuts = {'true' if doughnuts else 'false'};\n"
         "  template <typename T, class S>\n"
         "  static __device__ __forceinline__ S cross_section(int k, S rho) {\n"
         "    switch (k) {\n"
         f"{cases}"
         "      default: return S{T(NAN)};\n"
-        "    }\n  }\n};\n\n"
+        "    }\n  }\n"
+        + (
+            ""
+            if not doughnuts
+            else "  template <class Metric, typename T>\n"
+            "  static __device__ __forceinline__ T doughnut_h(int k, const T* v, T rho) {\n"
+            "    switch (k) {\n"
+            f"{doughnut_cases}"
+            "      default: return gradus::doughnut_h<Metric>(v, rho);\n"
+            "    }\n  }\n"
+        )
+        + "};\n\n"
     )
 
 
-def kernel_unit(metric_kind, geometry, dtype, traced=None):
+def kernel_unit(metric_kind, geometry, dtype, traced=None, doughnuts=()):
     """The unit for a launch of the kernel against ``geometry`` in
     ``dtype``: with ``traced`` (a `metrics.codegen.TracedMetric`), for
     that metric and every geometry; else for the metric kind
     ``metric_kind``, or None when the geometry has no cross-section
-    callable. Raises as `cross_section_source` does."""
+    callable and ``doughnuts`` is empty. ``doughnuts`` names the class of
+    each PolishDoughnut part whose isobars read another class than the
+    rays' metric: (part index, its metric's kind, or its `TracedMetric`).
+    Raises as `cross_section_source` does."""
     parts = callable_parts(geometry)
-    if not parts and traced is None:
+    doughnuts = list(doughnuts)
+    if not parts and not doughnuts and traced is None:
         return None
     what = []
     if traced is not None:
         what.append(f"the {traced.name} metric's {traced.method}")
     if parts:
         what.append(f"the cross-sections of a {type(geometry).__name__}'s parts {[k for k, _ in parts]}")
+    if doughnuts:
+        what.append(f"the isobars of the PolishDoughnut parts {[k for k, _ in doughnuts]} in their metrics' classes")
     body = (
         "// Generated by gradus_tpu_torch/geometry/codegen.py: "
         + " and ".join(what)
@@ -486,7 +542,7 @@ def kernel_unit(metric_kind, geometry, dtype, traced=None):
         '#include "callable.cuh"\n\n'
         "namespace gradus {\nnamespace generated {\n\n"
         + ("" if traced is None else traced.source + "\n")
-        + (_cross_sections(parts) if parts else "")
+        + (_policy(parts, doughnuts) if parts or doughnuts else "")
         + "}  // namespace generated\n}  // namespace gradus\n"
     )
     f64 = dtype == torch.float64
@@ -494,7 +550,7 @@ def kernel_unit(metric_kind, geometry, dtype, traced=None):
     if traced is None:
         unit = KernelUnit(body, "", entry, METRIC_CLASSES[metric_kind], metric_kind)
     else:
-        policy = "generated::CrossSections" if parts else "NoCallables"
+        policy = "generated::CrossSections" if parts or doughnuts else "NoCallables"
         unit = KernelUnit(body, "", entry, traced.rhs, TRACED_METRIC, policy, "launch_traced")
     source = body + f"\nGEODESIC_TSIT5_ENTRY({entry}, {scalar}, {unit.launch(scalar)})\n"
     return dataclasses.replace(unit, source=source)

@@ -399,6 +399,10 @@ class PolishDoughnut(AbstractThickAccretionDisc):
         return 0.5 * torch.log(torch.clamp(ut2, min=1e-12))
 
     def cross_section(self, rho):
+        # h carries no tangent (the bisection starts from zeros_like(ρ) and
+        # z_max, and moves by comparisons), as the kernel computes it on
+        # ρ's value: no tangent is carried through its 40 potentials either
+        rho = rho.detach()
         W_s = self._potential(self.r_cusp, torch.zeros_like(self.r_cusp))
         in_disc = self._potential(rho, torch.zeros_like(rho)) < W_s
         # in ρ's dtype, as jnp.full_like(ρ, z_max)

@@ -521,7 +521,7 @@ _PRECESSED = (ThinDisc, DatumPlane, ShakuraSunyaev, EllipticalDisc, PolishDoughn
 _PART_VALUES = 20
 
 
-def _check_geometry(m, g, composite_ok=True):
+def _check_geometry(g, composite_ok=True):
     """Raises `NotImplementedError` unless the kernel takes the geometry
     ``g`` (a part of a CompositeGeometry when not ``composite_ok``)."""
     kind = type(g)
@@ -539,26 +539,20 @@ def _check_geometry(m, g, composite_ok=True):
             f"CompositeGeometry of the others, not {kind.__name__} here; "
             "trace_geodesics takes every geometry"
         )
-    if kind is PolishDoughnut and g.metric is not None and (
-        type(g.metric) is not type(m) or (type(m) not in _KERNEL_METRICS and _traced(g.metric).source != _traced(m).source)
-    ):
-        raise NotImplementedError(
-            "the CUDA integrator evaluates a PolishDoughnut's potential with the traced metric's "
-            f"components: its metric is a {type(g.metric).__name__}, the traced one a {type(m).__name__}"
-            + (" compiled otherwise" if type(g.metric) is type(m) else "")
-        )
+    if kind is PolishDoughnut and g.metric is not None:
+        _traced(g.metric)  # its isobars' metric: raises for one the kernel cannot compile
     if kind is PrecessingDisc:
         if type(g.disc) not in _PRECESSED:
             raise NotImplementedError(
                 "the CUDA integrator takes a PrecessingDisc of a ThinDisc, DatumPlane, ShakuraSunyaev, "
                 f"EllipticalDisc, PolishDoughnut, WarpedThinDisc or ThickDisc, not of a {type(g.disc).__name__}"
             )
-        _check_geometry(m, g.disc, False)
+        _check_geometry(g.disc, False)
     if kind is CompositeGeometry:
         if not len(g.geometries):
             raise NotImplementedError("the CUDA integrator takes a CompositeGeometry of one part or more, not 0")
         for part in g.geometries:
-            _check_geometry(m, part, False)
+            _check_geometry(part, False)
 
 
 def _check_kernel_config(m, geometry, dtype):
@@ -568,18 +562,41 @@ def _check_kernel_config(m, geometry, dtype):
     before any build."""
     _traced(m)
     if geometry is not None:
-        _check_geometry(m, geometry)
+        _check_geometry(geometry)
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"the CUDA integrator takes f32 or f64, not {dtype}")
     _kernel_unit(m, geometry, dtype)  # traces the cross-sections: raises for what it cannot compile
 
 
+def _metric_class(m):
+    """The kernel's class of a metric: its kind in `_KERNEL_METRICS`, or its
+    `metrics.codegen.TracedMetric`."""
+    traced = _traced(m)
+    return _KERNEL_METRICS[type(m)][0] if traced is None else traced
+
+
+def _same_class(a, b):
+    return a == b if isinstance(a, int) or isinstance(b, int) else a.source == b.source
+
+
+def _doughnut_classes(m, geometry):
+    """[(part index, its metric's class)] of the geometry's PolishDoughnut
+    parts whose isobars read another class than the rays' metric (the
+    reference evaluates that metric's own components in its kernel:
+    gradus_tpu/geometry/discs.py:402-405)."""
+    own = _metric_class(m)
+    classes = [(k, _metric_class(metric)) for k, metric in codegen.doughnut_parts(geometry)]
+    return [(k, cls) for k, cls in classes if not _same_class(cls, own)]
+
+
 def _kernel_unit(m, geometry, dtype):
     """The generated unit of a launch (`geometry.codegen.kernel_unit`): for
-    a traced metric, or against a geometry with cross-section callables;
-    else None (the library's kernels)."""
+    a traced metric, against a geometry with cross-section callables, or
+    against a PolishDoughnut of another metric class than the rays'; else
+    None (the library's kernels)."""
     traced = _traced(m)
-    return codegen.kernel_unit(None if traced is not None else _KERNEL_METRICS[type(m)][0], geometry, dtype, traced)
+    kind = None if traced is not None else _KERNEL_METRICS[type(m)][0]
+    return codegen.kernel_unit(kind, geometry, dtype, traced, _doughnut_classes(m, geometry))
 
 
 def _part_values(g):

@@ -20,16 +20,20 @@ The metric's 0-d floating parameters (buffers or `nn.Parameter`s) are
 runtime slots of the kernel, read at every launch: ``M`` and ``a`` by
 those names (``p.M``, ``p.a``), the others in ``p.q`` in their
 registration order, at most ``Q_SLOTS`` of them. So a new M or a never
-rebuilds the unit, where the reference bakes the parameters into its
-trace as constants (`PallasTracer._concretize`, one compile per
-configuration). Python numbers are literals of the launch's dtype.
+rebuilds the unit. A parameter that the trace's Python code needs as a
+number (a branch, ``if self.s == 0:``, or ``float()`` or ``math.*`` of
+it), and the parameters past the first ``Q_SLOTS``, are literals of the
+unit instead: the metric is traced again with them read as Python floats
+of their values, as the reference bakes every parameter into its trace
+(`PallasTracer._concretize`, one compile per configuration), so another
+value of such a parameter is another unit. Python numbers are literals
+of the launch's dtype.
 
 Refused on the host, before any build or launch: an op off the whitelist,
-a Python branch on r, θ or a parameter (`if self.a == 0`, named in the
-error), ``math.*`` of them, and more parameters than the slots hold raise
-`NotImplementedError`; a tensor that is not 0-d, and a tensor the metric
-does not hold as a parameter (an anonymous constant), raise `ValueError`
-(the reference's refusal of captured arrays).
+and a Python branch on r or θ, or ``float()`` or ``math.*`` of them (named
+in the error), raise `NotImplementedError`; a tensor that is not 0-d, and
+a tensor the metric does not hold as a parameter (an anonymous constant),
+raise `ValueError` (the reference's refusal of captured arrays).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 import torch.fx
 from torch import nn
 
-from gradus_tpu_torch.geometry.codegen import WHITELIST, Emitter, _dtype_name
+from gradus_tpu_torch.geometry.codegen import WHITELIST, Emitter, _dtype_name, _literal
 from gradus_tpu_torch.metrics.base import AbstractMetric
 
 __all__ = ["TracedMetric", "traced_metric", "metric_slots", "Q_SLOTS"]
@@ -61,18 +65,42 @@ def _refuse(what):
 
 @dataclass(frozen=True)
 class TracedMetric:
-    """A metric's generated class ``TracedMetric`` (``source``), the
-    kernel's right-hand side over it (``rhs``: ``DualRhs<...>`` for a
-    traced ``components5``, ``JacRhs<...>`` for a traced
-    ``components5_jac``), the traced method, the class's name, and the
-    parameters it reads with their slots, ``((name, "p.M"), ...)``, those
-    of ``p.q`` in order."""
+    """A metric's generated class: its text (``text``, the class named
+    ``TracedMetric``), the kernel's right-hand side template over it
+    (``DualRhs`` for a traced ``components5``, ``JacRhs`` for a traced
+    ``components5_jac``), the traced method, the metric class's name, and
+    the parameters it reads with their slots, ``((name, "p.M"), ...)``,
+    those of ``p.q`` in order, then the literals with their text,
+    ``((name, "T(0.0)"), ...)``. ``source`` and ``rhs`` name the class
+    ``TracedMetric``; `struct` and `rhs_of` give it another name (a
+    PolishDoughnut's metric beside the rays' in one unit)."""
 
-    source: str
-    rhs: str
+    text: str
+    template: str
     method: str
     name: str
     slots: tuple
+
+    def struct(self, cls):
+        """The class's text under the name ``cls``."""
+        return self.text.replace("struct TracedMetric {", f"struct {cls} {{", 1)
+
+    def rhs_of(self, cls):
+        """The kernel's Metric over the class named ``cls``."""
+        return f"{self.template}<gradus::generated::{cls}>"
+
+    @property
+    def source(self):
+        return self.struct("TracedMetric")
+
+    @property
+    def rhs(self):
+        return self.rhs_of("TracedMetric")
+
+    @property
+    def literals(self):
+        """((name, its literal's text), ...): the parameters baked into the text."""
+        return tuple((k, v) for k, v in self.slots if not v.startswith("p."))
 
 
 class _Components(nn.Module):
@@ -104,16 +132,52 @@ def _sources(node):
     return sorted(out)
 
 
-class _Tracer(torch.fx.Tracer):
-    """Proxies the metric's parameters, and names what a Python branch
-    depends on."""
+class _NeedsNumbers(Exception):
+    """The trace's Python code needs the values of the parameters ``names``."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, names):
+        super().__init__(names)
+        self.names = names
+
+
+class _Proxy(torch.fx.Proxy):
+    """A traced value that names what ``float()`` or ``math.*`` of it reads."""
+
+    def __float__(self):
+        self.tracer.needs(self.node, "float() or math.* of")
+
+
+class _Tracer(torch.fx.Tracer):
+    """Proxies the metric's parameters but those of ``literals`` (name:
+    value), which it reads as Python floats of their values, and names
+    what a Python branch depends on."""
+
+    def __init__(self, literals):
+        super().__init__(autowrap_modules=())  # math.* of a value reads it as a number (__float__)
         self.proxy_buffer_attributes = True
+        self.literals = literals
+
+    def proxy(self, node):
+        return _Proxy(node, self)
+
+    def getattr(self, attr, attr_val, parameter_proxy_cache):
+        if isinstance(attr_val, torch.Tensor):
+            for name, t in _parameters(self.root.metric).items():
+                if t is attr_val and name in self.literals:
+                    return self.literals[name]
+        return super().getattr(attr, attr_val, parameter_proxy_cache)
 
     def to_bool(self, obj):
-        _refuse(f"a Python branch on {', '.join(_sources(obj.node))}")
+        self.needs(obj.node, "a Python branch on")
+
+    def needs(self, node, what):
+        """Raises `_NeedsNumbers` where the value ``node`` depends on the
+        metric's parameters only; refuses, naming them, what depends on r,
+        θ or a tensor the metric does not hold."""
+        names = _sources(node)
+        if not names or not set(names) <= set(_parameters(self.root.metric)):
+            _refuse(f"{what} {', '.join(names)}")
+        raise _NeedsNumbers(names)
 
 
 def _parameters(m):
@@ -121,19 +185,37 @@ def _parameters(m):
     return dict(itertools.chain(m.named_parameters(), m.named_buffers()))
 
 
-def _trace(m, method):
+def _trace(m, method, literals):
     wrapper = _Components(m, method)
     try:
-        return _Tracer().trace(wrapper)
-    except (NotImplementedError, ValueError):
+        return _Tracer(literals).trace(wrapper)
+    except (NotImplementedError, ValueError, _NeedsNumbers):
         raise
     except Exception as e:  # noqa: BLE001 - any failure to trace is a refusal
         _refuse(f"a metric that torch.fx cannot trace ({type(e).__name__}: {e})")
 
 
+def _not_0d(name, t):
+    return ValueError(
+        f"the metric's parameter {name} is {_dtype_name(t)}{list(t.shape)}: the integrator kernel takes "
+        "0-d parameters, as the reference's kernel takes numbers (pallas_solver.py:725-740); "
+        "trace_geodesics takes it"
+    )
+
+
+def _number(m, name):
+    """The parameter ``name``'s value as a Python float (the reference's
+    `_concretize`)."""
+    t = _parameters(m)[name]
+    if t.dim() != 0:
+        raise _not_0d(name, t)
+    return float(t)
+
+
 def _slots(m, graph):
-    """{parameter name: its C++ slot} of the parameters the graph reads:
-    p.M, p.a, and p.q[k] for the others in registration order."""
+    """({parameter name: its C++ slot} of the parameters the graph reads:
+    p.M, p.a, and p.q[k] for the first `Q_SLOTS` others in registration
+    order; the others it reads, past those slots)."""
     params = _parameters(m)
     used, anonymous = [], []
     for node in graph.nodes:
@@ -145,11 +227,7 @@ def _slots(m, graph):
             continue
         t = params[name]
         if t.dim() != 0:
-            raise ValueError(
-                f"the metric's parameter {name} is {_dtype_name(t)}{list(t.shape)}: the integrator kernel takes "
-                "0-d parameters, as the reference's kernel takes numbers (pallas_solver.py:725-740); "
-                "trace_geodesics takes it"
-            )
+            raise _not_0d(name, t)
         used.append(name)
     if anonymous:
         raise ValueError(
@@ -159,23 +237,43 @@ def _slots(m, graph):
         )
     slots = {k: f"p.{k}" for k in ("M", "a") if k in used}
     extra = [k for k in params if k in used and k not in slots]
-    if len(extra) > Q_SLOTS:
-        raise NotImplementedError(
-            f"the CUDA integrator holds {Q_SLOTS} parameters of a metric besides M and a, not "
-            f"{len(extra)} ({', '.join(extra)}); trace_geodesics takes it"
-        )
-    slots.update({k: f"p.q[{i}]" for i, k in enumerate(extra)})
-    return slots
+    slots.update({k: f"p.q[{i}]" for i, k in enumerate(extra[:Q_SLOTS])})
+    return slots, extra[Q_SLOTS:]
 
 
 _CACHE = weakref.WeakKeyDictionary()
 
 
+def _traced_graph(m, method):
+    """(the traced graph, its runtime slots, its literals {name: value}):
+    traced again with a parameter read as a number wherever the Python
+    code needs its value, and with the parameters past the slots."""
+    literals = {}
+    while True:
+        try:
+            graph = _trace(m, method, literals)
+        except _NeedsNumbers as e:
+            if set(e.names) <= set(literals):  # pragma: no cover - a literal is a float
+                _refuse(f"a Python use of {', '.join(e.names)} as a number")
+            literals.update({k: _number(m, k) for k in e.names})
+            continue
+        slots, past = _slots(m, graph)
+        if not past:
+            return graph, slots, literals
+        literals.update({k: _number(m, k) for k in past})
+
+
+def _current(m, traced):
+    """Whether the literals baked into ``traced`` are ``m``'s values now."""
+    params = _parameters(m)
+    return all(_literal(float(params[k])) == text for k, text in traced.literals)
+
+
 def traced_metric(m):
-    """The `TracedMetric` of ``m`` (cached by the metric). Raises as the
-    module says."""
+    """The `TracedMetric` of ``m`` (cached by the metric while its literal
+    parameters keep their values). Raises as the module says."""
     cached = _CACHE.get(m)
-    if cached is not None:
+    if cached is not None and _current(m, cached):
         return cached
     jac = type(m).components5_jac is not AbstractMetric.components5_jac
     if not jac and type(m).components5 is AbstractMetric.components5:
@@ -183,8 +281,7 @@ def traced_metric(m):
             f"{type(m).__name__} defines no components5: the CUDA integrator compiles a metric's components5"
         )
     method = "components5_jac" if jac else "components5"
-    graph = _trace(m, method)
-    slots = _slots(m, graph)
+    graph, slots, literals = _traced_graph(m, method)
     emitter = Emitter(_refuse, attr=lambda node: (slots[node.target.removeprefix("metric.")], "P"))
     result = emitter.emit(graph, ["r", "th"])
     names = ("g", "dr", "dth") if jac else ("g",)
@@ -194,8 +291,9 @@ def traced_metric(m):
     lines = list(emitter.lines)
     for name, group in zip(names, groups):
         lines += [f"  {name}[{k}] = {emitter.as_s(o)};" for k, o in enumerate(group)]
-    slot_note = ", ".join(f"{k} -> {v}" for k, v in slots.items()) or "none"
-    source = (
+    slots = tuple(slots.items()) + tuple((k, _literal(v)) for k, v in literals.items())
+    slot_note = ", ".join(f"{k} -> {v}" for k, v in slots) or "none"
+    text = (
         f"// {type(m).__qualname__}.{method}; parameters: {slot_note}\n"
         "struct TracedMetric {\n"
         "  template <typename T, class S>\n"
@@ -205,16 +303,14 @@ def traced_metric(m):
         + "\n".join("  " + line for line in lines)
         + "\n  }\n};\n"
     )
-    rhs = f"{'JacRhs' if jac else 'DualRhs'}<gradus::generated::TracedMetric>"
-    traced = TracedMetric(source, rhs, method, type(m).__name__, tuple(slots.items()))
+    traced = TracedMetric(text, "JacRhs" if jac else "DualRhs", method, type(m).__name__, slots)
     _CACHE[m] = traced
     return traced
 
 
 def metric_slots(m, traced):
     """(M, a, the p.q values) of ``m`` for its `TracedMetric`: 0 for a slot
-    the trace does not read."""
+    the trace does not read, or a parameter baked in as a literal."""
     params, slots = _parameters(m), dict(traced.slots)
-    M, a = (float(params[k]) if k in slots else 0.0 for k in ("M", "a"))
+    M, a = (float(params[k]) if slots.get(k) == f"p.{k}" else 0.0 for k in ("M", "a"))
     return M, a, [float(params[k]) for k, slot in traced.slots if slot.startswith("p.q")]
-

@@ -86,11 +86,17 @@ inline Counted tan(Counted a) { ++op_counts[4]; return std::tan(a.x); }
 inline Counted tanh(Counted a) { ++op_counts[4]; return std::tanh(a.x); }
 inline Counted atan2(Counted a, Counted b) { ++op_counts[4]; return std::atan2(a.x, b.x); }
 inline Counted pow(Counted a, Counted b) { ++op_counts[4]; return std::pow(a.x, b.x); }
+inline Counted sinh(Counted a) { ++op_counts[4]; return std::sinh(a.x); }
+inline Counted cosh(Counted a) { ++op_counts[4]; return std::cosh(a.x); }
+inline Counted asin(Counted a) { ++op_counts[4]; return std::asin(a.x); }
+inline Counted acos(Counted a) { ++op_counts[4]; return std::acos(a.x); }
+inline Counted floor(Counted a) { return std::floor(a.x); }
 inline Counted fabs(Counted a) { return std::fabs(a.x); }
 inline bool isfinite(Counted a) { return std::isfinite(a.x); }
 using std::sin; using std::cos; using std::sqrt; using std::fabs; using std::log;
 using std::exp; using std::pow; using std::isfinite; using std::atan; using std::atan2;
-using std::tan; using std::tanh;
+using std::tan; using std::tanh; using std::sinh; using std::cosh; using std::asin; using std::acos;
+using std::floor;
 """
 
 _HARNESS = r"""
@@ -359,6 +365,7 @@ def _generic_cases(m):
     """(name, geometry, tracer keywords) of chip_smoke.py's generic
     geometries (`THICK_KINDS`), as the docs build them."""
     from gradus_tpu_torch import geometry as G
+    from gradus_tpu_torch.metrics import JohannsenMetric
 
     cpu = dict(device="cpu")
     ellipse = G.EllipticalDisc(0.0, 100.0, 60.0, **cpu)
@@ -378,6 +385,7 @@ def _generic_cases(m):
         ("composite6", composite6, {}),
         ("doughnut", G.PolishDoughnut(**cpu), {}),
         ("doughnut_kerr", G.PolishDoughnut(metric=m), {}),
+        ("doughnut_johannsen", G.PolishDoughnut(metric=JohannsenMetric(float(m.M), float(m.a), **cpu)), {}),
     )
 
 

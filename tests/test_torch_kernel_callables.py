@@ -102,6 +102,14 @@ CROSS_SECTIONS = {
         + 2.0 ** (-rho / 10.0)
         + rho ** (rho / 100.0),
     ),
+    # the ops the reference's kernel was found to take beside those (floor
+    # and sign carry no tangent; sign's kink at 8)
+    "more_functions": (
+        lambda rho: torch.sinh(rho / 50.0) * torch.cosh(rho / 40.0) + torch.asin(rho / 100.0) - torch.acos(rho / 120.0)
+        + torch.floor(rho / 7.0) * torch.sign(rho - 8.0),
+        lambda rho: jnp.sinh(rho / 50.0) * jnp.cosh(rho / 40.0) + jnp.arcsin(rho / 100.0) - jnp.arccos(rho / 120.0)
+        + jnp.floor(rho / 7.0) * jnp.sign(rho - 8.0),
+    ),
 }
 # ordinary points and the kinks (6, 8, 10, 12, 15), each with tangents of
 # both signs
@@ -283,7 +291,7 @@ def test_composite_block_of_any_part_count():
 _TABLE = torch.linspace(0.0, 1.0, 11, dtype=torch.float64)
 _C0 = torch.tensor(10.0, dtype=torch.float64)
 REFUSED = {
-    "unsupported_op": (lambda rho: torch.floor(rho) - 10.0, NotImplementedError, "floor"),
+    "unsupported_op": (lambda rho: torch.erf(rho) - 10.0, NotImplementedError, "erf"),
     "math_sin": (lambda rho: 2.0 * math.sin(rho / 10.0), NotImplementedError, "math.sin"),
     "python_branch": (lambda rho: rho - 10.0 if rho > 3.0 else -rho, NotImplementedError, "branch"),
     "captured_scalar": (lambda rho: rho - _C0, ValueError, r"captures constants \['f64\[\]'\]"),

@@ -216,9 +216,11 @@ def test_composite_steps_match_pallas_kernel(rays):
 def test_geometries_neither_kernel_takes(rays):
     """The reference's Pallas kernel refuses arrays in a geometry (a
     per-ray DatumPlane, PolishDoughnutFW's isobar); the port's CUDA kernel
-    refuses those, a composite of no part and a doughnut of another metric
-    class (`_check_kernel_config`, which needs no card). A composite of any
-    number of parts it takes, as the reference's kernel does."""
+    refuses those and a composite of no part (`_check_kernel_config`,
+    which needs no card). A composite of any number of parts, and a
+    doughnut of another metric class than the rays' (its isobars in that
+    class, as the reference's kernel evaluates that metric's components),
+    it takes, as the reference's kernel does."""
     jm = JaxKerr(M=1.0, a=0.998)
     x = jnp.asarray(X_OBS)
     # 128 rays: one row of the Pallas kernel's tile, as wide as the heights
@@ -232,11 +234,11 @@ def test_geometries_neither_kernel_takes(rays):
         G.DatumPlane([0.0] * 8, **cpu),
         G.PolishDoughnutFW(rs, rs - 6.0, **cpu),
         G.CompositeGeometry([]),
-        G.PolishDoughnut(metric=JohannsenMetric(1.0, 0.998, **cpu)),  # not the traced metric's class
     ):
         with pytest.raises(NotImplementedError):
             _check_kernel_config(rays["m"], g, torch.float64)
     _check_kernel_config(rays["m"], G.CompositeGeometry([G.ThinDisc(**cpu)] * 5), torch.float64)
+    _check_kernel_config(rays["m"], G.PolishDoughnut(metric=JohannsenMetric(1.0, 0.998, **cpu)), torch.float64)
 
 
 def test_indicator_tangents_at_kinks_are_the_reference_s():

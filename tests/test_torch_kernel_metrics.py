@@ -17,7 +17,9 @@ against the JAX package in f64:
   metrics), held as tests/test_torch_kernel_callables.py holds its cases;
   and the plain version against the same arrays;
 - the refusals, which happen before any build or launch, the parameter
-  slots and the build key.
+  slots, the parameters baked into the unit as literals (a branch on a
+  parameter, the parameters past the slots), a PolishDoughnut of another
+  metric class than the rays', and the build key.
 
 The kernel itself is held to its plain version on the card by
 tests/test_torch_cuda_kernel.py and chip_smoke.py.
@@ -51,14 +53,13 @@ from gradus_tpu_torch.integrate.cuda_solver import (  # noqa: E402
     _polish_plain,
     integrate_rays_plain,
 )
-from gradus_tpu_torch.interop import geometry_from_numpy  # noqa: E402
-from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
+from gradus_tpu_torch.metrics import JohannsenMetric, KerrMetric  # noqa: E402
 from gradus_tpu_torch.metrics import codegen as metric_codegen  # noqa: E402
 from gradus_tpu_torch.metrics.base import AbstractMetric  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
-from torch_traced_metric_reference import JP, jax_metric, torch_metric  # noqa: E402
+from torch_traced_metric_reference import BRANCH, JP, SERIES, jax_metric, torch_geometry, torch_metric  # noqa: E402
 
 REFERENCE = np.load(ROOT / "tests" / "data" / "traced_metric_reference.npz")
 SPECS = json.loads(str(REFERENCE["specs"]))
@@ -77,11 +78,45 @@ class KerrSubclass(KerrMetric):
 
 # --- the generated class against jax.jvp ----------------------------------------------
 
+def _more_functions5(xp, M, r, theta):
+    """Schwarzschild's components perturbed by the ops the reference's kernel
+    was found to take beside the cross-sections' first ones (floor and sign
+    carry no tangent; sign's kink at θ = 1), over ``xp``."""
+    tt = -(1.0 - 2.0 * M / r) + 1e-3 * (xp.sinh(1.0 / r) + xp.cosh(theta) + xp.floor(r / 7.0) + xp.sign(theta - 1.0))
+    rr = 1.0 / (1.0 - 2.0 * M / r) + 1e-3 * xp.arcsin(1.0 / r)
+    pp = r * r * xp.sin(theta) ** 2 * (1.0 + 1e-3 * xp.arccos(0.5 * xp.cos(theta)))
+    return (tt, rr, r * r, pp, xp.zeros_like(r))
+
+
+class MoreFunctions(AbstractMetric):
+    def __init__(self):
+        super().__init__()
+        self._register_params(torch.float64, "cpu", M=1.0)
+
+    def components5(self, r, theta):
+        return _more_functions5(torch, self.M, r, theta)
+
+
+def _jax_more_functions():
+    from gradus_tpu.metrics.base import AbstractMetric as JaxMetric
+    from gradus_tpu.metrics.base import metric_dataclass
+
+    @metric_dataclass
+    class MoreFunctions(JaxMetric):
+        M: float = 1.0
+
+        def components5(self, r, theta):
+            return _more_functions5(jnp, self.M, r, theta)
+
+    return MoreFunctions()
+
+
 # name: (the torch metric, the JAX package's)
 METRICS = {
     "eddington_finkelstein": (lambda: torch_metric(EF, **CPU), lambda: jax_metric(EF)),
     "user_johannsen_psaltis": (lambda: torch_metric(USER_JP, **CPU), lambda: jax_metric(USER_JP)),
     "kerr_subclass": (lambda: KerrSubclass(1.0, 0.9, **CPU), lambda: JaxKerr(M=1.0, a=0.9)),
+    "more_functions": (MoreFunctions, _jax_more_functions),
 }
 # from the horizon's neighbourhood to the far field, at both poles' sides
 R = np.array([2.5, 3.0, 4.2, 6.0, 10.0, 30.0, 100.0, 1000.0])
@@ -175,7 +210,7 @@ def _case(case):
     """(the torch metric, its geometry, the rays' x and v)."""
     spec = SPECS[case]
     m = torch_metric(spec["metric"], **CPU)
-    geometry = geometry_from_numpy(*spec["geometry"], **CPU)
+    geometry = torch_geometry(spec["geometry"], **CPU)
     x = torch.tensor(X_OBS, dtype=torch.float64)
     v = map_impact_parameters(m, x, torch.as_tensor(REFERENCE["alpha"]), torch.as_tensor(REFERENCE["beta"]))
     return m, geometry, x.expand_as(v), v
@@ -214,7 +249,13 @@ def _held(case, gp, gp20):
 # The rays whose hit at the defaults is not the reference batch's: the
 # reference's dt fault moves its hit off the surface (ROADMAP C;
 # tests/test_torch_kernel_geometries.py)
-OFF_BATCH = {"ef_thin": [], "jp_thin": [], "jp_shakura_sunyaev": []}
+OFF_BATCH = {
+    **{case: [] for case in SPECS},
+    "kerr_johannsen_doughnut": [11, 25, 26, 58],
+    "kerr_ef_doughnut": [11, 25, 26, 58],
+    "ef_johannsen_doughnut": [26, 41, 57, 60],
+    "jp_ef_doughnut": [25],
+}
 
 
 @pytest.mark.parametrize("case", sorted(SPECS))
@@ -288,9 +329,36 @@ def test_traced_metric_takes_every_geometry():
     assert "generated::CrossSections" in warped.source and metric_codegen.traced_metric(m).source in warped.source
     block = cuda_solver._geometry_args(G.PolishDoughnut(metric=m))[4]
     assert block[2 + 2 + 7 : 2 + 2 + 15] == [1.0, 1.0, 0.6, 2.0, 0.0, 0.0, 0.0, 0.0]
-    other = torch_metric(EF, **CPU)
-    with pytest.raises(NotImplementedError, match="PolishDoughnut"):
+
+
+def test_doughnut_of_another_metric_class():
+    """A PolishDoughnut whose metric is of another class than the rays'
+    (or traces to another text) is taken, as the reference's kernel takes
+    it (it evaluates that metric's own components): its isobars read that
+    class, a library metric's or the traced metric's under a name of its
+    own, selected by the part index; with the rays' own class the
+    library's kernels (or the traced unit) run as before."""
+    kerr, ef, jp = KerrMetric(1.0, 0.998, **CPU), torch_metric(EF, **CPU), torch_metric(USER_JP, **CPU)
+    for m, other, cls in (
+        (kerr, JohannsenMetric(1.0, 0.998, **CPU), "gradus::doughnut_h<DualRhs<Johannsen>>"),
+        (kerr, ef, "gradus::doughnut_h<DualRhs<gradus::generated::Doughnut0>>"),
+        (ef, JohannsenMetric(1.0, 0.998, **CPU), "gradus::doughnut_h<DualRhs<Johannsen>>"),
+        (jp, ef, "gradus::doughnut_h<DualRhs<gradus::generated::Doughnut0>>"),
+    ):
         _check_kernel_config(m, G.PolishDoughnut(metric=other), torch.float64)
+        unit = cuda_solver._kernel_unit(m, G.PolishDoughnut(metric=other), torch.float64)
+        assert f"case 0: return {cls}(v, rho);" in unit.source and "kDoughnuts = true" in unit.source
+    # the same class: the library's kernel, or the traced metric's one unit
+    assert cuda_solver._kernel_unit(kerr, G.PolishDoughnut(metric=KerrMetric(1.0, 0.5, **CPU)), torch.float64) is None
+    assert "kDoughnuts" not in cuda_solver._kernel_unit(jp, G.PolishDoughnut(metric=torch_metric(USER_JP, **CPU)), torch.float64).source
+    # one class a part: the composite's second part and a precessed third
+    composite = G.CompositeGeometry(
+        [G.ThinDisc(0.0, 5.0, **CPU), G.PolishDoughnut(metric=ef), G.PrecessingDisc(G.PolishDoughnut(metric=JohannsenMetric(**CPU)), 0.1, 0.2, **CPU)]
+    )
+    source = cuda_solver._kernel_unit(kerr, composite, torch.float32).source
+    assert "case 1: return gradus::doughnut_h<DualRhs<gradus::generated::Doughnut1>>(v, rho);" in source
+    assert "case 2: return gradus::doughnut_h<DualRhs<Johannsen>>(v, rho);" in source
+    assert "launch_callable<float, gradus::Kerr, gradus::generated::CrossSections, 0>" in source
 
 
 class _Branch(KerrMetric):
@@ -302,13 +370,30 @@ class _Branch(KerrMetric):
     components5_jac = AbstractMetric.components5_jac
 
 
+class _BranchOnR(AbstractMetric):
+    def __init__(self):
+        super().__init__()
+        self._register_params(torch.float64, "cpu", M=1.0)
+
+    def components5(self, r, theta):
+        if (r > 3.0).all():
+            return (-(1.0 - 2.0 * self.M / r), 1.0, r * r, r * r, 0.0)
+        return (-1.0, 1.0, r * r, r * r, 0.0)
+
+
+class _BranchOnTheta(_BranchOnR):
+    def components5(self, r, theta):
+        s = torch.sin(theta) if (theta < 1.0).all() else torch.cos(theta)
+        return (-(1.0 - 2.0 * self.M / r), 1.0, r * r, (r * s) ** 2, 0.0)
+
+
 class _OffList(AbstractMetric):
     def __init__(self):
         super().__init__()
         self._register_params(torch.float64, "cpu", M=1.0)
 
     def components5(self, r, theta):
-        return (-(1.0 - 2.0 * self.M / r), torch.floor(r), r * r, r * r, 0.0)
+        return (-(1.0 - 2.0 * self.M / r), torch.erf(r), r * r, r * r, 0.0)
 
 
 class _Table(AbstractMetric):
@@ -344,10 +429,10 @@ class _NoComponents(AbstractMetric):
 
 
 REFUSED = {
-    "branch_on_a_parameter": (_Branch, NotImplementedError, "a Python branch on a"),
-    "op_off_the_whitelist": (_OffList, NotImplementedError, "floor"),
+    "branch_on_r": (_BranchOnR, NotImplementedError, "a Python branch on r "),
+    "op_off_the_whitelist": (_OffList, NotImplementedError, "erf"),
     "non_0d_parameter": (_Table, ValueError, r"parameter table is f64\[11\]"),
-    "too_many_parameters": (_TooMany, NotImplementedError, "holds 5 parameters of a metric besides M and a, not 6"),
+    "branch_on_theta": (_BranchOnTheta, NotImplementedError, "a Python branch on th "),
     "captured_tensor": (_Captured, ValueError, "captures tensors"),
     "no_components5": (_NoComponents, NotImplementedError, "defines no components5"),
 }
@@ -355,21 +440,45 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refusals_before_any_build_or_launch(monkeypatch, name):
-    """A Python branch on a parameter (named), an op off the whitelist and
-    more parameters than the slots raise NotImplementedError; a parameter
-    that is not 0-d and a captured tensor ValueError — from
-    `_check_kernel_config` and from the launch, before any nvcc or g++ run
-    or launch."""
+    """A Python branch on r or θ (named) and an op off the whitelist raise
+    NotImplementedError; a parameter that is not 0-d and a captured tensor
+    ValueError — from `_check_kernel_config` and from the launch, before
+    any nvcc or g++ run or launch. (A branch on a parameter, and more
+    parameters than the slots, the reference takes: they are literals,
+    `test_parameters_read_as_numbers_are_literals`.)"""
     cls, error, match = REFUSED[name]
     monkeypatch.setattr(_build, "_run_nvcc", lambda *a, **k: pytest.fail("nvcc ran"))
     monkeypatch.setattr(opcount, "_gxx", lambda *a, **k: pytest.fail("g++ ran"))
-    m = cls(1.0, 0.5, **CPU) if cls is _Branch else cls()
+    m = cls()
     with pytest.raises(error, match=match):
         _check_kernel_config(m, G.ThinDisc(**CPU), torch.float64)
     before = cuda_solver.KERNEL_LAUNCHES
     with pytest.raises(error, match=match):
         _launch_kernel(m, torch.zeros(4, 8, dtype=torch.float64), SPAN, None, {})
     assert cuda_solver.KERNEL_LAUNCHES == before
+
+
+def test_parameters_read_as_numbers_are_literals():
+    """A parameter a Python branch reads, and the parameters past the
+    `Q_SLOTS` slots (in registration order), are literals of the unit, as
+    the reference bakes every parameter (`PallasTracer._concretize`): the
+    slots mark them with their text, `metric_slots` passes nothing for
+    them, and a new value of one traces the metric again (the cache holds
+    a metric while its literals keep their values)."""
+    branch = _Branch(1.0, 0.5, **CPU)
+    traced = metric_codegen.traced_metric(branch)
+    assert traced.slots == (("M", "p.M"), ("a", "T(0.5)")) and traced.literals == (("a", "T(0.5)"),)
+    assert _metric_args(branch)[1:3] == (1.0, 0.0)
+    assert metric_codegen.traced_metric(branch) is traced
+    branch.a.fill_(0.0)
+    again = metric_codegen.traced_metric(branch)
+    assert again is not traced and again.slots == (("M", "p.M"), ("a", "T(0.0)"))
+    many = _TooMany()
+    traced = metric_codegen.traced_metric(many)
+    assert traced.slots == (("M", "p.M"),) + tuple((f"p{k}", f"p.q[{k}]") for k in range(5)) + (("p5", "T(0.5)"),)
+    assert list(_metric_args(many)[3]) == [0.0, 0.1, 0.2, 0.30000000000000004, 0.4]
+    assert "const T v" in traced.source and "T(0.5)" in traced.source
+    _check_kernel_config(many, G.ThinDisc(**CPU), torch.float64)
 
 
 def test_build_key():
@@ -391,14 +500,26 @@ def test_build_key():
             return (tt, -1.0 / tt, r * r, r * r * torch.sin(theta) ** 2, torch.zeros_like(r))
 
     assert key(Scaled(**CPU)) != key(ef1) and "T(2.5)" in cuda_solver._kernel_unit(Scaled(**CPU), None, torch.float64).source
+    # a slot parameter shares the unit; a literal one (read by a branch, or
+    # past the slots) makes a new unit a value
+    series = [torch_metric(("JohannsenSeries", {**SERIES, **change}), **CPU) for change in ({}, {"alpha13": 0.3}, {"alpha53": 0.07})]
+    assert key(series[0]) == key(series[1]) and key(series[0]) != key(series[2])
+    branch = [torch_metric(("BranchingMetric", {**BRANCH, **change}), **CPU) for change in ({}, {"a": 0.7}, {"s": 1.0}, {"s": 2.0})]
+    assert key(branch[0]) == key(branch[1]) and len({key(b) for b in branch[1:]}) == 3
 
 
 def test_chip_smoke_metrics_are_the_references():
-    """chip_smoke.py writes its two user metrics itself: their generated
+    """chip_smoke.py writes its user metrics itself: their generated
     classes are this module's, so the reference's arrays and the counts of
     `scripts/torch_traced_metric_reference.py --opcount` hold for them."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
-    for mine, spec in ((chip_smoke.EddingtonFinkelsteinAD(**CPU), EF), (chip_smoke.UserJohannsenPsaltis(**JP, **CPU), USER_JP)):
+    for mine, spec in (
+        (chip_smoke.EddingtonFinkelsteinAD(**CPU), EF),
+        (chip_smoke.UserJohannsenPsaltis(**JP, **CPU), USER_JP),
+        (chip_smoke.BranchingMetric(**BRANCH, s=0.0, **CPU), SPECS["branch_s0"]["metric"]),
+        (chip_smoke.BranchingMetric(**BRANCH, s=1.0, **CPU), SPECS["branch_s1"]["metric"]),
+        (chip_smoke.JohannsenSeries(**SERIES, **CPU), SPECS["johannsen_series"]["metric"]),
+    ):
         assert metric_codegen.traced_metric(mine).source == metric_codegen.traced_metric(torch_metric(spec, **CPU)).source
