@@ -80,7 +80,12 @@ through their entry points, none of which may call the plain-torch polish:
   (`trace_geodesics(..., v_dot=...)`) against a central difference; `render_api` runs the render goldens and the 1024² flagship
   redshift render through `rendergeodesics`; `binning_api` runs
   `lineprofile(..., method=BinningMethod())` at `bench_binning`'s
-  configuration and at the transfer-function profile's;
+  configuration and at the transfer-function profile's; `compacted`
+  traces the render's 1024² rays once more through `CompactedIntegrator`
+  (the working set gathered into narrower widths as the rays end, one
+  captured graph a width), twice, held to the render's endpoints, and
+  the `Tracer`'s lockstep route on 8,192 f64 rays with `terminate_fns`
+  against `trace_geodesics`, bit for bit;
 - the lamp-post corona and the reverberation lags, f64, through their entry
   points (plain torch on the card, the transfer functions through the
   kernel): `emissivity` (the δ sweep and the Monte-Carlo profile),
@@ -131,7 +136,7 @@ through their entry points, none of which may call the plain-torch polish:
   why not f32).
 The phases from the lags on (but the special traces' card work), with
 `kernel_vs_plain` and `trace_api`, run in worker processes (`WORKERS`)
-beside the main one's `render_api` and `binning_api`, after the phases
+beside the main one's `render_api`, `compacted` and `binning_api`, after the phases
 that time kernels and the special traces' card work. (The workers share the card: captured loops from two
 processes take turns on it.)
 
@@ -168,6 +173,7 @@ import numpy as np
 import torch
 
 from gradus_tpu_torch import _build
+from gradus_tpu_torch.config import default_tols
 from gradus_tpu_torch.camera import (
     ConstPointFunctions,
     GeometricGrid,
@@ -193,7 +199,7 @@ from gradus_tpu_torch.geometry import (
     ThinDisc,
     WarpedThinDisc,
 )
-from gradus_tpu_torch.integrate import StatusCodes, cuda_solver
+from gradus_tpu_torch.integrate import CompactedIntegrator, StatusCodes, Tracer, cuda_solver
 from gradus_tpu_torch.integrate.cuda_solver import (
     CudaTracer,
     cuda_integrate_rays,
@@ -204,6 +210,7 @@ from gradus_tpu_torch.integrate import solver as lockstep_solver
 from gradus_tpu_torch.integrate.solver import _Problem
 from gradus_tpu_torch.integrate.tracing import (
     PoloidalShape,
+    domain_upper_hemisphere,
     event_horizon_chart,
     make_geodesic_rhs,
     trace_geodesics,
@@ -252,6 +259,7 @@ reverberation = importlib.import_module("gradus_tpu_torch.reverberation")
 extended_module = importlib.import_module("gradus_tpu_torch.corona.extended")
 adaptive_module = importlib.import_module("gradus_tpu_torch.corona.adaptive")
 targets_module = importlib.import_module("gradus_tpu_torch.transfer.targets")
+tracing_module = importlib.import_module("gradus_tpu_torch.integrate.tracing")
 
 SPAN = (0.0, 2200.0)
 X_OBS = [0.0, 1000.0, math.radians(75.0), 0.0]
@@ -2758,7 +2766,8 @@ def phase_render_api(dev, side=1024):
     ≥ 0.995 alike, median relative g ≤ 1e-4, no unfinished ray. The render
     is `prerendergeodesics` and `apply`, which is `rendergeodesics`, so that
     its points can be read; its busy share is profiled over 64 lockstep
-    iterations from the 256th."""
+    iterations from the 256th. Returns the phase's numbers and the
+    render's `IntegrationResult` (for `phase_compacted`)."""
     goldens = {}
     x = torch.tensor(GOLDEN_X_OBS, dtype=torch.float64, device=dev)
     kerr = KerrMetric(1.0, 0.0, device=dev)
@@ -2782,7 +2791,7 @@ def phase_render_api(dev, side=1024):
     rendergeodesics(m, x, d, SPAN[1], pf=pf, image_width=32, image_height=32, **camera)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with _NoKernelRoute(), _Lockstep(window=64) as steps:
+    with _NoKernelRoute(), _Lockstep(window=64) as steps, _KeepResults() as kept:
         (_, _, cache), seconds = _trace_seconds(
             lambda: prerendergeodesics(m, x, d, SPAN[1], image_width=side, image_height=side, **camera)
         )
@@ -2817,6 +2826,169 @@ def phase_render_api(dev, side=1024):
     if res["hit_mask_agree"] < 0.995 or not res["g_median_rel"] <= 1e-4 or unfinished:
         raise AssertionError(f"rendergeodesics against CudaTracer: {res}")
     _say("render_api", **res)
+    (rendered,) = kept.results
+    return res, rendered
+
+
+class _KeepResults:
+    """Keeps the `IntegrationResult`s of the traces that `trace_geodesics`
+    runs while it is entered."""
+
+    def __enter__(self):
+        self.results, self._fn = [], tracing_module.integrate_rays
+
+        def keeping(*args, **kw):
+            self.results.append(self._fn(*args, **kw))
+            return self.results[-1]
+
+        tracing_module.integrate_rays = keeping
+        return self
+
+    def __exit__(self, *exc):
+        tracing_module.integrate_rays = self._fn
+
+
+def _row_rel(a, b):
+    """Each row's largest |a − b| over its largest |b|."""
+    if a.dim() == 1:
+        a, b = a[:, None], b[:, None]
+    return (a - b).abs().amax(-1) / b.abs().amax(-1).clamp(min=1e-30)
+
+
+COMPACTED_RTOL = 1e-6  # f32: the float fields, where they are not bit for bit
+
+
+def _compacted_call(integrator, y0, rendered):
+    """One call of ``integrator`` on ``y0``: its seconds, captures (width,
+    seconds, reserved bytes), replays, peak bytes, ``last_stats`` and lane
+    steps, and its result against ``rendered``: statuses, steps and
+    failures identical, y and λ bit for bit or, if not, the rays that
+    differ and their largest relative gap (`_row_rel`)."""
+    captures = []
+
+    def observer(event, **info):
+        if event == "capture":
+            captures.append(dict(width=info["width"], seconds=info["seconds"], reserved_bytes=info["reserved_bytes"]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _NoKernelRoute(), _Lockstep() as steps, lockstep_solver.observe_loops(observer):
+        res, seconds = _trace_seconds(lambda: integrator(y0, SPAN))
+    stats = integrator.last_stats
+    out = dict(
+        seconds=seconds,
+        captures=captures,
+        replays=steps.graph["replays"],
+        iterations=steps.iters,
+        peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+        last_stats=[list(s) for s in stats],
+        widths=sorted({w for w, _, _ in stats}, reverse=True),
+        executed_iterations=sum(it for _, it, _ in stats),
+        executed_lane_steps=sum(w * it for w, it, _ in stats),
+    )
+    if steps.iters != steps.graph["replays"] or not steps.graph["replays"]:
+        raise AssertionError(f"compacted: the loop did not run captured: {steps.graph}, {steps.iters} iterations")
+    for f in ("status", "steps", "failed"):
+        n = int((getattr(res, f) != getattr(rendered, f)).sum())
+        if n:
+            raise AssertionError(f"compacted: {f} differs from the render's on {n} rays: {out}")
+    for f in ("y", "lam"):
+        a, b = getattr(res, f), getattr(rendered, f)
+        rows = (a != b) if a.dim() == 1 else (a != b).any(-1)
+        rel = _row_rel(a, b)
+        out[f] = dict(bit_for_bit=bool(torch.equal(a, b)), rays_differ=int(rows.sum()), max_rel=float(rel.max()))
+        if not out[f]["max_rel"] <= COMPACTED_RTOL:
+            raise AssertionError(f"compacted: {f} off the render's beyond {COMPACTED_RTOL}: {out}")
+    return out
+
+
+def _tracer_lockstep_route(dev, n):
+    """`Tracer` with ``terminate_fns`` (so its `CompactedIntegrator` route)
+    on ``n`` f64 flagship rays, ``min_bucket`` n / 16 (512 at 8,192), against
+    `trace_geodesics` with the same arguments: statuses and endpoints bit
+    for bit."""
+    m, d, x = _flagship(torch.float64, dev)
+    rng = np.random.default_rng(43)
+    A = torch.as_tensor(rng.uniform(-28.0, 28.0, n), device=dev)
+    B = torch.as_tensor(rng.uniform(-18.0, 18.0, n), device=dev)
+    v = map_impact_parameters(m, x, A, B)
+    xs = x.expand_as(v)
+    upper = (domain_upper_hemisphere(),)
+    events = []
+    tracer = Tracer(m, geometry=d, terminate_fns=upper, min_bucket=n // 16, progress=events.append)
+    with _NoKernelRoute(), _Lockstep() as steps:
+        got, seconds = _trace_seconds(lambda: tracer(xs, v, SPAN))
+    with _NoKernelRoute(), _Lockstep() as want_steps:
+        want, want_seconds = _trace_seconds(lambda: trace_geodesics(m, xs, v, SPAN, geometry=d, terminate_fns=upper))
+    _require_captured("compacted tracer", steps)
+    _require_captured("compacted tracer's reference", want_steps)
+    same = {f: bool(torch.equal(getattr(got, f), getattr(want, f))) for f in ("status", "x", "v", "lam_max")}
+    res = dict(
+        rays=n,
+        bit_for_bit=all(same.values()),
+        fields=same,
+        widths=[e["width"] for e in events],
+        executed_iters=events[-1]["executed_iters"],
+        seconds=seconds,
+        captures=steps.graph["captures"],
+        trace_geodesics_seconds=want_seconds,
+        trace_geodesics_iterations=want_steps.iters,
+        out_of_domain=int((got.status == StatusCodes.OutOfDomain).sum()),
+        hits=int((got.status == HIT).sum()),
+    )
+    if not res["bit_for_bit"] or events[-1]["alive"] or len(set(res["widths"])) < 2 or res["out_of_domain"] < n // 100:
+        raise AssertionError(f"Tracer's lockstep route against trace_geodesics: {res}")
+    return res
+
+
+def phase_compacted(dev, render, rendered, n_tracer=8192, min_bucket=8192):
+    """`CompactedIntegrator` on the card at full size: the rays that
+    `phase_render_api` traced (the 1024² f32 flagship, ``rendered`` its
+    `IntegrationResult`) through the render's right-hand side, disc events,
+    chart and tolerances, at the default segments (``segment_iters=96``,
+    ``min_bucket=8192``): the working set narrows from 1,048,576 rays by
+    powers of 4 as they end, one CUDA graph captured a width. Called twice;
+    the second call captures nothing. Each call's statuses, steps and
+    failures must be the render's; its y and λ are bit for bit the render's
+    or, if the card's arithmetic parts by width, within ``COMPACTED_RTOL``
+    a ray, and the phase says which. Prints ``last_stats``, the captures,
+    the seconds against the render's ``trace_seconds`` and the lane steps
+    the loop executed against the render's (its rays × its iterations).
+    Then the `Tracer`'s lockstep route (`_tracer_lockstep_route`)."""
+    dtype = rendered.y0.dtype
+    m, d, _ = _flagship(dtype, dev)
+    a_tol, r_tol = default_tols(dtype)
+    integrator = CompactedIntegrator(
+        make_geodesic_rhs(m),
+        abstol=a_tol,
+        reltol=r_tol,
+        r_inner=m.inner_radius() * 1.01,
+        r_outer=12000.0,
+        crossing_fn=lambda y: d.crossing_indicator(y[..., 0:4]),
+        hit_fn=lambda y: d.is_hit(y[..., 0:4], gtol=1e-2),
+        min_bucket=min_bucket,
+    )
+    n = rendered.y0.shape[0]
+    calls = [_compacted_call(integrator, rendered.y0, rendered) for _ in range(2)]
+    first, second = calls
+    res = dict(
+        rays=n,
+        calls=calls,
+        widths=first["widths"],
+        render_trace_seconds=render["trace_seconds"],
+        render_iterations=render["iterations"],
+        render_lane_steps=n * render["iterations"],
+        full_width_lane_steps=n * first["executed_iterations"],
+        lane_step_share=first["executed_lane_steps"] / (n * render["iterations"]),
+        bit_for_bit=all(c[f]["bit_for_bit"] for c in calls for f in ("y", "lam")),
+        tracer=_tracer_lockstep_route(dev, n_tracer) if n_tracer else None,
+    )
+    del integrator
+    if len(first["widths"]) < 3 or len(first["captures"]) != len(first["widths"]) or second["captures"]:
+        raise AssertionError(f"compacted: the widths and their captures: {res}")
+    if second["last_stats"] != first["last_stats"]:
+        raise AssertionError(f"compacted: a second call ran other segments: {res}")
+    _say("compacted", **res)
     return res
 
 
@@ -5255,7 +5427,9 @@ def main():
     t_workers = time.perf_counter()
     procs = _start_workers()
     try:
-        render_api = timed_phase("render_api", phase_render_api, dev)
+        render_api, render_result = timed_phase("render_api", phase_render_api, dev)
+        compacted = timed_phase("compacted", phase_compacted, dev, render_api, render_result)
+        del render_result
         binning_api = timed_phase("binning_api", phase_binning_api, dev, ctf_flux)
         lags, worker_seconds = _join_workers(procs, timeout=1150.0 - (time.perf_counter() - t_start))
         checks, trace_api = lags["kernel_vs_plain"], lags["trace_api"]
@@ -5299,6 +5473,20 @@ def main():
                             "graph",
                             "peak_allocated_bytes",
                         )
+                    },
+                    "compacted": {
+                        "source": "gradus_tpu_torch/integrate/solver.py::CompactedIntegrator",
+                        "reference": "gradus_tpu/integrate/solver.py:642",
+                        "cuda_graphs": "one loop body captured a working-set width, replayed an iteration",
+                        "widths": compacted["widths"],
+                        "bit_for_bit": compacted["bit_for_bit"],
+                        **{
+                            f"call{k}": {f: c[f] for f in ("seconds", "captures", "last_stats", "executed_lane_steps", "peak_allocated_bytes")}
+                            for k, c in enumerate(compacted["calls"], 1)
+                        },
+                        "render_trace_seconds": compacted["render_trace_seconds"],
+                        "render_lane_steps": compacted["render_lane_steps"],
+                        "tracer": compacted["tracer"],
                     },
                     "binned_profile": {
                         k: binning_api[k] for k in ("rays", "seconds_per_profile", "iterations", "ms_per_iteration")

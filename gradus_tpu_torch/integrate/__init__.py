@@ -5,12 +5,14 @@ from gradus_tpu_torch.integrate.cuda_solver import (
 )
 from gradus_tpu_torch.integrate.points import GeodesicPoint, unpack_solution
 from gradus_tpu_torch.integrate.solver import (
+    CompactedIntegrator,
     IntegrationResult,
     cuda_graphs,
     integrate_rays,
     integrate_rays_checkpointed,
 )
 from gradus_tpu_torch.integrate.status import StatusCodes
+from gradus_tpu_torch.integrate.tsit5 import TSIT5_C
 from gradus_tpu_torch.integrate.tracing import (
     PoloidalShape,
     TraceGeodesic,

@@ -70,6 +70,7 @@ from gradus_tpu_torch.integrate.solver import (
     _QMAX_FACTOR,
     _QMIN_FACTOR,
     _QOLD_INIT,
+    _next_bucket,
     _polish_hits,
     _run_loop,
 )
@@ -957,8 +958,8 @@ class CudaTracer:
         flight where the last stopped: bit for bit one pass. A pass keeps
         its width (a finished ray's thread exits at once) until the least
         bucket of ``min_bucket`` · 4^k rays that holds the survivors is
-        narrower: then they resume alone, gathered (the reference
-        `CompactedIntegrator`'s rule). ``progress``, if given, is called
+        narrower: then they resume alone, gathered (the rule of
+        `solver.CompactedIntegrator`, `solver._next_bucket`). ``progress``, if given, is called
         after each pass with a dict of ``segment``, ``width`` (the rays
         the pass ran), ``executed_iters`` (loop iterations so far),
         ``alive`` (rays still in flight) and ``total``."""
@@ -1027,12 +1028,3 @@ class CudaTracer:
         y0 = self._constrain(x, v) if constrain else torch.cat([x, v], dim=-1)
         gp, self.last_aux = self.trace(y0, lam_span, **passes)
         return gp
-
-
-def _next_bucket(n: int, min_bucket: int) -> int:
-    """Smallest power-of-4 multiple of ``min_bucket`` that is ≥ n
-    (reference `solver._next_bucket`)."""
-    b = min_bucket
-    while b < n:
-        b *= 4
-    return b

@@ -47,6 +47,10 @@ replay. Reverse mode goes through `integrate_rays_checkpointed`, the
 segment ladder, whose backward on the card replays a captured graph of one
 body's vjp.
 
+`CompactedIntegrator` runs the same loop body in segments and, between
+them, gathers the rays still alive into a narrower working set (the
+reference's compaction); on a CUDA tensor one body is captured a width.
+
 Also here: the PI controller constants, the result record, and the Newton
 polish of the integrator kernel's hits in its output layout (`_polish_hits`).
 """
@@ -70,6 +74,7 @@ from gradus_tpu_torch.utils.interp import linear_interp
 from gradus_tpu_torch.utils.jvp import jvp
 
 __all__ = [
+    "CompactedIntegrator",
     "integrate_rays",
     "integrate_rays_checkpointed",
     "integrate_rays_lifted",
@@ -522,22 +527,41 @@ def _graph_of(warm_up, work, device, **info):
     return graph
 
 
-def _capture(step, static: dict):
+def _capture(step, static: dict, **info):
     """A CUDA graph of one iteration of ``step`` from the carry ``static``,
     ending with the new carry copied into ``static`` (the body is out of
-    place, so its warm-up changes no buffer)."""
+    place, so its warm-up changes no buffer). ``info`` goes with the
+    ``"capture"`` event."""
 
     def work():
         c = step(static)
         for k, buf in static.items():
             buf.copy_(c[k])
 
-    return _graph_of(lambda: step(static), work, static["alive"].device)
+    return _graph_of(lambda: step(static), work, static["alive"].device, **info)
 
 
 def _graphed(cf: dict) -> bool:
     """Whether the loop over carry ``cf`` replays a CUDA graph."""
     return cf["alive"].device.type == "cuda" and _CUDA_GRAPHS
+
+
+def _refuse_uncapturable(cf: dict):
+    """Raises if the carry ``cf`` of a captured loop is under a `torch.func`
+    transform or requires grad: a replay records neither."""
+    if any(_is_wrapped(v) for v in cf.values()):
+        raise RuntimeError(
+            "the lockstep loop on a CUDA tensor replays a CUDA graph, which cannot be captured "
+            "under a torch.func transform: pass the tangent explicitly (integrate_rays(..., "
+            "y0_dot=...), trace_geodesics(..., v_dot=...)), trace through trace_geodesics, which "
+            "lifts the transform into the loop, or run uncaptured within cuda_graphs(False)"
+        )
+    if torch.is_grad_enabled() and any(v.requires_grad for v in cf.values()):
+        raise RuntimeError(
+            "the lockstep loop on a CUDA tensor replays a CUDA graph, which autograd does not record: "
+            "for reverse mode trace with checkpointed=True (integrate_rays_checkpointed), whose "
+            "backward is captured too, or run uncaptured within cuda_graphs(False)"
+        )
 
 
 def _run_loop(step, cf: dict, max_steps: int):
@@ -546,20 +570,8 @@ def _run_loop(step, cf: dict, max_steps: int):
     within `cuda_graphs(False)`, each iteration is a replay of the captured
     body."""
     graphed = _graphed(cf)
-    if graphed and any(_is_wrapped(v) for v in cf.values()):
-        raise RuntimeError(
-            "the lockstep loop on a CUDA tensor replays a CUDA graph, which cannot be captured "
-            "under a torch.func transform: pass the tangent explicitly (integrate_rays(..., "
-            "y0_dot=...), trace_geodesics(..., v_dot=...)), trace through trace_geodesics, which "
-            "lifts the transform into the loop, or run uncaptured within cuda_graphs(False)"
-        )
-    if graphed and torch.is_grad_enabled() and any(v.requires_grad for v in cf.values()):
-        raise RuntimeError(
-            "the lockstep loop on a CUDA tensor replays a CUDA graph, which autograd does not record: "
-            "for reverse mode trace with checkpointed=True (integrate_rays_checkpointed), whose "
-            "backward is captured too, or run uncaptured within cuda_graphs(False)"
-        )
     if graphed:
+        _refuse_uncapturable(cf)
         # static buffers: the graph reads the carry from them and writes it back
         cf = {k: v.clone(memory_format=torch.contiguous_format) for k, v in cf.items()}
     _tell("loop", tangent=any(k.startswith(_DOT) for k in cf), graphed=graphed)
@@ -687,6 +699,227 @@ def integrate_rays(
     )
 
 
+# --- compacted execution ------------------------------------------------------
+
+# the per-ray fields of the result, flushed into the full-size output before
+# each compaction and at the end
+_OUT_KEYS = ("y", "lam", "status", "steps", "failed", "hit_y", "hit_k", "hit_dt", "hit_lam", "hit_theta")
+
+
+def _next_bucket(n: int, min_bucket: int) -> int:
+    """Smallest power-of-4 multiple of ``min_bucket`` that is ≥ n."""
+    b = min_bucket
+    while b < n:
+        b *= 4
+    return b
+
+
+def _segment_schedule(segment_iters: int, schedule):
+    """The segments' lengths before every later one has ``segment_iters``:
+    ``schedule``, or by default the reference's growing schedule, pairs of
+    ``segment_iters // 4`` (at least 8) doubling up to ``segment_iters``.
+    Short early segments let compaction trim the fast-dying bulk (disc hits
+    cluster at ~60 steps on the flagship render) before it occupies
+    full-width lanes; long late ones amortize the host's round trips over
+    the long-lived tail."""
+    if schedule is not None:
+        return tuple(schedule)
+    s, seq = max(segment_iters // 4, 8), []
+    while s < segment_iters:
+        seq.extend([s, s])
+        s *= 2
+    return tuple(seq) or (segment_iters,)
+
+
+class CompactedIntegrator:
+    """Host-driven segmented integration with alive-ray compaction
+    (counterpart of the reference's `CompactedIntegrator`).
+
+    The loop of `integrate_rays` runs in segments, of ``segment_schedule``'s
+    lengths and then ``segment_iters`` each: a segment runs while a ray is
+    alive and the loop has run fewer than ``min(its start + its length,
+    max_steps)`` iterations in which one was. After a segment, once the
+    least bucket of ``min_bucket`` · 4^k rays that holds the rays still
+    alive is narrower than the working set, the working set is flushed into
+    the full-size output and the alive rays, padded by dead ones in their
+    order, are gathered into a working set of the bucket's width. Each
+    ray's result is that of `integrate_rays` on the same batch (on the
+    CPU at widths that are multiples of 16: torch's vector loops run a
+    shorter tail through scalar functions, whose last bits differ).
+
+    On a CUDA tensor each width's loop body is captured once as a CUDA
+    graph with its own static carry, cached on the instance across calls
+    (a second call of the same size captures nothing), and replayed an
+    iteration; ``alive.any()`` is read every ``_ALIVE_CHECK_EVERY``
+    iterations, and the alive count and the iterations once a segment.
+    `cuda_graphs(False)` runs the loop uncaptured; a capture that fails
+    raises. Not differentiable: a carry on the card under a `torch.func`
+    transform, or one that requires grad, raises, as in `integrate_rays`.
+
+    ``progress``, if given, is called after each segment with a dict of
+    ``segment``, ``width``, ``executed_iters`` (loop iterations so far),
+    ``alive`` and ``total``. After a call, ``last_stats`` holds a
+    ``(width, executed iterations, alive after)`` triple a segment and
+    ``last_steps`` the result's ``steps``. The other keywords are those of
+    `integrate_rays`.
+    """
+
+    def __init__(
+        self,
+        f: Callable,
+        *,
+        abstol: float,
+        reltol: float,
+        r_inner,
+        r_outer,
+        crossing_fn: Callable | None = None,
+        hit_fn: Callable | None = None,
+        segment_fn: Callable | None = None,
+        terminate_fns: tuple = (),
+        max_steps: int = 40000,
+        n_interp: int = 8,
+        dt_min: float = 1e-10,
+        bisect_iters: int = 10,
+        newton_iters: int = 3,
+        terminate_on_hit: bool = True,
+        segment_iters: int = 96,
+        min_bucket: int = 8192,
+        event_method: str = "cubic",
+        segment_schedule: tuple | None = None,
+        progress=None,
+    ):
+        self.p = _Problem(
+            f=f,
+            abstol=abstol,
+            reltol=reltol,
+            r_inner=r_inner,
+            r_outer=r_outer,
+            crossing_fn=crossing_fn,
+            hit_fn=hit_fn,
+            segment_fn=segment_fn,
+            terminate_fns=terminate_fns,
+            max_steps=max_steps,
+            n_interp=n_interp,
+            dt_min=dt_min,
+            bisect_iters=bisect_iters,
+            newton_iters=newton_iters,
+            terminate_on_hit=terminate_on_hit,
+            n_save=0,
+            event_method=event_method,
+        )
+        self.segment_iters = segment_iters
+        self.min_bucket = min_bucket
+        self.segment_schedule = _segment_schedule(segment_iters, segment_schedule)
+        self.progress = progress
+        self._steps = {}  # (dtype, device) → the loop step
+        self._widths = {}  # (width, S, dtype, device) → [graph or None, static carry]
+
+    def _segment_len(self, k: int) -> int:
+        return self.segment_schedule[k] if k < len(self.segment_schedule) else self.segment_iters
+
+    def _step(self, dtype, device):
+        """One loop iteration: the body of `integrate_rays`, and ``iters``
+        counting the iterations in which a ray was alive (the reference's
+        loop counter)."""
+        key = (dtype, device)
+        if key not in self._steps:
+            body = _make_body(self.p, dtype, device)
+
+            def step(c):
+                return {**body(c), "iters": c["iters"] + c["alive"].any().to(torch.int32)}
+
+            self._steps[key] = step
+        return self._steps[key]
+
+    def _static(self, cf: dict):
+        """The static carry of ``cf``'s width (made at its first use), with
+        ``cf`` copied in, and its graph (None until captured)."""
+        y = cf["y"]
+        key = (y.shape[0], y.shape[1], y.dtype, y.device)
+        if key not in self._widths:
+            self._widths[key] = [None, {k: torch.empty_like(v, memory_format=torch.contiguous_format) for k, v in cf.items()}]
+        entry = self._widths[key]
+        for k, buf in entry[1].items():
+            buf.copy_(cf[k])
+        return entry
+
+    def __call__(self, y0, lam_span) -> IntegrationResult:
+        y0 = torch.as_tensor(y0)
+        if y0.dim() != 2:
+            raise ValueError("CompactedIntegrator expects a (N, S) batch")
+        p, N = self.p, y0.shape[0]
+        cf, lam0 = _init_carry(p, y0, lam_span)
+        cf["iters"] = torch.zeros((), dtype=torch.int32, device=y0.device)
+        graphed = _graphed(cf)
+        if graphed:
+            _refuse_uncapturable(cf)
+        step = self._step(y0.dtype, y0.device)
+        out = {k: cf[k].clone(memory_format=torch.contiguous_format) for k in _OUT_KEYS}
+        glob_idx = torch.arange(N, device=y0.device)  # working-set row → ray
+        entry = self._static(cf) if graphed else None
+        if graphed:
+            cf = entry[1]
+
+        def flush():
+            for k in _OUT_KEYS:
+                out[k].index_copy_(0, glob_idx, cf[k])
+
+        _tell("loop", tangent=False, graphed=graphed)
+        stats, iters, replays, segment = [], 0, 0, 0  # iters: those in which a ray was alive
+        while iters < p.max_steps:
+            width = cf["lam"].shape[0]
+            cap = min(iters + self._segment_len(segment), p.max_steps)
+            segment += 1
+            done = iters
+            while done < cap:
+                # a segment's first block reads nothing: the last segment
+                # left a ray alive, and an iteration without one changes no
+                # output and no count
+                if done > iters and not bool(cf["alive"].any()):
+                    break
+                _tell("block", iterations=replays)
+                block = min(_ALIVE_CHECK_EVERY, cap - done)
+                if graphed:
+                    if entry[0] is None:
+                        entry[0] = _capture(step, cf, width=width)
+                    for _ in range(block):
+                        entry[0].replay()
+                else:
+                    for _ in range(block):
+                        cf = step(cf)
+                done += block
+                replays += block
+            # one read on the host for both numbers
+            n_alive, executed = torch.stack([cf["alive"].sum(), cf["iters"].to(torch.int64)]).tolist()
+            stats.append((width, executed - iters, n_alive))
+            iters = executed
+            if self.progress is not None:
+                self.progress(dict(segment=segment, width=width, executed_iters=executed, alive=n_alive, total=N))
+            if n_alive == 0:
+                break
+            bucket = _next_bucket(n_alive, self.min_bucket)
+            if bucket < width:
+                flush()
+                idx = torch.argsort((~cf["alive"]).to(torch.uint8), stable=True)[:bucket]
+                glob_idx = glob_idx[idx]
+                gathered = {k: (v if k == "iters" else v[idx]) for k, v in cf.items()}
+                if graphed:
+                    entry = self._static(gathered)
+                    cf = entry[1]
+                else:
+                    cf = gathered
+        flush()
+        _tell("end", iterations=replays, alive=int(cf["alive"].sum()) if _OBSERVERS else None)
+        self.last_stats = stats
+
+        y_f, lam_f = out["y"], out["lam"]
+        if p.crossing_fn is not None and p.terminate_on_hit:
+            y_f, lam_f = _polish_carry_hits(p, out, y_f, lam_f)
+        result = IntegrationResult(
+            y=y_f, lam=lam_f, y0=y0, lam0=lam0, status=out["status"], steps=out["steps"], failed=out["failed"]
+        )
+        self.last_steps = result.steps
+        return result
 
 
 def _integrate_lifted(p: _Problem, body, make_y0, inputs, dots, lam_span, polish: bool, slots=(), batched=False):

@@ -16,8 +16,8 @@ give a θ-dependent inner chart bound.
 ladder (`solver.integrate_rays_checkpointed`); under a `torch.func`
 transform on a CUDA tensor a trace is `_LiftedTrace`, whose loop carries
 the parameters' tangents (`lifting`). `Tracer` traces in segments with a
-progress hook, on the CUDA integrator where it takes the configuration (the
-reference's wraps `CompactedIntegrator`, which the port does not have).
+progress hook: on the CUDA integrator where it takes the configuration,
+elsewhere through `solver.CompactedIntegrator`, as the reference's does.
 """
 
 from __future__ import annotations
@@ -35,7 +35,12 @@ from gradus_tpu_torch.geodesics.equation import constrain_all, geodesic_equation
 from gradus_tpu_torch.integrate.points import GeodesicPoint, unpack_solution
 from gradus_tpu_torch.integrate import lifting, solver
 from gradus_tpu_torch.integrate.lifting import slot_values, tensor_slots
-from gradus_tpu_torch.integrate.solver import integrate_rays, integrate_rays_checkpointed
+from gradus_tpu_torch.integrate.solver import (
+    CompactedIntegrator,
+    _segment_schedule,
+    integrate_rays,
+    integrate_rays_checkpointed,
+)
 from gradus_tpu_torch.integrate.status import StatusCodes
 from gradus_tpu_torch.metrics.base import AbstractMetric, _as_observer
 from gradus_tpu_torch.utils.jvp import jvp
@@ -248,8 +253,17 @@ def _rays(m, geometry, x, v):
 
 
 def _geometry_events(geometry, gtol):
-    """The ``crossing_fn`` and ``hit_fn`` keywords of `integrate_rays` for a
-    geometry's continuous events."""
+    """The event keywords of `integrate_rays` for ``geometry``: none without
+    one, ``segment_fn`` for a segment-based one (a mesh's chord test), else
+    ``crossing_fn`` and ``hit_fn`` for its continuous events."""
+    if geometry is None:
+        return {}
+    if getattr(geometry, "segment_based", False):
+
+        def segment_fn(xa, xb):
+            return geometry.segment_hit(xa, xb)
+
+        return dict(segment_fn=segment_fn)
 
     def crossing_fn(y):
         return geometry.crossing_indicator(y[..., 0:4])
@@ -271,14 +285,7 @@ def _integrate(m, x, v, lam_span, trace, geometry, gtol, constrain, abstol, relt
     single, x, v = _rays(m, geometry, x, v)
     a_tol, r_tol = _config.default_tols(x.dtype)
     kw = dict(kw, abstol=a_tol if abstol is None else abstol, reltol=r_tol if reltol is None else reltol)
-    if geometry is not None and getattr(geometry, "segment_based", False):
-
-        def segment_fn(xa, xb):
-            return geometry.segment_hit(xa, xb)
-
-        kw["segment_fn"] = segment_fn
-    elif geometry is not None:
-        kw.update(_geometry_events(geometry, gtol))
+    kw.update(_geometry_events(geometry, gtol))
     run = _Run(m, trace, geometry, constrain, lam_span, kw, checkpointed)
     if v_dot is None and not checkpointed and _lift_route(x.device):
         if run.under_transform(x, v):
@@ -513,19 +520,6 @@ def tracegeodesics(m, x, v=None, lam_span=(0.0, 2000.0), **kwargs):
     return trace_geodesics(m, x, v, lam_span, **kwargs)
 
 
-def _segment_schedule(segment_iters: int, schedule):
-    """The reference's growing schedule of segment lengths: pairs of
-    ``segment_iters // 4`` (at least 8), doubling up to ``segment_iters``,
-    which every later segment has."""
-    if schedule is not None:
-        return tuple(schedule)
-    s, seq = max(segment_iters // 4, 8), []
-    while s < segment_iters:
-        seq.extend([s, s])
-        s *= 2
-    return tuple(seq) or (segment_iters,)
-
-
 class Tracer:
     """Reusable tracer over a fixed (metric, geometry) pair (counterpart of
     the reference's `Tracer`, with the same constructor).
@@ -539,14 +533,15 @@ class Tracer:
     bucket of ``min_bucket`` · 4^k rays that holds them is narrower than
     the pass (the reference's rule); until then the next pass keeps its
     width. Elsewhere (a CPU tensor, a charge, ``terminate_fns``, any
-    other geometry, a metric the kernel cannot compile) it runs
-    `trace_geodesics`, whose lockstep loop keeps
-    the whole batch: ``min_bucket`` does not act there, and a segment ends
-    at the first alive check (every 16 iterations) at or after its length.
+    other geometry, a metric the kernel cannot compile) it runs the
+    lockstep solver through `CompactedIntegrator`, as the reference's
+    `Tracer` does: one integrator per dtype and device, built at first use,
+    whose working set shrinks by the same rule (on the card one captured
+    graph a width); each ray's result is `trace_geodesics`'s.
 
     ``segment_iters`` and ``segment_schedule`` give the segments' lengths:
     the schedule's entries, then ``segment_iters`` each (by default the
-    reference's growing schedule, `_segment_schedule`). ``progress``, if
+    reference's growing schedule, `solver._segment_schedule`). ``progress``, if
     given, is called after each segment with a dict of ``segment``,
     ``width`` (the rays the segment ran), ``executed_iters`` (loop
     iterations so far), ``alive`` (rays still in flight) and ``total``.
@@ -588,9 +583,7 @@ class Tracer:
         self.min_bucket = min_bucket
         self.segment_schedule = _segment_schedule(segment_iters, segment_schedule)
         self.progress = progress
-
-    def _segment_len(self, k: int) -> int:
-        return self.segment_schedule[k] if k < len(self.segment_schedule) else self.segment_iters
+        self._integrators = {}  # (dtype, device) → CompactedIntegrator
 
     def _on_kernel(self, device, dtype) -> bool:
         from gradus_tpu_torch.integrate import cuda_solver
@@ -612,22 +605,37 @@ class Tracer:
         return self._lockstep(x, v, lam_span, constrain)
 
     def _lockstep(self, x, v, lam_span, constrain):
-        kw = self.kw
-        n, state = x.shape[0], dict(segment=0, end=self._segment_len(0))
+        if constrain:
+            v = constrain_all(self.m, x, v, mu=self.trace.mu)
+        integrator = self._integrator(x.dtype, x.device)
+        return unpack_solution(integrator(torch.cat([x, v], dim=-1), lam_span))
 
-        def observer(event, iterations=0, alive=None, **_):
-            if self.progress is None or event not in ("block", "end") or iterations == 0:
-                return
-            if event == "block" and iterations < state["end"]:
-                return
-            state["segment"] += 1
-            state["end"] = iterations + self._segment_len(state["segment"])
-            self.progress(dict(segment=state["segment"], width=n, executed_iters=iterations, alive=alive, total=n))
-
-        with solver.observe_loops(observer):
-            return trace_geodesics(
-                self.m, x, v, lam_span, trace=self.trace, geometry=self.geometry, constrain=constrain, **kw
+    def _integrator(self, dtype, device):
+        """The `CompactedIntegrator` of the rays' dtype and device: the
+        right-hand side, events, chart and tolerances of `trace_geodesics`."""
+        key = (dtype, device)
+        if key not in self._integrators:
+            kw = self.kw
+            a_tol, r_tol = _config.default_tols(self.dtype or dtype)
+            chart_inner = kw["chart_inner"]
+            if chart_inner is None:
+                chart_inner = self.m.inner_radius() * kw["closest_approach"]
+            self._integrators[key] = CompactedIntegrator(
+                make_geodesic_rhs(self.m, self.trace),
+                abstol=a_tol if kw["abstol"] is None else kw["abstol"],
+                reltol=r_tol if kw["reltol"] is None else kw["reltol"],
+                r_inner=chart_inner,
+                r_outer=kw["chart_outer"],
+                terminate_fns=kw["terminate_fns"],
+                max_steps=kw["max_steps"],
+                n_interp=kw["n_interp"],
+                segment_iters=self.segment_iters,
+                min_bucket=self.min_bucket,
+                segment_schedule=self.segment_schedule,
+                progress=self.progress,
+                **_geometry_events(self.geometry, kw["gtol"]),
             )
+        return self._integrators[key]
 
     def _kernel(self, x, v, lam_span, constrain):
         from gradus_tpu_torch.integrate import cuda_solver

@@ -6,7 +6,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tsit5_step", "hermite_interp", "initial_dt"]
+__all__ = ["tsit5_step", "hermite_interp", "initial_dt", "TSIT5_C"]
+
+# the tableau's nodes
+TSIT5_C = (0.0, 0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0)
 
 _A = (
     (0.161,),

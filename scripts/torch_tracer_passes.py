@@ -32,7 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from gradus_tpu_torch.camera.impact import map_impact_parameters  # noqa: E402
 from gradus_tpu_torch.geometry import ThinDisc  # noqa: E402
 from gradus_tpu_torch.integrate import CudaTracer  # noqa: E402
-from gradus_tpu_torch.integrate.tracing import _segment_schedule  # noqa: E402
+from gradus_tpu_torch.integrate.solver import _segment_schedule  # noqa: E402
 from gradus_tpu_torch.metrics import KerrMetric  # noqa: E402
 
 VARIANTS = {"one_pass": "one", "full_width": 1 << 62, "bucket_8192": 8192, "bucket_1024": 1024, "bucket_1": 1}

@@ -17,8 +17,10 @@ arrival time, whose traces replay captured within the transform), a
 ring's and a disc's fan profiles, and the adaptive sky's trace of 2N rays
 with their tangents (each copy's tangent bit for bit that of a trace of
 its own); the special traces' right-hand sides (charged, first-order
-Mino-time, radiative transfer, windings) and the shaped inner chart; and a
-`torch.func` transform around a captured loop raises.
+Mino-time, radiative transfer, windings) and the shaped inner chart; a
+`torch.func` transform around a captured loop raises; and
+`CompactedIntegrator`, one captured graph a working-set width, against
+one `integrate_rays` call.
 
     python -m pytest --noconftest -m cuda tests/test_torch_lockstep_graph.py
 """
@@ -595,3 +597,42 @@ def test_tracer_on_the_card_matches_cuda_tracer(dev):
     want = CudaTracer(m, geometry=d)(x.expand_as(v), v, SPAN)
     _equal(got, want)
     assert len(events) > 2 and events[-1]["alive"] == 0 and events[-1]["width"] < 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_compacted_integrator_on_the_card_matches_integrate_rays(dev, dtype):
+    """`CompactedIntegrator` (``min_bucket=512``) on 8,192 flagship rays
+    against one `integrate_rays` call, as `chip_smoke.py`'s `compacted`
+    holds it: statuses, steps and failures identical, y and λ bit for bit
+    or each ray within 1e-6 relative (f32; 1e-12 in f64); one capture a
+    working-set width, none on a second call of the same size."""
+    from gradus_tpu_torch.config import default_tols
+
+    m, x, A, B, d = _flagship(dev, dtype, 8192)
+    v = map_impact_parameters(m, x, A, B)
+    xs = x.expand_as(v)
+    y0 = torch.cat([xs, constrain_all(m, xs, v)], dim=-1)
+    a_tol, r_tol = default_tols(dtype)
+    kw = dict(
+        abstol=a_tol, reltol=r_tol, r_inner=m.inner_radius() * 1.01, r_outer=12000.0,
+        crossing_fn=lambda y: d.crossing_indicator(y[..., 0:4]), hit_fn=lambda y: d.is_hit(y[..., 0:4], gtol=1e-2),
+    )  # fmt: skip
+    f = make_geodesic_rhs(m)
+    want = solver.integrate_rays(f, y0, SPAN, **kw)
+    ci = solver.CompactedIntegrator(f, min_bucket=512, **kw)
+    rtol = 1e-6 if dtype == torch.float32 else 1e-12
+    for call in range(2):
+        events = _Events()
+        with solver.observe_loops(events):
+            got = ci(y0, SPAN)
+        widths = sorted({w for w, _, _ in ci.last_stats}, reverse=True)
+        assert len(widths) >= 2 and widths[0] == 8192
+        assert [i["width"] for e, i in events if e == "capture"] == (widths if call == 0 else [])
+        for field in ("status", "steps", "failed"):
+            assert torch.equal(getattr(got, field), getattr(want, field)), field
+        for field in ("y", "lam"):
+            a, b = getattr(got, field), getattr(want, field)
+            a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+            rel = (a - b).abs().amax(-1) / b.abs().amax(-1).clamp(min=1e-30)
+            assert float(rel.max()) <= rtol, field

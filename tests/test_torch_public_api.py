@@ -128,6 +128,22 @@ def test_top_level_names():
     assert tgt.JohannsenPsaltisMetric is tgt.metrics.JohannsenPsaltisMetric
 
 
+def test_integrate_names():
+    """`gradus_tpu.integrate`'s public names all exist in the port's
+    `integrate` package (`CompactedIntegrator` among them), and `TSIT5_C`
+    is the reference's tableau nodes."""
+    import gradus_tpu.integrate as jint
+    import gradus_tpu.integrate.tsit5 as jtsit5
+
+    import gradus_tpu_torch.integrate as tint
+    from gradus_tpu_torch.integrate import TSIT5_C, CompactedIntegrator
+
+    names = (n for n in dir(jint) if not n.startswith("_") and not isinstance(getattr(jint, n), types.ModuleType))
+    assert sorted(n for n in names if not hasattr(tint, n)) == []
+    assert CompactedIntegrator is tint.solver.CompactedIntegrator and "TSIT5_C" in tint.tsit5.__all__
+    assert TSIT5_C == jtsit5.TSIT5_C
+
+
 def test_documented_names_in_the_port():
     """tests/test_docs.py's `gt.<name>` set: the port lacks only
     `enable_x64` (no torch meaning)."""
